@@ -1,4 +1,4 @@
-"""``python -m sshslie_torch --config config/config.yml --phase test --test_timestamp <ts>``."""
+"""``python -m sshslie_torch --config config/config.yml --phase train|test|train_and_test [--device cpu]``."""
 
 from sshslie_torch.runner import cli
 

@@ -14,9 +14,14 @@ the same enum checks and the same derived run directories. It differs in:
   it is asked for.
 * Checkpoints are the reference ``.pth`` files (``checkpoints.py``).
 * PyYAML is imported only when a YAML file is read.
+* Training runs the host pipeline only: ``fused_pipeline: auto`` and
+  ``sampler: auto`` resolve to it (``PatchSampler``, numpy PCG64).
 
-Keys that only the JAX package reads (mesh, pipeline, serving, XLA cache) load
-and are ignored.
+Every key loads. A value that asks for behaviour the port lacks raises
+``NotImplementedError`` naming its ROADMAP.md item (:func:`check_ported`);
+keys that only change speed (``prefetch_batches``, ``checkpoint_async``,
+``jit_cache_dir``, ...) or only the JAX package's serving are ignored, and
+training prints the speed-only ones.
 """
 
 from __future__ import annotations
@@ -97,34 +102,34 @@ class Config:
     matmul_precision: str = ""            # '' | 'float32' | 'highest': full float32 (TF32 off)
     attention_impl: str = "auto"          # 'auto' | 'dense' | 'chunked' | 'kernel'
     conv_impl: str = "auto"               # 'auto' | 'torch' | 'kernel': the shallow conv's path
-    remat: bool = False                   # JAX key; not ported yet
+    remat: bool = False                   # JAX key; true raises (not ported yet)
     use_attention: bool = False           # SEBlock variant (reference model.py:122,130-131)
     use_transformer: bool = True          # TransformerBlock variant (reference default)
-    mesh_shape: str = ""                  # JAX key; ignored
+    mesh_shape: str = ""                  # JAX key; non-empty raises (not ported yet)
     data_axis: str = "data"               # JAX key; ignored
     space_axis: str = ""                  # JAX key; ignored
-    prefetch_batches: int = 2             # JAX key; ignored
+    prefetch_batches: int = 2             # JAX key; speed only, ignored (no prefetch thread)
     data_pattern: str = "*.mat"           # dataset glob per split dir
     lazy_loading: bool = False            # JAX key; the port loads every cube to RAM
     cube_cache_size: int = 8              # JAX key; ignored
-    fused_pipeline: str = "auto"          # JAX key; ignored
-    sampler: str = "auto"                 # JAX key; ignored
-    steps_per_dispatch: int = 1           # JAX key; ignored
-    fused_window: Any = 0                 # JAX key; ignored
-    grad_accum_steps: int = 1             # JAX key; ignored
-    log_every_step: int = 0               # JAX key; ignored
-    checkpoint_keep: int = 0              # JAX key; ignored
-    checkpoint_best: bool = False         # JAX key; ignored
+    fused_pipeline: str = "auto"          # 'auto'/'off': the host pipeline; 'on' raises
+    sampler: str = "auto"                 # 'auto'/'python': PatchSampler; 'native' raises
+    steps_per_dispatch: int = 1           # > 1 raises (not ported yet)
+    fused_window: Any = 0                 # JAX key; ignored (fused pipeline only)
+    grad_accum_steps: int = 1             # > 1 raises (not ported yet)
+    log_every_step: int = 0               # >0: print the loss every N batches
+    checkpoint_keep: int = 0              # >0: keep only the newest N model_epoch_N.pth
+    checkpoint_best: bool = False         # true raises (not ported yet)
     use_mlflow: bool = True               # JAX key; the port logs no MLflow runs
-    jit_cache_dir: str = "~/.cache/sshslie_tpu/xla"  # JAX key; ignored
+    jit_cache_dir: str = "~/.cache/sshslie_tpu/xla"  # JAX key; speed only, ignored
     profile_dir: str = ""                 # JAX key; ignored
     eval_pad_multiple: int = 1            # >1: edge-pad H,W to a multiple before the forward
     eval_batch: int = 1                   # >1: stack same-shape cubes into one forward
     eval_sharded: bool = False            # JAX key; ignored
     eval_shard_mode: str = "spatial"      # JAX key; ignored
-    async_eval: bool = False              # JAX key; ignored
-    eval_metric_source: str = "memory"    # JAX key; ignored
-    checkpoint_async: bool = True         # JAX key; ignored
+    async_eval: bool = False              # true raises (not ported yet)
+    eval_metric_source: str = "memory"    # JAX key; ignored (scores from memory, same values)
+    checkpoint_async: bool = True         # JAX key; speed only, ignored (writes are synchronous)
     serve_host: str = "127.0.0.1"         # JAX key; ignored
     serve_port: int = 8900                # JAX key; ignored
     serve_pad_multiple: int = 64          # JAX key; ignored
@@ -247,6 +252,30 @@ def _validate_enums(cfg: "Config") -> None:
                 f"config key {key!r}: invalid value {val!r} "
                 "(an integer >= 1)"
             )
+
+
+# Values the port cannot honour yet: (applies to the test phase too, what,
+# ROADMAP.md queue-1 item). bfloat16 raises in models/enhance.py::build_model.
+_NOT_PORTED = (
+    (True, lambda c: bool(c.mesh_shape), "mesh_shape (multi-GPU)", "item 7"),
+    (False, lambda c: c.fused_pipeline == "on", "fused_pipeline: on", "item 5"),
+    (False, lambda c: c.grad_accum_steps > 1, "grad_accum_steps > 1", "item 5"),
+    (False, lambda c: c.steps_per_dispatch > 1, "steps_per_dispatch > 1", "item 5"),
+    (False, lambda c: bool(c.remat), "remat: true", "item 5"),
+    (False, lambda c: c.sampler == "native", "sampler: native", "item 9"),
+    (False, lambda c: bool(c.async_eval), "async_eval: true", "item 6"),
+    (False, lambda c: bool(c.checkpoint_best), "checkpoint_best: true", "item 6"),
+)
+# Training keys that change only speed; training prints them as ignored.
+SPEED_ONLY_KEYS = ("prefetch_batches", "checkpoint_async", "jit_cache_dir")
+
+
+def check_ported(cfg: "Config", training: bool) -> None:
+    """Raise NotImplementedError for a value whose behaviour the port lacks, so
+    that no ignored key changes results."""
+    for always, asks, what, item in _NOT_PORTED:
+        if (always or training) and asks(cfg):
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
 
 
 def _coerce(value: str, target_type: type) -> Any:

@@ -10,9 +10,14 @@
   through the model with per-cube timing (host clock, ending in
   ``torch.cuda.synchronize()`` on the card), and saves the denormalised S,
   S·(max−min)+min in float32, plus the artifacts the config asks for.
+* :func:`evaluate_model` is the mid-training eval: every eval cube through
+  the trainer's model, saved to ``eval_result_dir/epoch_N/``, scored in
+  memory against ``label_dir`` (the JAX ``eval_metric_source: memory``
+  path), the average PSNR/SSIM/SAM returned.
 
 Outputs are saved as each cube finishes, outside its timed window; the JAX
-package's background saver and its sharded inferencers are not ported yet.
+package's background saver, its asynchronous eval and its sharded
+inferencers are not ported yet.
 """
 
 from __future__ import annotations
@@ -126,6 +131,48 @@ def _score_in_memory(name: str, S: torch.Tensor, cfg: Config, label_dir: str):
     print(f"\n===> {name} | PSNR : {scores[0]:.4f}")
     print(f"===> {name} | SSIM : {scores[1]:.4f}")
     print(f"===> {name} | SAM  : {scores[2]:.4f}")
+    return scores
+
+
+def _average_scores(per_file: Dict[str, tuple]) -> Dict[str, float]:
+    """Per-file scores averaged in sorted-filename order, in float64, as
+    ``calc_metrics`` averages its sorted walk."""
+    total = np.zeros(3, dtype=np.float64)
+    for name in sorted(per_file):
+        total += per_file[name]
+    avg = total / len(per_file)
+    return {"psnr": float(avg[0]), "ssim": float(avg[1]), "sam": float(avg[2])}
+
+
+def evaluate_model(trainer, eval_store: CubeStore, eval_result_dir: str, epoch: int,
+                   label_dir: Optional[str]) -> Optional[Dict[str, float]]:
+    """Mid-training eval (reference model.py:343-404), synchronous: returns
+    ``{psnr, ssim, sam}`` averaged over the cubes with ground truth, or None
+    when there is no eval cube or no ground truth."""
+    if len(eval_store) == 0:
+        print(f"--- No files found for evaluation. Skipping evaluation for epoch {epoch} ---")
+        return None
+    print(f"--- Running evaluation for epoch {epoch} ---")
+    cfg = trainer.cfg
+    epoch_dir = os.path.join(eval_result_dir, f"epoch_{epoch}")
+    os.makedirs(epoch_dir, exist_ok=True)
+    infer = Inferencer(trainer.model, cfg.eval_pad_multiple)
+    per_file: Dict[str, tuple] = {}
+    for idx, R, I, Id, S, _sec in _inference_stream(infer, eval_store, cfg.eval_batch):
+        filename = os.path.basename(eval_store.files[idx])
+        if label_dir:
+            sc = _score_in_memory(filename, S, cfg, label_dir)
+            if sc is not None:
+                per_file[filename] = sc
+        _save_outputs(cfg, epoch_dir, filename, S, R, I, Id)
+    scores = None
+    if label_dir:
+        if per_file:
+            scores = _average_scores(per_file)
+        else:
+            print(f"--- Eval metrics skipped for epoch {epoch}: "
+                  "Number of files must be greater than 0 ---")
+    print(f"--- Evaluation for epoch {epoch} finished. Results saved to {epoch_dir} ---")
     return scores
 
 

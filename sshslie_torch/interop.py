@@ -17,6 +17,7 @@ reads what the port writes.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -68,27 +69,53 @@ def jax_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 
 def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
-                    epoch: Optional[int] = None) -> str:
-    """Write a reference-format ``.pth``. The optimizer state is a fresh Adam
-    over as many parameters (empty moments), which the reference's
+                    epoch: Optional[int] = None,
+                    optimizer: Optional[torch.optim.Optimizer] = None) -> str:
+    """Write a reference-format ``.pth`` through a temporary file and an
+    atomic rename. ``optimizer_state_dict`` is the given optimizer's real
+    ``state_dict()`` (a trainer's Adam, for resume); without one it is a fresh
+    Adam over as many parameters (empty moments), which the reference's
     ``load_checkpoint`` reads unconditionally (model.py:606)."""
     sd = {k: v.detach().cpu() for k, v in state_dict.items()}
-    opt = torch.optim.Adam([torch.nn.Parameter(torch.zeros(1)) for _ in sd], lr=1e-3)
+    if optimizer is None:
+        optimizer = torch.optim.Adam([torch.nn.Parameter(torch.zeros(1)) for _ in sd], lr=1e-3)
     payload: Dict[str, Any] = {"model_state_dict": sd,
-                               "optimizer_state_dict": opt.state_dict()}
+                               "optimizer_state_dict": _to_cpu(optimizer.state_dict())}
     if epoch is not None:
         payload["epoch"] = int(epoch)
-    torch.save(payload, path)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
     return path
 
 
-def load_checkpoint(path: str, model: torch.nn.Module) -> Optional[int]:
+def _to_cpu(tree: Any) -> Any:
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu()
+    if isinstance(tree, dict):
+        return {k: _to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_cpu(v) for v in tree)
+    return tree
+
+
+def load_checkpoint(path: str, model: torch.nn.Module,
+                    optimizer: Optional[torch.optim.Optimizer] = None) -> Optional[int]:
     """Load a reference ``.pth`` (full checkpoint or bare state dict) into
-    ``model`` with ``strict=True``. Returns the epoch, or None."""
+    ``model`` with ``strict=True``, and its optimizer state into
+    ``optimizer`` when one is given (a bare state dict has none: that
+    raises). Returns the epoch, or None."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     epoch = None
+    opt_state = None
     if isinstance(ckpt, dict) and "model_state_dict" in ckpt:
         epoch = int(ckpt["epoch"]) if "epoch" in ckpt else None
+        opt_state = ckpt.get("optimizer_state_dict")
         ckpt = ckpt["model_state_dict"]
     model.load_state_dict(ckpt, strict=True)
+    if optimizer is not None:
+        if opt_state is None:
+            raise ValueError(f"{path} holds no optimizer state: it can warm-start "
+                             "(pretrained_model) but cannot resume training")
+        optimizer.load_state_dict(opt_state)
     return epoch

@@ -25,6 +25,7 @@ import torch
 import torch.nn as nn
 
 from sshslie_torch.models.layers import Conv2d, ConvTranspose2d, conv_block
+from sshslie_torch.ops import at_least_float32
 
 
 class DecompositionNet(nn.Module):
@@ -56,8 +57,8 @@ class DecompositionNet(nn.Module):
         deconv = self.deconv(conv3)[:, :, : conv1.shape[2], : conv1.shape[3]]
         conv5 = self.conv5(torch.cat([deconv, conv1], dim=1))
         conv7 = self.conv7(torch.cat([conv5, conv0], dim=1))
-        # Sigmoid in float32, whatever the compute type.
-        recon = self.recon(conv7).float()
+        # Sigmoid in float32 at least, whatever the compute type.
+        recon = at_least_float32(self.recon(conv7))
         R = torch.sigmoid(recon[:, : self.in_channels])
         L = torch.sigmoid(recon[:, self.in_channels:])
         return R, L

@@ -1,5 +1,7 @@
 """Top-level enhancement model, S = R_low·I_delta + R_low·I_low, as
-``sshslie_tpu/models/enhance.py`` and ``train.py::build_model``.
+``sshslie_tpu/models/enhance.py`` and ``train.py::build_model``. The training
+objective also re-decomposes S (reference model.py:545-546):
+:meth:`LowLightEnhanceNet.forward_with_redecomposition`.
 
 The public forward takes and returns NHWC batches, the JAX layout; inside,
 the nets see NCHW-shaped channels_last views of them (see ``layers.py``).
@@ -43,11 +45,21 @@ class LowLightEnhanceNet(nn.Module):
         S = R_low * I_delta + R_low * I_low
         return tuple(t.permute(0, 2, 3, 1) for t in (R_low, I_low, I_delta, S))
 
+    def forward_with_redecomposition(self, input_low: torch.Tensor):
+        """The forward plus the second decomposition of S used by the loss →
+        (R_low, I_low, I_delta, S, R_enh), each NHWC."""
+        R_low, I_low, I_delta, S = self(input_low)
+        R_enh, _ = self.decomposition_net(S.permute(0, 3, 1, 2))
+        return R_low, I_low, I_delta, S, R_enh.permute(0, 2, 3, 1)
+
 
 def build_model(cfg, channels: int, device: Union[None, str, torch.device] = None,
-                generator: Optional[torch.Generator] = None) -> LowLightEnhanceNet:
-    """The configured model, in eval mode, on ``device`` (default: ``cfg.device``,
-    which means the CUDA card unless it says 'cpu')."""
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> LowLightEnhanceNet:
+    """The configured model on ``device`` (default: ``cfg.device``, which means
+    the CUDA card unless it says 'cpu'), in eval mode, or in train mode with
+    ``train``. The net has no dropout and no batch norm, so the two modes
+    compute the same function; the flag keeps ``model.training`` honest."""
     if cfg.precision != "float32":
         raise NotImplementedError(
             f"precision {cfg.precision!r}: the port runs float32 only so far "
@@ -57,4 +69,4 @@ def build_model(cfg, channels: int, device: Union[None, str, torch.device] = Non
         input_channels=channels, use_attention=cfg.use_attention,
         use_transformer=cfg.use_transformer, attention_impl=cfg.attention_impl,
         conv_impl=cfg.conv_impl, generator=generator)
-    return model.to(dev).eval()
+    return model.to(dev).train(train)

@@ -15,6 +15,7 @@ import torch
 import torch.nn as nn
 
 from sshslie_torch.models.layers import Conv2d, Dense, conv_block, nearest_resize
+from sshslie_torch.ops import at_least_float32
 from sshslie_torch.ops.attention import multi_head_attention
 
 
@@ -117,4 +118,4 @@ class IllumAdjustmentNet(nn.Module):
         gather = torch.cat([nearest_resize(deconv1, size), nearest_resize(deconv2, size),
                             deconv3], dim=1)
         out = self.final_conv(self.feature_fusion(gather))
-        return out.float()
+        return at_least_float32(out)

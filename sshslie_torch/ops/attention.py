@@ -1,15 +1,17 @@
 """Spatial self-attention for the TransformerBlock, over (B, heads, S, D) tensors.
 
-Counterpart of ``sshslie_tpu/ops/attention.py``, forward only:
+Counterpart of ``sshslie_tpu/ops/attention.py``:
 
 * :func:`sdpa_dense` (the JAX ``sdpa_xla``): the full (S, S) logits in
   float32, softmax, product with V. For short sequences.
 * :func:`sdpa_chunked`: an online softmax over key blocks of 512, keys past S
   masked with -1e30; O(S * block) memory. The plain version of the kernel.
-* :func:`flash_attention`: the wrapper of ``csrc/flash_attn.cu``. On a CUDA
-  tensor it launches the kernel and counts the launch in
+* :func:`flash_attention`: the kernel of ``csrc/flash_attn.cu`` behind the
+  :class:`FlashAttention` autograd Function (JAX ``_flash_attention_ad``). On
+  a CUDA tensor the forward launches the kernel and counts the launch in
   ``flash_attention.launches``, or raises; on a CPU tensor it computes
-  :func:`sdpa_chunked`.
+  :func:`sdpa_chunked`. The backward recomputes through :func:`sdpa_chunked`
+  under autograd, as JAX ``_flash_bwd`` does: there is no backward kernel.
 * :func:`multi_head_attention`: 'auto' takes the dense form up to 2048 tokens
   and past that the kernel on CUDA and ``sdpa_chunked`` on the CPU, as the JAX
   dispatch takes the Pallas kernel on a TPU and the chunked form elsewhere.
@@ -23,8 +25,9 @@ import ctypes
 import math
 
 import torch
+from torch.autograd.function import once_differentiable
 
-from sshslie_torch.ops import _build
+from sshslie_torch.ops import _build, at_least_float32
 
 NEG_INF = -1e30
 DENSE_MAX_SEQ = 2048
@@ -32,11 +35,12 @@ HEAD_DIMS = (16, 32, 64)
 
 
 def sdpa_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Dense scaled-dot-product attention with float32 logits."""
+    """Dense scaled-dot-product attention with float32 (at least) logits."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    logits = torch.einsum("bhsd,bhtd->bhst", q.float(), k.float())
+    logits = torch.einsum("bhsd,bhtd->bhst", at_least_float32(q), at_least_float32(k))
     weights = torch.softmax(logits * scale, dim=-1).to(v.dtype)
-    return torch.einsum("bhst,bhtd->bhsd", weights.float(), v.float()).to(q.dtype)
+    return torch.einsum("bhst,bhtd->bhsd", at_least_float32(weights),
+                        at_least_float32(v)).to(q.dtype)
 
 
 def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,12 +82,9 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(Q K^T / sqrt(D)) V over (B, H, S, D) -> (B, H, S, D).
-
-    CPU tensors take :func:`sdpa_chunked`. CUDA tensors take the kernel; a
-    shape, type or layout the kernel does not take raises.
-    """
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The forward of :class:`FlashAttention`: the kernel on CUDA tensors,
+    :func:`sdpa_chunked` on CPU tensors."""
     if q.device.type == "cpu":
         return sdpa_chunked(q, k, v)
     b, h, s, d = q.shape
@@ -106,6 +107,36 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     flash_attention.launches += 1
     _build.check(lib, code, "flash attention kernel launch")
     return o
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention forward on the kernel; backward by recomputation through
+    :func:`sdpa_chunked` (JAX ``_flash_fwd``/``_flash_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(q, k, v)
+        return _flash_forward(q, k, v)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g: torch.Tensor):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need)
+                      for t, need in zip((q, k, v), ctx.needs_input_grad)]
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(sdpa_chunked(*inputs), wanted, g))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(Q K^T / sqrt(D)) V over (B, H, S, D) -> (B, H, S, D), differentiable.
+
+    CPU tensors take :func:`sdpa_chunked`. CUDA tensors take the kernel; a
+    shape, type or layout the kernel does not take raises.
+    """
+    return FlashAttention.apply(q, k, v)
 
 
 flash_attention.launches = 0

@@ -1,17 +1,27 @@
-"""The shallow k x k 64 -> 64 convolution: CUDA kernel, plain version, dispatch.
+"""The shallow k x k 64 -> 64 convolution: CUDA kernels, plain versions, autograd.
 
 Counterpart of ``sshslie_tpu/ops/conv_pallas.py`` (``conv9_supported``,
-``conv9_fwd``, ``shallow_conv``), forward only. Layout as in the JAX package:
-x is NHWC (B, H, W, 64), w is HWIO (k, k, 64, 64), the result NHWC.
+``conv9_fwd``, ``conv9_wgrad``, ``_dgrad_weights``, ``pallas_shallow_conv``).
+Layout as in the JAX package: x is NHWC (B, H, W, 64), w is HWIO
+(k, k, 64, 64), the result NHWC.
 
-* :func:`conv9_fwd` is the wrapper. On a CUDA tensor it launches the kernel
-  of ``csrc/conv9.cu`` and counts the launch in ``conv9_fwd.launches``, or
+* :func:`conv9_fwd` is the wrapper of ``csrc/conv9.cu``. On a CUDA tensor it
+  launches the kernel and counts the launch in ``conv9_fwd.launches``, or
   raises; on a CPU tensor it computes :func:`conv9_plain`.
-* :func:`conv9_plain` is the same function in plain PyTorch, tap by tap as
-  the kernel sums it: k*k float32 matrix products of (B*H*W, 64) by (64, 64).
+* :func:`conv9_wgrad` is the wrapper of ``csrc/conv9_wgrad.cu``, the weight
+  gradient, counted in ``conv9_wgrad.launches``; on a CPU tensor it computes
+  :func:`conv9_wgrad_plain`.
+* Neither wrapper is differentiable: called where autograd would record it
+  (grad mode on, an input that requires grad) it raises.
+  :class:`ShallowConv` is the differentiable conv whose three passes all run
+  on those wrappers: forward ``conv9_fwd(x, w) + b``; input gradient
+  ``conv9_fwd(g, conv9_dgrad_weights(w))``, only when x needs one; weight
+  gradient ``conv9_wgrad(x, g, k)``; bias gradient a plain sum.
+* The plain versions are the same functions in plain PyTorch, tap by tap as
+  the kernels sum them: k*k float32 matrix products over the B*H*W pixels.
 * :func:`conv9_supported` is the gate ``models/layers.py::Conv2d`` uses:
   stride 1, odd k from 3 to 13, 64 channels in and out. It is the JAX gate
-  without its TPU tile rules (W % 128), plus the kernel's own k limit.
+  without its TPU tile rules (W % 128), plus the kernels' own k limit.
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from sshslie_torch.ops import _build
 
@@ -47,6 +58,45 @@ def conv9_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def conv9_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """dw[kh,kw,ci,co] = sum_{b,h,w} xpad[b,h+kh,w+kw,ci] dy[b,h,w,co] -> (k,k,64,64)."""
+    b, h, wd, ci = x.shape
+    p = (k - 1) // 2
+    xp = F.pad(x, (0, 0, p, p, p, p))
+    dyf = dy.reshape(-1, dy.shape[-1])
+    dw = x.new_empty((k, k, ci, dy.shape[-1]))
+    for kh in range(k):
+        for kw in range(k):
+            dw[kh, kw] = xp[:, kh:kh + h, kw:kw + wd, :].reshape(-1, ci).T @ dyf
+    return dw
+
+
+def conv9_dgrad_weights(w: torch.Tensor) -> torch.Tensor:
+    """The weights that make dx a plain forward conv of dy: spatial reverse and
+    in/out transpose (exact for odd k, stride 1; JAX ``_dgrad_weights``)."""
+    return w.flip(0, 1).transpose(2, 3).contiguous()
+
+
+def _not_differentiable(name: str, *tensors: torch.Tensor) -> None:
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is not differentiable: its output would carry no gradient. "
+            "Call ops.conv9.shallow_conv (the ShallowConv autograd Function) instead")
+
+
+def _check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
+    dev = tensors[0].device
+    if not tensors[0].is_cuda or any(t.device != dev for t in tensors):
+        raise ValueError(f"{name}: operands on {[str(t.device) for t in tensors]}; "
+                         "the kernel needs one CUDA device")
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise ValueError(f"{name}: the kernel takes float32, got {[t.dtype for t in tensors]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: operands must be 16-byte aligned")
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.library("conv9")
     fn = lib.sshslie_conv_c64_f32
@@ -55,25 +105,30 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def _wgrad_library() -> ctypes.CDLL:
+    lib = _build.library("conv9_wgrad")
+    lib.sshslie_conv9_wgrad_splits.argtypes = [ctypes.c_int] * 3
+    lib.sshslie_conv9_wgrad_splits.restype = ctypes.c_int
+    fn = lib.sshslie_conv9_wgrad_f32
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
 def conv9_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Stride-1 SAME k x k conv, NHWC (B, H, W, 64) x HWIO (k, k, 64, 64) -> NHWC.
 
     CPU tensors take :func:`conv9_plain`. CUDA tensors take the kernel; a
-    shape, type or layout the kernel does not take raises.
+    shape, type or layout the kernel does not take raises. Not
+    differentiable: see :class:`ShallowConv`.
     """
+    _not_differentiable("conv9_fwd", x, w)
     if x.device.type == "cpu":
         return conv9_plain(x, w)
+    _check_cuda_operands("conv9_fwd", x, w)
     k = w.shape[0]
-    if not x.is_cuda or w.device != x.device:
-        raise ValueError(f"conv9_fwd: x on {x.device}, w on {w.device}; the kernel needs one CUDA device")
-    if x.dtype != torch.float32 or w.dtype != torch.float32:
-        raise ValueError(f"conv9_fwd: the kernel takes float32, got {x.dtype} and {w.dtype}")
     if tuple(w.shape) != (k, k, CHANNELS, CHANNELS) or not conv9_supported(x.shape, k, CHANNELS, CHANNELS):
         raise ValueError(f"conv9_fwd: unsupported shapes x {tuple(x.shape)}, w {tuple(w.shape)}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("conv9_fwd: x and w must be contiguous")
-    if x.data_ptr() % 16 or w.data_ptr() % 16:
-        raise ValueError("conv9_fwd: x and w must be 16-byte aligned")
     b, h, wd, _ = x.shape
     y = torch.empty_like(x)
     if y.numel() == 0:
@@ -89,6 +144,71 @@ def conv9_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 conv9_fwd.launches = 0
 
 
+def conv9_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+    """Weight gradient of the stride-1 SAME k x k 64 -> 64 conv -> (k, k, 64, 64).
+
+    CPU tensors take :func:`conv9_wgrad_plain`. CUDA tensors take the kernel
+    (a split reduction over pixel rows into scratch, then a fixed-order sum
+    of the partials); a shape, type or layout it does not take raises.
+    """
+    _not_differentiable("conv9_wgrad", x, dy)
+    if x.device.type == "cpu":
+        return conv9_wgrad_plain(x, dy, k)
+    _check_cuda_operands("conv9_wgrad", x, dy)
+    if x.shape != dy.shape or not conv9_supported(x.shape, k, CHANNELS, CHANNELS):
+        raise ValueError(f"conv9_wgrad: unsupported shapes x {tuple(x.shape)}, "
+                         f"dy {tuple(dy.shape)}, k {k}")
+    b, h, wd, _ = x.shape
+    if x.numel() == 0:
+        return x.new_zeros((k, k, CHANNELS, CHANNELS))
+    lib = _wgrad_library()
+    splits = lib.sshslie_conv9_wgrad_splits(b, h, k)
+    if splits < 0:
+        _build.check(lib, -splits, "conv9_wgrad occupancy query")
+    part = torch.empty((splits, k, k, CHANNELS, CHANNELS), dtype=torch.float32, device=x.device)
+    dw = torch.empty((k, k, CHANNELS, CHANNELS), dtype=torch.float32, device=x.device)
+    code = lib.sshslie_conv9_wgrad_f32(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
+                                       b, h, wd, k, splits,
+                                       torch.cuda.current_stream(x.device).cuda_stream)
+    conv9_wgrad.launches += 1
+    _build.check(lib, code, "conv9_wgrad kernel launch")
+    return dw
+
+
+conv9_wgrad.launches = 0
+
+
+class ShallowConv(torch.autograd.Function):
+    """``conv9_fwd(x, w) + b`` with every pass on the conv9 kernels
+    (JAX ``pallas_shallow_conv`` with ``_psc_fwd``/``_psc_bwd``; the JAX VJP
+    takes dw from XLA, the port from its own ``conv9_wgrad`` kernel).
+
+    x NHWC (B, H, W, 64), w HWIO (k, k, 64, 64), b (64,). On CPU tensors the
+    same passes run on the plain versions.
+    """
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return conv9_fwd(x, w) + b
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        # The incoming gradient may be any strided view; the kernels read
+        # contiguous NHWC (a copy when it is not already).
+        g = g.contiguous()
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = conv9_fwd(g, conv9_dgrad_weights(w))
+        if ctx.needs_input_grad[1]:
+            dw = conv9_wgrad(x, g, w.shape[0])
+        if ctx.needs_input_grad[2]:
+            db = g.sum(dim=(0, 1, 2))
+        return dx, dw, db
+
+
 def shallow_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Bias-included shallow conv through :func:`conv9_fwd` (NHWC, HWIO)."""
-    return conv9_fwd(x, w) + b
+    """Bias-included, differentiable shallow conv (NHWC, HWIO) on the kernels."""
+    return ShallowConv.apply(x, w, b)

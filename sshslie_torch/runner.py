@@ -1,13 +1,19 @@
-"""Run entry of the port: ``python -m sshslie_torch --config … --phase test``.
+"""Run entry of the port: ``python -m sshslie_torch --config … --phase
+train|test|train_and_test``.
 
-As ``sshslie_tpu/runner.py`` for the test phase: stdout teed to
-``logs/console_output_<run>.log``, the parameters printed, Python and numpy
-seeded, the channel count taken from the first training cube when the
-config leaves it out, then ``run_test`` and ``run_eval_metrics``. Float32
-runs in full float32 on the card: both TF32 switches are set off and printed.
+As ``sshslie_tpu/runner.py``: stdout teed to
+``logs/console_output_<run>.log``, the parameters printed, Python, numpy and
+torch seeded, the channel count taken from the first training cube when the
+config leaves it out. ``train`` builds a ``Trainer`` (warm-started from
+``pretrained_model`` when given; ``freeze_decom_epochs`` applies only then)
+and runs ``run_train``; ``test`` runs ``run_test`` and ``run_eval_metrics``
+on ``model_epoch_latest.pth`` of ``test_timestamp``; ``train_and_test`` does
+both, testing from the checkpoint the run just wrote. Float32 runs in full
+float32 on the card: both TF32 switches are set off and printed.
 
-The phases ``train``, ``train_and_test`` and ``serve`` are not ported yet and
-raise. MLflow logging is not ported.
+The ``serve`` phase is not ported yet and raises, as does any config value
+the port cannot honour (``config.check_ported``). MLflow logging is not
+ported.
 """
 
 from __future__ import annotations
@@ -21,14 +27,10 @@ from glob import glob
 import numpy as np
 import torch
 
-from sshslie_torch.config import Config, parse_args
+from sshslie_torch.config import Config, check_ported, parse_args
 from sshslie_torch.device import resolve_device
 
-_NOT_PORTED = {
-    "train": "training is ROADMAP.md queue 1, items 2-3 and 6",
-    "train_and_test": "training is ROADMAP.md queue 1, items 2-3 and 6",
-    "serve": "serving is ROADMAP.md queue 1, item 8",
-}
+_TRAINING = ("train", "train_and_test")
 
 
 class Logger:
@@ -50,6 +52,38 @@ class Logger:
 
     def close(self) -> None:
         self.log.close()
+
+
+def run_train(trainer, cfg: Config) -> None:
+    """Fit on ``cfg.train_data`` with the mid-training eval on ``cfg.eval_data``."""
+    from sshslie_torch.data.datasets import store_from_config
+    from sshslie_torch.evaluate import evaluate_model
+
+    trainer.fit(store_from_config(cfg, cfg.train_data),
+                eval_store=store_from_config(cfg, cfg.eval_data),
+                evaluator=evaluate_model, eval_result_dir=cfg.eval_result_dir,
+                label_dir=cfg.label_dir)
+
+
+def _build_trainer(cfg: Config, channels: int, device: torch.device):
+    from sshslie_torch.train import Trainer
+
+    trainer = Trainer(cfg, channels, device)
+    if cfg.pretrained_model and not os.path.exists(cfg.pretrained_model):
+        raise FileNotFoundError(f"pretrained_model {cfg.pretrained_model!r} does not exist")
+    if cfg.pretrained_model:
+        print(f"Loading pretrained model from: {cfg.pretrained_model}")
+        trainer.load_pretrained(cfg.pretrained_model)
+        if cfg.freeze_decom_epochs > 0:
+            print("decomposition network will be frozen for the first "
+                  f"{cfg.freeze_decom_epochs} epochs")
+    elif trainer.freeze_decom_epochs > 0:
+        # Reference semantics (main.py:196-212): the freeze applies only to
+        # loaded weights.
+        print("freeze_decom_epochs ignored: no pretrained model loaded "
+              "(reference main.py:196-212 semantics)")
+        trainer.freeze_decom_epochs = 0
+    return trainer
 
 
 def run_test(model: torch.nn.Module, cfg: Config) -> dict:
@@ -87,11 +121,15 @@ def run_eval_metrics(cfg: Config, device: torch.device):
 
 
 def main(cfg: Config):
-    """Run ``cfg.phase``. For the test phase returns ``{"scores": (psnr, ssim,
-    sam), "seconds": {file: seconds}}``; None when there are no training
-    cubes to take the channel count from."""
-    if cfg.phase in _NOT_PORTED:
-        raise NotImplementedError(f"phase {cfg.phase!r} is not ported yet: {_NOT_PORTED[cfg.phase]}")
+    """Run ``cfg.phase``. Returns a dict: ``"trainer"`` (the fitted Trainer:
+    ``all_epoch_losses``, ``eval_metrics``, ``model``) when the phase trains,
+    and ``"scores"`` (psnr, ssim, sam) and ``"seconds"`` ({file: seconds})
+    when it tests; None when there are no training cubes to take the channel
+    count from."""
+    if cfg.phase == "serve":
+        raise NotImplementedError("phase 'serve' is not ported yet: serving is ROADMAP.md "
+                                  "queue 1, item 8")
+    check_ported(cfg, training=cfg.phase in _TRAINING)
     if cfg.matmul_precision not in ("", "float32", "highest"):
         raise NotImplementedError(
             f"matmul_precision {cfg.matmul_precision!r}: the port runs full float32 only so far")
@@ -128,11 +166,22 @@ def main(cfg: Config):
             channels = load_hsi(train_files[0], mat_key=cfg.mat_key).shape[-1]
             cfg.channels = channels
 
-        from sshslie_torch.models.enhance import build_model
+        result: dict = {}
+        if cfg.phase in _TRAINING:
+            trainer = _build_trainer(cfg, channels, device)
+            run_train(trainer, cfg)
+            result["trainer"] = trainer
+            if cfg.phase == "train":
+                return result
+            # cfg.test_model_dir is this run's checkpoint directory.
+            model = trainer.model
+        else:
+            from sshslie_torch.models.enhance import build_model
 
-        model = build_model(cfg, channels, device)
-        seconds = run_test(model, cfg)
-        return {"scores": run_eval_metrics(cfg, device), "seconds": seconds}
+            model = build_model(cfg, channels, device)
+        result["seconds"] = run_test(model, cfg)
+        result["scores"] = run_eval_metrics(cfg, device)
+        return result
     except Exception as e:
         print(f"\n--- An error occurred: {e} ---")
         traceback.print_exc(file=sys.stdout)

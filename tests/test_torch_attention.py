@@ -4,13 +4,16 @@ tests/test_attention.py) and the 'auto' dispatch. The CUDA kernel is held
 against its plain version on the card in tests/test_torch_kernels_cuda.py.
 
 Tolerance 2e-5 absolute, as tests/test_attention.py holds the JAX forms to
-each other; the measured gaps here are below 1e-6.
+each other; the measured gaps here are below 1e-6. The FlashAttention
+gradients against ``jax.grad`` through ``_flash_attention_ad`` (interpret
+mode): 1e-5 of each gradient's largest magnitude (measured <= 9.8e-7).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from sshslie_tpu.ops import attention as ja
@@ -79,3 +82,24 @@ def test_dispatch_names(qkv):
                                    ta.sdpa_dense(*_t(qkv)).numpy(), atol=ATOL)
     with pytest.raises(ValueError):
         ta.multi_head_attention(*_t(qkv), impl="xla")
+
+
+def test_flash_attention_grads_match_jax_custom_vjp():
+    """FlashAttention's backward recomputes through sdpa_chunked, as JAX
+    ``_flash_bwd`` does; S = 300 is not a multiple of the 256-query or the
+    512-key block."""
+    q, k, v = _qkv(6, (1, 2, 300, 16))
+    g = _qkv(7, (1, 2, 300, 16))[0]
+    _, vjp = jax.vjp(lambda *a: ja._flash_attention_ad(*a, True), *_j((q, k, v)))
+    want = vjp(jnp.asarray(g))
+    ts = [t.requires_grad_() for t in _t((q, k, v))]
+    out = ta.flash_attention(*ts)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad(out, ts, torch.from_numpy(g))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, atol=1e-5 * float(np.abs(b).max()), err_msg=name)
+    # Only the inputs that ask for a gradient get one.
+    q2 = torch.from_numpy(q).requires_grad_()
+    (dq,) = torch.autograd.grad(ta.flash_attention(q2, *_t((k, v))), q2, torch.from_numpy(g))
+    np.testing.assert_array_equal(dq.numpy(), got[0].numpy())

@@ -1,20 +1,27 @@
-"""sshslie_torch.ops.conv9: the plain version against the JAX Pallas kernel
-(interpret mode, as tests/test_conv_pallas.py runs it) and the shape gate.
-The CUDA kernel is held against the plain version on the card in
+"""sshslie_torch.ops.conv9: the plain versions and the ShallowConv autograd
+Function against the JAX Pallas kernels (interpret mode, as
+tests/test_conv_pallas.py runs them) and the shape gate. The CUDA kernels
+are held against the plain versions on the card in
 tests/test_torch_kernels_cuda.py.
 
-Tolerance: float32 sums of k*k*64 products in another order; measured
-max|d| 1.4e-6 (k = 3) and 5.0e-6 (k = 9) on these inputs, held at 2e-5 and
-5e-5.
+Tolerances: forward, float32 sums of k*k*64 products in another order;
+measured max|d| 1.4e-6 (k = 3) and 5.0e-6 (k = 9) on these inputs, held at
+2e-5 and 5e-5. Gradients and the weight gradient: 1e-5 of each result's
+largest magnitude (sums over up to 1024 pixels in another order); measured
+ShallowConv dx/dw/db <= 1.1e-6 of scale, conv9_wgrad_plain <= 5.6e-7.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+from sshslie_tpu.ops.conv_pallas import _dgrad_weights
 from sshslie_tpu.ops.conv_pallas import conv9_fwd as jax_conv9_fwd
+from sshslie_tpu.ops.conv_pallas import conv9_wgrad as jax_conv9_wgrad
+from sshslie_tpu.ops.conv_pallas import pallas_shallow_conv
 from sshslie_torch.models.layers import Conv2d
 from sshslie_torch.ops import conv9
 
@@ -76,3 +83,78 @@ def test_conv2d_kernel_impl_on_cpu_matches_torch_impl(rng):
     b = Conv2d(64, 64, 9, impl="torch", generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         np.testing.assert_allclose(a(x).numpy(), b(x).numpy(), atol=2e-5)
+
+
+GRAD_REL = 1e-5
+
+
+def _assert_rel_close(got, want, rel, what=""):
+    want = np.asarray(want)
+    scale = float(np.abs(want).max()) or 1.0
+    np.testing.assert_allclose(np.asarray(got), want, atol=rel * scale, err_msg=what)
+
+
+@pytest.mark.parametrize("k", [3, 9])
+def test_shallow_conv_grads_match_pallas_vjp(k):
+    """dx, dw, db of sum(sin(conv(x, w) + b)), the loss of tests/test_conv_pallas.py."""
+    x, w = _inputs(21, (1, 8, 128, 64), k)
+    b = np.random.default_rng(22).standard_normal(64).astype(np.float32)
+    want = jax.grad(lambda x_, w_, b_: jnp.sum(jnp.sin(pallas_shallow_conv(x_, w_, b_, True))),
+                    argnums=(0, 1, 2))(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+    ts = [torch.from_numpy(a).requires_grad_() for a in (x, w, b)]
+    got = torch.autograd.grad(torch.sin(conv9.shallow_conv(*ts)).sum(), ts)
+    for name, a, c in zip(("dx", "dw", "db"), got, want):
+        _assert_rel_close(a.numpy(), c, GRAD_REL, name)
+
+
+def test_wgrad_plain_matches_pallas_interpret_and_autograd():
+    x, _ = _inputs(23, (2, 4, 128, 64), 3)
+    dy = np.random.default_rng(24).standard_normal(x.shape).astype(np.float32)
+    for k in (3, 9):
+        got = conv9.conv9_wgrad_plain(torch.from_numpy(x), torch.from_numpy(dy), k)
+        assert got.shape == (k, k, 64, 64)
+        want = jax_conv9_wgrad(jnp.asarray(x), jnp.asarray(dy), k, interpret=True)
+        _assert_rel_close(got.numpy(), want, GRAD_REL, f"k={k} vs Pallas")
+        w = torch.zeros(64, 64, k, k, requires_grad=True)
+        y = torch.nn.functional.conv2d(torch.from_numpy(x).permute(0, 3, 1, 2), w, padding=k // 2)
+        (dw,) = torch.autograd.grad(y, w, torch.from_numpy(dy).permute(0, 3, 1, 2))
+        _assert_rel_close(got.numpy(), dw.permute(2, 3, 1, 0).numpy(), GRAD_REL, f"k={k} vs autograd")
+        # On a CPU tensor the wrapper is the plain version and counts no launch.
+        before = conv9.conv9_wgrad.launches
+        np.testing.assert_array_equal(
+            conv9.conv9_wgrad(torch.from_numpy(x), torch.from_numpy(dy), k).numpy(), got.numpy())
+        assert conv9.conv9_wgrad.launches == before
+
+
+@pytest.mark.parametrize("k", [3, 9])
+def test_dgrad_weights_equal_jax(k):
+    _, w = _inputs(25, (1, 1, 1, 64), k)
+    got = conv9.conv9_dgrad_weights(torch.from_numpy(w))
+    assert got.is_contiguous()
+    np.testing.assert_array_equal(got.numpy(), np.asarray(_dgrad_weights(jnp.asarray(w))))
+
+
+def test_no_input_grad_skips_the_dgrad_pass(monkeypatch):
+    calls = []
+    real = conv9.conv9_fwd
+    monkeypatch.setattr(conv9, "conv9_fwd", lambda x, w: calls.append(x.shape) or real(x, w))
+    x, w = _inputs(26, (1, 6, 10, 64), 9)
+    x = torch.from_numpy(x)                     # a batch: no gradient wanted
+    w = torch.from_numpy(w).requires_grad_()
+    b = torch.zeros(64, requires_grad=True)
+    conv9.shallow_conv(x, w, b).sum().backward()
+    assert len(calls) == 1                      # the forward only
+    assert w.grad is not None and b.grad is not None
+    conv9.shallow_conv(x.requires_grad_(), w, b).sum().backward()
+    assert len(calls) == 3                      # forward and dgrad
+    assert x.grad is not None
+
+
+def test_raw_wrappers_refuse_to_drop_gradients():
+    x, w = _inputs(27, (1, 4, 4, 64), 3)
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        conv9.conv9_fwd(torch.from_numpy(x).requires_grad_(), torch.from_numpy(w))
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        conv9.conv9_wgrad(torch.from_numpy(x).requires_grad_(), torch.from_numpy(x), 3)
+    with torch.no_grad():
+        conv9.conv9_fwd(torch.from_numpy(x).requires_grad_(), torch.from_numpy(w))

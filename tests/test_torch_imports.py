@@ -50,7 +50,7 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
     code = ("import sys\nbefore = set(sys.modules)\n"
             "import sshslie_torch, sshslie_torch.runner, sshslie_torch.evaluate, "
             "sshslie_torch.interop, sshslie_torch.models.enhance, sshslie_torch.ops.conv9, "
-            "sshslie_torch.ops.attention\n"
+            "sshslie_torch.ops.attention, sshslie_torch.ops.losses, sshslie_torch.train\n"
             f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "built = list(sshslie_torch.ops._build._libs)\n"
             "print(bad, built); sys.exit(1 if bad or built else 0)")
@@ -77,14 +77,21 @@ def test_entry_point_raises_without_card_unless_cpu_is_asked(tmp_path, monkeypat
     assert resolve_device(torch.device("cpu")) == torch.device("cpu")
 
 
-@pytest.mark.parametrize("phase", ["train", "train_and_test", "serve"])
-def test_unported_phases_raise(tmp_path, monkeypatch, phase):
+@pytest.mark.parametrize("phase,unported", [
+    ("train", {"fused_pipeline": "on"}),
+    ("train_and_test", {"grad_accum_steps": 2}),
+    ("serve", {}),
+], ids=["train", "train_and_test", "serve"])
+def test_unported_phases_raise(tmp_path, monkeypatch, phase, unported):
+    """Serving is not ported; the training phases are, and raise for what of
+    them is not (the on-device pipelines, accumulation), before any work."""
     from sshslie_torch import runner
     from sshslie_torch.config import load_config
 
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        runner.main(load_config(None, {"phase": phase, "device": "cpu"}))
+        runner.main(load_config(None, {"phase": phase, "device": "cpu", **unported}))
+    assert not os.path.exists(tmp_path / "logs")
 
 
 def test_chip_smoke_fails_without_card(tmp_path):

@@ -9,7 +9,11 @@ runs on a machine without JAX:
 Tolerances: conv9 5e-5 absolute at outputs of order 10 (float32 sums of up
 to 5184 products in another order; chip_smoke.py measured 4.8e-6 at 512^2
 and 1.6e-5 at 37x53); flash 1e-5 absolute (exp2 with a folded scale against
-exp; chip_smoke.py measured 5.1e-7).
+exp; chip_smoke.py measured 5.1e-7). conv9_wgrad: 2e-5 of the largest |dw|
+(float32 sums over B*H*W pixels, split into slices, in another order than
+the plain version's matrix products). Gradients of the autograd Functions
+against autograd through the plain versions: 2e-5 of each gradient's
+largest magnitude.
 """
 
 import numpy as np
@@ -33,6 +37,12 @@ def _conv_inputs(seed, shape, k):
     x = rng.standard_normal(shape).astype(np.float32)
     w = (rng.standard_normal((k, k, 64, 64)) * 0.05).astype(np.float32)
     return x, w
+
+
+def _rel_close(got, want, rel, what=""):
+    scale = float(want.abs().max()) or 1.0
+    err = float((got - want).abs().max())
+    assert err <= rel * scale, f"{what}: max|d| {err:.3e} > {rel:.0e} x {scale:.3e}"
 
 
 def _qkv(seed, shape):
@@ -78,3 +88,80 @@ def test_flash_kernel_rejects_what_it_does_not_take(cuda_device):
     q = torch.zeros(1, 1, 8, 24, device=cuda_device)   # head dim 24 is not built
     with pytest.raises(ValueError):
         attention.flash_attention(q, q, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((2, 128, 128, 64), 9), ((1, 37, 53, 64), 9),
+                                     ((2, 19, 70, 64), 3), ((1, 5, 9, 64), 13)])
+def test_conv9_wgrad_kernel_matches_plain_on_card(cuda_device, shape, k):
+    rng = np.random.default_rng(11)
+    x, dy = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda_device)
+             for _ in range(2))
+    before = conv9.conv9_wgrad.launches
+    got = conv9.conv9_wgrad(x, dy, k)
+    torch.cuda.synchronize()
+    assert conv9.conv9_wgrad.launches == before + 1
+    _rel_close(got, conv9.conv9_wgrad_plain(x, dy, k), 2e-5, f"wgrad {shape} k{k}")
+    # Deterministic: the partials are summed in a fixed order.
+    assert torch.equal(got, conv9.conv9_wgrad(x, dy, k))
+
+
+@pytest.mark.cuda
+def test_conv9_wgrad_kernel_rejects_what_it_does_not_take(cuda_device):
+    x = torch.zeros(1, 8, 8, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        conv9.conv9_wgrad(x, torch.zeros(1, 8, 9, 64, device=cuda_device), 9)   # shapes differ
+    with pytest.raises(ValueError):
+        conv9.conv9_wgrad(x, x, 4)                                               # even k
+    with pytest.raises(ValueError):
+        conv9.conv9_wgrad(x.double(), x.double(), 9)
+    with pytest.raises(ValueError):
+        conv9.conv9_wgrad(x, x.transpose(1, 2), 9)                               # not contiguous
+
+
+@pytest.mark.cuda
+def test_shallow_conv_grads_on_card_match_plain_autograd(cuda_device):
+    x, w = _conv_inputs(13, (2, 32, 48, 64), 9)
+    rng = np.random.default_rng(14)
+    b = rng.standard_normal(64).astype(np.float32)
+    g = torch.from_numpy(rng.standard_normal((2, 32, 48, 64)).astype(np.float32)).to(cuda_device)
+
+    def grads(fn):
+        xs, ws, bs = (torch.from_numpy(a).to(cuda_device).requires_grad_() for a in (x, w, b))
+        return torch.autograd.grad(fn(xs, ws, bs), (xs, ws, bs), g)
+
+    before = (conv9.conv9_fwd.launches, conv9.conv9_wgrad.launches)
+    got = grads(conv9.shallow_conv)
+    torch.cuda.synchronize()
+    # forward + dgrad on the conv9 kernel, dw on the wgrad kernel
+    assert (conv9.conv9_fwd.launches, conv9.conv9_wgrad.launches) == (before[0] + 2, before[1] + 1)
+    want = grads(lambda xs, ws, bs: conv9.conv9_plain(xs, ws) + bs)
+    for name, a, c in zip(("dx", "dw", "db"), got, want):
+        _rel_close(a, c, 2e-5, name)
+
+
+@pytest.mark.cuda
+def test_flash_attention_grads_on_card_match_chunked_autograd(cuda_device):
+    q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(15, (1, 4, 600, 16)))
+    g = torch.from_numpy(_qkv(16, (1, 4, 600, 16))[0]).to(cuda_device)
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_() for t in (q, k, v)]
+        return torch.autograd.grad(fn(*ts), ts, g)
+
+    got = grads(attention.flash_attention)
+    want = grads(attention.sdpa_chunked)
+    for name, a, c in zip(("dq", "dk", "dv"), got, want):
+        _rel_close(a, c, 2e-5, name)
+
+
+@pytest.mark.cuda
+def test_kernel_outputs_carry_grad_fn(cuda_device):
+    x = torch.randn(1, 8, 8, 64, device=cuda_device, requires_grad=True)
+    w = torch.randn(9, 9, 64, 64, device=cuda_device)
+    b = torch.zeros(64, device=cuda_device)
+    assert conv9.shallow_conv(x, w, b).grad_fn is not None
+    with pytest.raises(RuntimeError, match="not differentiable"):
+        conv9.conv9_fwd(x, w)
+    q = torch.randn(1, 1, 64, 16, device=cuda_device, requires_grad=True)
+    assert attention.flash_attention(q, q.detach(), q.detach()).grad_fn is not None
