@@ -32,7 +32,8 @@ TransformerBlock, random weights from a seed, float32 with TF32 off.
    on the card against the CPU on a small cube.
 7. Times by CUDA events after warm-up: the warm train step on both paths,
    its megapixel*bands/s and the share of a step the host spends sampling;
-   each kernel at the main path's shapes, its plain version and one library
+   each kernel at the main path's shapes (flash attention also at
+   (1, 4, 16384, 16), the S of a 1024^2 cube), its plain version and one library
    call (cuDNN ``F.conv2d``, ``conv2d_input``, ``conv2d_weight``,
    ``F.scaled_dot_product_attention``) as a yardstick only; the port never
    calls those.
@@ -296,8 +297,11 @@ def main() -> int:
             errs[key] = max(err, errs.get(key, 0.0))
         qkv = [torch.randn(1, 4, 4096, 16, generator=g).to(dev) for _ in range(3)]
         qkv_odd = [torch.randn(1, 4, 4100, 16, generator=g).to(dev) for _ in range(3)]
+        # S of a 1024^2 cube, where attention grows to the scale of conv9.
+        qkv_1024 = [torch.randn(1, 4, 16384, 16, generator=g).to(dev) for _ in range(3)]
         for key, what, (q, k, v) in (("flash", "flash (1, 4, 4096, 16)", qkv),
-                                     ("odd", "flash (1, 4, 4100, 16)", qkv_odd)):
+                                     ("odd", "flash (1, 4, 4100, 16)", qkv_odd),
+                                     ("flash_1024", "flash (1, 4, 16384, 16)", qkv_1024)):
             # exp2 with a folded scale against exp, sums in another order: 1e-5 absolute.
             err = check_close(what, attention.flash_attention(q, k, v), attention.sdpa_chunked(q, k, v), 1e-5)
             errs[key] = max(err, errs.get(key, 0.0))
@@ -463,8 +467,13 @@ def main() -> int:
         xc, wc = x.permute(0, 3, 1, 2), w9.permute(3, 2, 0, 1).contiguous()
         xtc, gtc = xt.permute(0, 3, 1, 2), gt.permute(0, 3, 1, 2)
         wdc = wd.permute(3, 2, 0, 1).contiguous()
+
+        def flash_bound(q):
+            bq, hq, s, d = q.shape
+            return 4.0 * bq * hq * s * s * d, 4.0 * 4 * q.numel()
+
         q, k, v = qkv
-        bq, hq, s, d = q.shape
+        q2, k2, v2 = qkv_1024
         rows = []
         conv9_src, conv9_rep = "sshslie_torch/csrc/conv9.cu", "sshslie_tpu/ops/conv_pallas.py:147"
         for name, src, replaces, key, count, fn, plain, lib, (flops, nbytes) in (
@@ -484,14 +493,20 @@ def main() -> int:
                 ("flash_attention (1,4,4096,16)", "sshslie_torch/csrc/flash_attn.cu",
                  "sshslie_tpu/ops/attention.py:169", "flash", "flash_attention",
                  lambda: attention.flash_attention(q, k, v), lambda: attention.sdpa_chunked(q, k, v),
-                 lambda: F.scaled_dot_product_attention(q, k, v),
-                 (4.0 * bq * hq * s * s * d, 4.0 * 4 * q.numel()))):
+                 lambda: F.scaled_dot_product_attention(q, k, v), flash_bound(q)),
+                # A standalone timing: the main path never gives the kernel S = 16384,
+                # so this row counts no main-path launches.
+                ("flash_attention (1,4,16384,16) standalone", "sshslie_torch/csrc/flash_attn.cu",
+                 "sshslie_tpu/ops/attention.py:169", "flash_1024", None,
+                 lambda: attention.flash_attention(q2, k2, v2),
+                 lambda: attention.sdpa_chunked(q2, k2, v2),
+                 lambda: F.scaled_dot_product_attention(q2, k2, v2), flash_bound(q2))):
             ms = time_ms(fn, 20)
             plain_ms = time_ms(plain, 5)
             library_ms = time_ms(lib, 20)
             t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
             rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                         "launches": launches[count], "max_abs_err": errs[key], "ms": ms,
+                         "launches": launches[count] if count else 0, "max_abs_err": errs[key], "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
                          "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                          "library_ms": library_ms})

@@ -61,6 +61,16 @@ def test_flash_plain_path_matches_pallas_interpret(qkv):
     assert ta.flash_attention.launches == before
 
 
+@pytest.mark.parametrize("s", [1, 3, 257])
+def test_flash_plain_path_matches_pallas_interpret_at_edges(s):
+    # Fewer keys than the kernel's 8 key lanes (1, 3), and a ragged last tile
+    # of its 128-key stages (257), through the path the kernel is held to.
+    arrs = _qkv(8, (1, 2, s, 16))
+    want = np.asarray(ja.flash_attention(*_j(arrs), block_q=32, block_k=32, interpret=True))
+    got = ta.flash_attention(*_t(arrs)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
 def test_auto_short_sequence_is_dense(qkv):
     got = ta.multi_head_attention(*_t(qkv), impl="auto").numpy()
     np.testing.assert_array_equal(got, ta.sdpa_dense(*_t(qkv)).numpy())
