@@ -14,8 +14,14 @@ the same enum checks and the same derived run directories. It differs in:
   it is asked for.
 * Checkpoints are the reference ``.pth`` files (``checkpoints.py``).
 * PyYAML is imported only when a YAML file is read.
-* Training runs the host pipeline only: ``fused_pipeline: auto`` and
-  ``sampler: auto`` resolve to it (``PatchSampler``, numpy PCG64).
+* Training takes the JAX pipelines: ``fused_pipeline: auto|on`` crops and
+  augments on the device from a stack of same-shape cubes (``auto`` falls
+  back to the host ``PatchSampler``, numpy PCG64, on mixed shapes; ``on``
+  raises there), with ``steps_per_dispatch`` steps a host call;
+  ``grad_accum_steps`` splits each batch of the host pipeline into
+  micro-batches. The fused pipeline's random stream is the port's own (see
+  ``train.py``), not JAX's threefry. ``precision: bfloat16`` and ``remat``
+  are the JAX semantics (``models/``).
 
 Every key loads. A value that asks for behaviour the port lacks raises
 ``NotImplementedError`` naming its ROADMAP.md item (:func:`check_ported`);
@@ -98,11 +104,11 @@ class Config:
     device: str = ""                      # '' = the CUDA card; 'cpu' only when asked for
     test_timestamp: str = ""              # timestamp of the checkpoint to test
     mat_key_prediction: str = "data"      # key used when reading predictions back for metrics
-    precision: str = "float32"            # 'float32' | 'bfloat16' (bfloat16 not ported yet)
+    precision: str = "float32"            # 'float32' | 'bfloat16': the layers' compute dtype
     matmul_precision: str = ""            # '' | 'float32' | 'highest': full float32 (TF32 off)
     attention_impl: str = "auto"          # 'auto' | 'dense' | 'chunked' | 'kernel'
     conv_impl: str = "auto"               # 'auto' | 'torch' | 'kernel': the shallow conv's path
-    remat: bool = False                   # JAX key; true raises (not ported yet)
+    remat: bool = False                   # recompute each sub-network's activations in the backward
     use_attention: bool = False           # SEBlock variant (reference model.py:122,130-131)
     use_transformer: bool = True          # TransformerBlock variant (reference default)
     mesh_shape: str = ""                  # JAX key; non-empty raises (not ported yet)
@@ -112,11 +118,11 @@ class Config:
     data_pattern: str = "*.mat"           # dataset glob per split dir
     lazy_loading: bool = False            # JAX key; the port loads every cube to RAM
     cube_cache_size: int = 8              # JAX key; ignored
-    fused_pipeline: str = "auto"          # 'auto'/'off': the host pipeline; 'on' raises
+    fused_pipeline: str = "auto"          # 'auto' | 'on' | 'off': on-device crop + augment
     sampler: str = "auto"                 # 'auto'/'python': PatchSampler; 'native' raises
-    steps_per_dispatch: int = 1           # > 1 raises (not ported yet)
-    fused_window: Any = 0                 # JAX key; ignored (fused pipeline only)
-    grad_accum_steps: int = 1             # > 1 raises (not ported yet)
+    steps_per_dispatch: int = 1           # fused steps a host call
+    fused_window: Any = 0                 # JAX key; non-zero or 'auto' raises on the fused pipeline
+    grad_accum_steps: int = 1             # micro-batches a step (host pipeline)
     log_every_step: int = 0               # >0: print the loss every N batches
     checkpoint_keep: int = 0              # >0: keep only the newest N model_epoch_N.pth
     checkpoint_best: bool = False         # true raises (not ported yet)
@@ -255,13 +261,15 @@ def _validate_enums(cfg: "Config") -> None:
 
 
 # Values the port cannot honour yet: (applies to the test phase too, what,
-# ROADMAP.md queue-1 item). bfloat16 raises in models/enhance.py::build_model.
+# ROADMAP.md queue-1 item).
 _NOT_PORTED = (
     (True, lambda c: bool(c.mesh_shape), "mesh_shape (multi-GPU)", "item 7"),
-    (False, lambda c: c.fused_pipeline == "on", "fused_pipeline: on", "item 5"),
-    (False, lambda c: c.grad_accum_steps > 1, "grad_accum_steps > 1", "item 5"),
-    (False, lambda c: c.steps_per_dispatch > 1, "steps_per_dispatch > 1", "item 5"),
-    (False, lambda c: bool(c.remat), "remat: true", "item 5"),
+    (True, lambda c: c.matmul_precision not in ("", "float32", "highest"),
+     "matmul_precision below full float32", "item 12"),
+    # JAX acts on fused_window only where it would take the fused pipeline.
+    (False, lambda c: (c.fused_window != 0 and c.fused_pipeline != "off"
+                       and c.grad_accum_steps <= 1),
+     "fused_window (a rotating window of cubes on the device)", "item 9"),
     (False, lambda c: c.sampler == "native", "sampler: native", "item 9"),
     (False, lambda c: bool(c.async_eval), "async_eval: true", "item 6"),
     (False, lambda c: bool(c.checkpoint_best), "checkpoint_best: true", "item 6"),

@@ -29,6 +29,15 @@
 //     32 banks) for 64 FMA.
 // No tensor cores, TMA or pipelining yet: a right first kernel. Those are
 // later work.
+//
+// bfloat16 entry (sshslie_conv_c64_bf16): the same kernel on bfloat16 x and
+// w (conv_pallas.py::conv9_fwd on bfloat16 operands): the halo'd input and
+// the weights are widened to float32 as they are staged in shared memory,
+// products and sums are float32, and the output is rounded to bfloat16 once.
+// It also serves the bfloat16 input gradient (ShallowConv.backward, as
+// _psc_bwd). Its floor is the same 2.6 ms of float32 FMA at 512^2; the
+// card's own floor for this work in bfloat16 is the tensor cores' 989
+// TFLOP/s, 0.18 ms, which this form does not reach (a later kernel's work).
 #include "common.cuh"
 
 namespace {
@@ -49,10 +58,10 @@ struct Tile {
   static constexpr int kSmemBytes = 4 * (kWFloats + kInFloats);
 };
 
-template <int K>
+template <int K, class E>
 __global__ void __launch_bounds__(kThreads, 2)
-conv_c64_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                float* __restrict__ y, int H, int W) {
+conv_c64_kernel(const E* __restrict__ x, const E* __restrict__ w,
+                E* __restrict__ y, int H, int W) {
   using T = Tile<K>;
   constexpr int P = (K - 1) / 2;
   extern __shared__ float4 smem4[];
@@ -66,7 +75,7 @@ conv_c64_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int pcol = (pg & 3) * kPix;   // tile column of the first pixel
   const int h0 = blockIdx.y * kTH;
   const int w0 = blockIdx.x * kTW;
-  const float* xb = x + static_cast<size_t>(blockIdx.z) * H * W * kC;
+  const E* xb = x + static_cast<size_t>(blockIdx.z) * H * W * kC;
 
   float acc[kPix][8];
 #pragma unroll
@@ -81,8 +90,8 @@ conv_c64_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int q = i % (kC / 4);
       const int cc = (i / (kC / 4)) % kCC;
       const int tap = i / ((kC / 4) * kCC);
-      reinterpret_cast<float4*>(ws)[i] = *reinterpret_cast<const float4*>(
-          w + (static_cast<size_t>(tap) * kC + ci0 + cc) * kC + q * 4);
+      reinterpret_cast<float4*>(ws)[i] =
+          load4(w + (static_cast<size_t>(tap) * kC + ci0 + cc) * kC + q * 4);
     }
     // Halo'd input window of this chunk, zero outside the image.
     for (int i = tid; i < T::kInH * T::kInW; i += kThreads) {
@@ -92,8 +101,7 @@ conv_c64_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int gw = w0 - P + ix;
       float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
       if (gh >= 0 && gh < H && gw >= 0 && gw < W)
-        v = *reinterpret_cast<const float4*>(
-            xb + (static_cast<size_t>(gh) * W + gw) * kC + ci0);
+        v = load4(xb + (static_cast<size_t>(gh) * W + gw) * kC + ci0);
       xs[(0 * T::kInH + iy) * T::kInW + ix] = v.x;
       xs[(1 * T::kInH + iy) * T::kInW + ix] = v.y;
       xs[(2 * T::kInH + iy) * T::kInW + ix] = v.z;
@@ -138,26 +146,40 @@ conv_c64_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int j = 0; j < kPix; ++j) {
     const int ow = w0 + pcol + j;
     if (ow < W) {
-      float* o = y + ((static_cast<size_t>(blockIdx.z) * H + oh) * W + ow) * kC;
-      *reinterpret_cast<float4*>(o + cg * 4) =
-          make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
-      *reinterpret_cast<float4*>(o + 32 + cg * 4) =
-          make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]);
+      E* o = y + ((static_cast<size_t>(blockIdx.z) * H + oh) * W + ow) * kC;
+      store4(o + cg * 4, make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]));
+      store4(o + 32 + cg * 4, make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]));
     }
   }
 }
 
-template <int K>
-int launch(const float* x, const float* w, float* y, int B, int H, int W,
-           cudaStream_t stream) {
-  using T = Tile<K>;
+template <int K, class T>
+int launch(const T* x, const T* w, T* y, int B, int H, int W, cudaStream_t stream) {
+  constexpr int kSmem = Tile<K>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_c64_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      T::kSmemBytes);
+      conv_c64_kernel<K, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-  conv_c64_kernel<K><<<grid, kThreads, T::kSmemBytes, stream>>>(x, w, y, H, W);
+  conv_c64_kernel<K, T><<<grid, kThreads, kSmem, stream>>>(x, w, y, H, W);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int conv_entry(const void* x, const void* w, void* y, int B, int H, int W, int K,
+               void* stream) {
+  const T* xt = static_cast<const T*>(x);
+  const T* wt = static_cast<const T*>(w);
+  T* yt = static_cast<T*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (K) {
+    case 3: return launch<3>(xt, wt, yt, B, H, W, s);
+    case 5: return launch<5>(xt, wt, yt, B, H, W, s);
+    case 7: return launch<7>(xt, wt, yt, B, H, W, s);
+    case 9: return launch<9>(xt, wt, yt, B, H, W, s);
+    case 11: return launch<11>(xt, wt, yt, B, H, W, s);
+    case 13: return launch<13>(xt, wt, yt, B, H, W, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -167,17 +189,12 @@ int launch(const float* x, const float* w, float* y, int B, int H, int W,
 SSHSLIE_EXPORT int sshslie_conv_c64_f32(const void* x, const void* w, void* y,
                                         int B, int H, int W, int K,
                                         void* stream) {
-  const float* xf = static_cast<const float*>(x);
-  const float* wf = static_cast<const float*>(w);
-  float* yf = static_cast<float*>(y);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (K) {
-    case 3: return launch<3>(xf, wf, yf, B, H, W, s);
-    case 5: return launch<5>(xf, wf, yf, B, H, W, s);
-    case 7: return launch<7>(xf, wf, yf, B, H, W, s);
-    case 9: return launch<9>(xf, wf, yf, B, H, W, s);
-    case 11: return launch<11>(xf, wf, yf, B, H, W, s);
-    case 13: return launch<13>(xf, wf, yf, B, H, W, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return conv_entry<float>(x, w, y, B, H, W, K, stream);
+}
+
+// The same with x, w and y in bfloat16 (float32 accumulation).
+SSHSLIE_EXPORT int sshslie_conv_c64_bf16(const void* x, const void* w, void* y,
+                                         int B, int H, int W, int K,
+                                         void* stream) {
+  return conv_entry<__nv_bfloat16>(x, w, y, B, H, W, K, stream);
 }

@@ -34,6 +34,13 @@
 //     slice order. No float atomics, so the result is the same from run to
 //     run. The number of slices fills the card's resident blocks once.
 // No tensor cores, TMA or pipelining yet: a right first kernel.
+//
+// bfloat16 entry (sshslie_conv9_wgrad_bf16): the same kernel on bfloat16 x
+// and dY (conv_pallas.py::conv9_wgrad on bfloat16 operands): both are widened
+// to float32 as they are staged in shared memory, and the partials, their
+// fixed-order sum and dW stay float32, so repeats are bit-identical. At the
+// bf16 training shape (8, 128, 128, 64) it is 8.7e10 FLOP: 1.3 ms of float32
+// FMA, against 0.088 ms on the tensor cores, which this form does not use.
 #include "common.cuh"
 
 namespace {
@@ -50,9 +57,9 @@ struct WTile {
   static constexpr int kInWPad = kInW | 1;  // odd row stride: fewer bank conflicts
 };
 
-template <int K>
+template <int K, class E>
 __global__ void __launch_bounds__(kThreads, 2)
-wgrad_c64_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+wgrad_c64_kernel(const E* __restrict__ x, const E* __restrict__ dy,
                  float* __restrict__ part, int B, int H, int W, int splits) {
   using T = WTile<K>;
   constexpr int P = (K - 1) / 2;
@@ -80,8 +87,8 @@ wgrad_c64_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     const int h = r - b * H;
     const int hx = h + kh - P;  // the input row kernel row kh reads
     if (hx < 0 || hx >= H) continue;  // zero padding: the same for the whole block
-    const float* xrow = x + (static_cast<size_t>(b) * H + hx) * W * kC;
-    const float* drow = dy + (static_cast<size_t>(b) * H + h) * W * kC;
+    const E* xrow = x + (static_cast<size_t>(b) * H + hx) * W * kC;
+    const E* drow = dy + (static_cast<size_t>(b) * H + h) * W * kC;
     for (int w0 = 0; w0 < W; w0 += kTP) {
       __syncthreads();  // the previous segment is consumed
       for (int i = tid; i < kTP * (kC / 4); i += kThreads) {
@@ -89,7 +96,7 @@ wgrad_c64_kernel(const float* __restrict__ x, const float* __restrict__ dy,
         const int q = i % (kC / 4);
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
         if (w0 + px < W)
-          v = *reinterpret_cast<const float4*>(drow + static_cast<size_t>(w0 + px) * kC + q * 4);
+          v = load4(drow + static_cast<size_t>(w0 + px) * kC + q * 4);
         *reinterpret_cast<float4*>(&ds[px][q * 4]) = v;
       }
       for (int i = tid; i < T::kInW * (kCiB / 4); i += kThreads) {
@@ -98,7 +105,7 @@ wgrad_c64_kernel(const float* __restrict__ x, const float* __restrict__ dy,
         const int gw = w0 - P + px;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
         if (gw >= 0 && gw < W)
-          v = *reinterpret_cast<const float4*>(xrow + static_cast<size_t>(gw) * kC + ci0 + q * 4);
+          v = load4(xrow + static_cast<size_t>(gw) * kC + ci0 + q * 4);
         xs[q * 4 + 0][px] = v.x;
         xs[q * 4 + 1][px] = v.y;
         xs[q * 4 + 2][px] = v.z;
@@ -153,13 +160,13 @@ __global__ void wgrad_reduce_kernel(const float4* __restrict__ part, float4* __r
   }
 }
 
-template <int K>
+template <int K, class E>
 int splits_for(int B, int H) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wgrad_c64_kernel<K>, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wgrad_c64_kernel<K, E>, kThreads, 0);
   if (err != cudaSuccess) return -static_cast<int>(err);
   // One wave of resident blocks: (kC / kCiB) * K blocks a slice.
   const long long capacity = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
@@ -169,11 +176,11 @@ int splits_for(int B, int H) {
   return static_cast<int>(splits < 1 ? 1 : splits);
 }
 
-template <int K>
-int launch(const float* x, const float* dy, float* part, float* dw, int B, int H, int W,
+template <int K, class E>
+int launch(const E* x, const E* dy, float* part, float* dw, int B, int H, int W,
            int splits, cudaStream_t stream) {
   const dim3 grid(splits, kC / kCiB, K);
-  wgrad_c64_kernel<K><<<grid, kThreads, 0, stream>>>(x, dy, part, B, H, W, splits);
+  wgrad_c64_kernel<K, E><<<grid, kThreads, 0, stream>>>(x, dy, part, B, H, W, splits);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n4 = K * K * kC * kC / 4;
@@ -183,6 +190,39 @@ int launch(const float* x, const float* dy, float* part, float* dw, int B, int H
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class E>
+int splits_entry(int B, int H, int K) {
+  switch (K) {
+    case 3: return splits_for<3, E>(B, H);
+    case 5: return splits_for<5, E>(B, H);
+    case 7: return splits_for<7, E>(B, H);
+    case 9: return splits_for<9, E>(B, H);
+    case 11: return splits_for<11, E>(B, H);
+    case 13: return splits_for<13, E>(B, H);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <class E>
+int wgrad_entry(const void* x, const void* dy, void* part, void* dw, int B, int H, int W, int K,
+                int splits, void* stream) {
+  const E* xe = static_cast<const E*>(x);
+  const E* de = static_cast<const E*>(dy);
+  float* pf = static_cast<float*>(part);
+  float* wf = static_cast<float*>(dw);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (K) {
+    case 3: return launch<3>(xe, de, pf, wf, B, H, W, splits, s);
+    case 5: return launch<5>(xe, de, pf, wf, B, H, W, splits, s);
+    case 7: return launch<7>(xe, de, pf, wf, B, H, W, splits, s);
+    case 9: return launch<9>(xe, de, pf, wf, B, H, W, splits, s);
+    case 11: return launch<11>(xe, de, pf, wf, B, H, W, splits, s);
+    case 13: return launch<13>(xe, de, pf, wf, B, H, W, splits, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // How many pixel-row slices sshslie_conv9_wgrad_f32 splits the reduction
@@ -190,15 +230,12 @@ int launch(const float* x, const float* dy, float* part, float* dw, int B, int H
 // scratch. Returns a negative CUDA error code on failure (-1 for a K the
 // kernel does not take).
 SSHSLIE_EXPORT int sshslie_conv9_wgrad_splits(int B, int H, int K) {
-  switch (K) {
-    case 3: return splits_for<3>(B, H);
-    case 5: return splits_for<5>(B, H);
-    case 7: return splits_for<7>(B, H);
-    case 9: return splits_for<9>(B, H);
-    case 11: return splits_for<11>(B, H);
-    case 13: return splits_for<13>(B, H);
-    default: return -static_cast<int>(cudaErrorInvalidValue);
-  }
+  return splits_entry<float>(B, H, K);
+}
+
+// The same for sshslie_conv9_wgrad_bf16.
+SSHSLIE_EXPORT int sshslie_conv9_wgrad_splits_bf16(int B, int H, int K) {
+  return splits_entry<__nv_bfloat16>(B, H, K);
 }
 
 // x, dy: (B, H, W, 64) float32; part: (splits, K, K, 64, 64) float32
@@ -207,19 +244,13 @@ SSHSLIE_EXPORT int sshslie_conv9_wgrad_splits(int B, int H, int K) {
 SSHSLIE_EXPORT int sshslie_conv9_wgrad_f32(const void* x, const void* dy, void* part, void* dw,
                                            int B, int H, int W, int K, int splits,
                                            void* stream) {
-  const float* xf = static_cast<const float*>(x);
-  const float* df = static_cast<const float*>(dy);
-  float* pf = static_cast<float*>(part);
-  float* wf = static_cast<float*>(dw);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (K) {
-    case 3: return launch<3>(xf, df, pf, wf, B, H, W, splits, s);
-    case 5: return launch<5>(xf, df, pf, wf, B, H, W, splits, s);
-    case 7: return launch<7>(xf, df, pf, wf, B, H, W, splits, s);
-    case 9: return launch<9>(xf, df, pf, wf, B, H, W, splits, s);
-    case 11: return launch<11>(xf, df, pf, wf, B, H, W, splits, s);
-    case 13: return launch<13>(xf, df, pf, wf, B, H, W, splits, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return wgrad_entry<float>(x, dy, part, dw, B, H, W, K, splits, stream);
+}
+
+// The same with x and dy in bfloat16; part and dw stay float32. splits from
+// sshslie_conv9_wgrad_splits_bf16.
+SSHSLIE_EXPORT int sshslie_conv9_wgrad_bf16(const void* x, const void* dy, void* part, void* dw,
+                                            int B, int H, int W, int K, int splits,
+                                            void* stream) {
+  return wgrad_entry<__nv_bfloat16>(x, dy, part, dw, B, H, W, K, splits, stream);
 }

@@ -40,6 +40,18 @@
 // At d = 16 the kernel runs at ~55% of the FMA peak (PERF.md, with the tile
 // numbers tried and the instruction mix of a chunk). The tile numbers are
 // fixed per head dim at the end of the namespace below.
+//
+// bfloat16 entry (sshslie_flash_attn_bf16): the same kernel on bfloat16 q, k
+// and v (attention.py::flash_attention on bfloat16 operands). q is widened to
+// float32 and scaled in float32; K/V tiles are loaded and widened to float32
+// on their way into shared memory (a plain load a thread, not cp.async, which
+// cannot convert); m, l, the accumulator and the probabilities p stay float32
+// (the Pallas kernel casts p to float32 too), and the output is rounded to
+// bfloat16 once. The -1e30 mask past S is unchanged. Its floor is that of the
+// float32 kernel; on the tensor cores the work's own floor would be the SFU's
+// exponentials, ~16 us at (1, 4, 4096, 16).
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -137,10 +149,10 @@ __device__ __forceinline__ void chunk(const float* kt, const float* vt, int key0
   }
 }
 
-template <int D, class T>
+template <int D, class T, class E>
 __global__ void __launch_bounds__(T::kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
+flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
+                 const E* __restrict__ v, E* __restrict__ o, int S,
                  float qk_scale_log2) {
   constexpr int DP = D + 4;  // padded row, a multiple of 4 floats
   constexpr int TQ = T::TQ;
@@ -157,11 +169,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int group = (threadIdx.x >> 5) * T::kGroups + lane / KL;
   const int row0 = blockIdx.x * T::BQ + group * TQ;
   const size_t base = static_cast<size_t>(blockIdx.y) * S * D;
-  const float* kb = k + base;
-  const float* vb = v + base;
+  const E* kb = k + base;
+  const E* vb = v + base;
 
-  // A thread's share of a stage: kLoads 16-byte copies of K and of V, at the
-  // same row offsets and column every tile, zero-filled past S.
+  // A thread's share of a stage: kLoads 4-value copies of K and of V, at the
+  // same row offsets and column every tile, zero-filled past S; float32 by
+  // cp.async, bfloat16 by a plain load widened to float32.
   constexpr int kRowStep = T::kThreads / (D / 4);  // rows between a thread's copies
   constexpr int kLoads = BK / kRowStep;
   static_assert(T::kThreads % (D / 4) == 0 && BK % kRowStep == 0, "whole copies a thread");
@@ -171,14 +184,28 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const size_t g = (static_cast<size_t>(t) * BK + lrow) * D + lcol;
     float* kd = ks[st] + lrow * DP + lcol;
     float* vd = vs[st] + lrow * DP + lcol;
+    if constexpr (std::is_same<E, float>::value) {
 #pragma unroll
-    for (int n = 0; n < kLoads; ++n) {
-      const bool in = t * BK + lrow + n * kRowStep < S;
-      const size_t off = in ? g + n * kRowStep * D : 0;
-      cp_async16(kd + n * kRowStep * DP, kb + off, in ? 16 : 0);
-      cp_async16(vd + n * kRowStep * DP, vb + off, in ? 16 : 0);
+      for (int n = 0; n < kLoads; ++n) {
+        const bool in = t * BK + lrow + n * kRowStep < S;
+        const size_t off = in ? g + n * kRowStep * D : 0;
+        cp_async16(kd + n * kRowStep * DP, kb + off, in ? 16 : 0);
+        cp_async16(vd + n * kRowStep * DP, vb + off, in ? 16 : 0);
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    } else {
+#pragma unroll
+      for (int n = 0; n < kLoads; ++n) {
+        float4 kk = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 vv = kk;
+        if (t * BK + lrow + n * kRowStep < S) {
+          kk = load4(kb + g + n * kRowStep * D);
+          vv = load4(vb + g + n * kRowStep * D);
+        }
+        *reinterpret_cast<float4*>(kd + n * kRowStep * DP) = kk;
+        *reinterpret_cast<float4*>(vd + n * kRowStep * DP) = vv;
+      }
     }
-    asm volatile("cp.async.commit_group;\n" ::);
   };
 
   const int ntiles = (S + BK - 1) / BK;
@@ -191,11 +218,11 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < TQ; ++i) {
     const bool active = row0 + i < S;
-    const float* qrow = q + base + static_cast<size_t>(row0 + i) * D;
+    const E* qrow = q + base + static_cast<size_t>(row0 + i) * D;
 #pragma unroll
     for (int d = 0; d < D; d += 4) {
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (active) x = *reinterpret_cast<const float4*>(qrow + d);
+      if (active) x = load4(qrow + d);
       qr[i][d] = x.x * qk_scale_log2;
       qr[i][d + 1] = x.y * qk_scale_log2;
       qr[i][d + 2] = x.z * qk_scale_log2;
@@ -210,7 +237,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < ntiles; ++t) {
     // Tile t has landed for every thread, and tile t - 1 is consumed, so its
     // stage may take tile t + 1.
-    asm volatile("cp.async.wait_all;\n" ::);
+    if constexpr (std::is_same<E, float>::value) asm volatile("cp.async.wait_all;\n" ::);
     __syncthreads();
     if (t + 1 < ntiles) load_tile(t + 1, (t + 1) & 1);
     const float* kt = ks[t & 1] + kl * DP;
@@ -252,22 +279,21 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = 0; i < TQ; ++i) {
     if (row0 + i >= S) continue;
     const float inv_l = 1.f / l[i];
-    float* orow = o + base + static_cast<size_t>(row0 + i) * D;
+    E* orow = o + base + static_cast<size_t>(row0 + i) * D;
 #pragma unroll
     for (int d = 0; d < D; d += 4) {
       if ((i * D + d) / kPer != kl) continue;
-      *reinterpret_cast<float4*>(orow + d) =
-          make_float4(acc[i][d] * inv_l, acc[i][d + 1] * inv_l, acc[i][d + 2] * inv_l,
-                      acc[i][d + 3] * inv_l);
+      store4(orow + d, make_float4(acc[i][d] * inv_l, acc[i][d + 1] * inv_l,
+                                   acc[i][d + 2] * inv_l, acc[i][d + 3] * inv_l));
     }
   }
 }
 
-template <int D, class T>
-int launch(const float* q, const float* k, const float* v, float* o, int BH, int S,
+template <int D, class T, class E>
+int launch(const E* q, const E* k, const E* v, E* o, int BH, int S,
            float qk_scale_log2, cudaStream_t stream) {
   const dim3 grid((S + T::BQ - 1) / T::BQ, BH);
-  flash_fwd_kernel<D, T><<<grid, T::kThreads, 0, stream>>>(q, k, v, o, S, qk_scale_log2);
+  flash_fwd_kernel<D, T, E><<<grid, T::kThreads, 0, stream>>>(q, k, v, o, S, qk_scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -275,6 +301,26 @@ int launch(const float* q, const float* k, const float* v, float* o, int BH, int
 using TilesD16 = Tiles<4, 8, 128, 8, 4>;
 using TilesD32 = Tiles<2, 8, 64, 8, 4>;
 using TilesD64 = Tiles<1, 8, 32, 4, 4>;  // 32-key stages: 35 KB of static shared memory
+
+template <class E>
+int flash_entry(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
+                float qk_scale_log2, void* stream) {
+  const E* qe = static_cast<const E*>(q);
+  const E* ke = static_cast<const E*>(k);
+  const E* ve = static_cast<const E*>(v);
+  E* oe = static_cast<E*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16:
+      return launch<16, TilesD16>(qe, ke, ve, oe, BH, S, qk_scale_log2, s);
+    case 32:
+      return launch<32, TilesD32>(qe, ke, ve, oe, BH, S, qk_scale_log2, s);
+    case 64:
+      return launch<64, TilesD64>(qe, ke, ve, oe, BH, S, qk_scale_log2, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 }  // namespace
 
@@ -284,19 +330,13 @@ SSHSLIE_EXPORT int sshslie_flash_attn_f32(const void* q, const void* k,
                                           const void* v, void* o, int BH,
                                           int S, int D, float qk_scale_log2,
                                           void* stream) {
-  const float* qf = static_cast<const float*>(q);
-  const float* kf = static_cast<const float*>(k);
-  const float* vf = static_cast<const float*>(v);
-  float* of = static_cast<float*>(o);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch<16, TilesD16>(qf, kf, vf, of, BH, S, qk_scale_log2, s);
-    case 32:
-      return launch<32, TilesD32>(qf, kf, vf, of, BH, S, qk_scale_log2, s);
-    case 64:
-      return launch<64, TilesD64>(qf, kf, vf, of, BH, S, qk_scale_log2, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return flash_entry<float>(q, k, v, o, BH, S, D, qk_scale_log2, stream);
+}
+
+// The same with q, k, v and o in bfloat16 (float32 m, l, p and accumulator).
+SSHSLIE_EXPORT int sshslie_flash_attn_bf16(const void* q, const void* k,
+                                           const void* v, void* o, int BH,
+                                           int S, int D, float qk_scale_log2,
+                                           void* stream) {
+  return flash_entry<__nv_bfloat16>(q, k, v, o, BH, S, D, qk_scale_log2, stream);
 }

@@ -19,6 +19,15 @@ keep torch's own layouts and names (Conv2d OIHW, ConvTranspose2d IOHW, Linear
 
 Every layer draws its initial weights and biases from U(-1/sqrt(fan_in),
 1/sqrt(fan_in)), PyTorch's default envelope, from an explicit generator.
+
+Precision (JAX ``layers.py:68-89, 120-136, 152-154``): parameters are stored
+in float32. A layer whose ``compute_dtype`` is set (``precision: bfloat16``;
+``LowLightEnhanceNet`` sets it on every layer) casts its input and its
+parameters to that dtype, runs the product in it, and adds the bias after
+the product, in it, as the JAX layers do. No ``torch.autocast``: the layers
+cast where the JAX package casts, and the nets cast their outputs back to
+float32 where it does. ``compute_dtype`` None computes in the input's dtype
+with the bias fused into the product.
 """
 
 from __future__ import annotations
@@ -42,6 +51,8 @@ def _uniform_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]
 class Conv2d(nn.Module):
     """k x k conv, padding (k-1)//2, OIHW weight, with the shallow-conv dispatch."""
 
+    compute_dtype: Optional[torch.dtype] = None
+
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1,
                  impl: str = "torch", generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -60,16 +71,21 @@ class Conv2d(nn.Module):
                                      self.k, in_ch, out_ch, self.stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
         if self._use_kernel(x):
             y = conv9.shallow_conv(x.permute(0, 2, 3, 1).contiguous(),
-                                   self.weight.permute(2, 3, 1, 0).contiguous(), self.bias)
+                                   w.permute(2, 3, 1, 0).contiguous(), b)
             return y.permute(0, 3, 1, 2)
         p = (self.k - 1) // 2
-        return F.conv2d(x, self.weight, self.bias, stride=self.stride, padding=p)
+        if self.compute_dtype is None:
+            return F.conv2d(x, w, b, stride=self.stride, padding=p)
+        return F.conv2d(x, w, None, stride=self.stride, padding=p) + b[:, None, None]
 
 
 class ConvTranspose2d(nn.Module):
     """``nn.ConvTranspose2d(k, stride, padding=(k-1)//2, output_padding)``, IOHW weight."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_ch: int, out_ch: int, k: int = 3, stride: int = 2,
                  output_padding: int = 1, generator: Optional[torch.Generator] = None):
@@ -83,13 +99,17 @@ class ConvTranspose2d(nn.Module):
         _uniform_(self.bias, fan_in, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.conv_transpose2d(x, self.weight, self.bias, stride=self.stride,
-                                  padding=(self.k - 1) // 2,
-                                  output_padding=self.output_padding)
+        x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
+        kw = dict(stride=self.stride, padding=(self.k - 1) // 2, output_padding=self.output_padding)
+        if self.compute_dtype is None:
+            return F.conv_transpose2d(x, w, b, **kw)
+        return F.conv_transpose2d(x, w, None, **kw) + b[:, None, None]
 
 
 class Dense(nn.Module):
     """``nn.Linear``: (out, in) weight."""
+
+    compute_dtype: Optional[torch.dtype] = None
 
     def __init__(self, in_features: int, out_features: int,
                  generator: Optional[torch.Generator] = None):
@@ -100,7 +120,15 @@ class Dense(nn.Module):
         _uniform_(self.bias, in_features, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
+        if self.compute_dtype is None:
+            return F.linear(x, w, b)
+        return F.linear(x, w) + b
+
+
+def _cast(dtype: Optional[torch.dtype], *tensors: torch.Tensor):
+    """The tensors in ``dtype``, or as they are when it is None."""
+    return tensors if dtype is None else tuple(t.to(dtype) for t in tensors)
 
 
 def conv_block(conv: nn.Module, relu: bool) -> nn.Sequential:

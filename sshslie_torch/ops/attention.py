@@ -9,9 +9,12 @@ Counterpart of ``sshslie_tpu/ops/attention.py``:
 * :func:`flash_attention`: the kernel of ``csrc/flash_attn.cu`` behind the
   :class:`FlashAttention` autograd Function (JAX ``_flash_attention_ad``). On
   a CUDA tensor the forward launches the kernel and counts the launch in
-  ``flash_attention.launches``, or raises; on a CPU tensor it computes
-  :func:`sdpa_chunked`. The backward recomputes through :func:`sdpa_chunked`
-  under autograd, as JAX ``_flash_bwd`` does: there is no backward kernel.
+  ``flash_attention.launches`` and ``flash_attention.launches_by_dtype``, or
+  raises; on a CPU tensor it computes :func:`sdpa_chunked`. q, k and v are
+  all float32 or all bfloat16 (the bfloat16 entry keeps m, l and the
+  accumulator in float32 and returns bfloat16); mixed dtypes raise. The
+  backward recomputes through :func:`sdpa_chunked` under autograd, as JAX
+  ``_flash_bwd`` does: there is no backward kernel.
 * :func:`multi_head_attention`: 'auto' takes the dense form up to 2048 tokens
   and past that the kernel on CUDA and ``sdpa_chunked`` on the CPU, as the JAX
   dispatch takes the Pallas kernel on a TPU and the chunked form elsewhere.
@@ -32,6 +35,8 @@ from sshslie_torch.ops import _build, at_least_float32
 NEG_INF = -1e30
 DENSE_MAX_SEQ = 2048
 HEAD_DIMS = (16, 32, 64)
+# The dtypes the kernel takes, and the suffix of each one's C entry.
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def sdpa_dense(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -76,9 +81,10 @@ def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _library() -> ctypes.CDLL:
     lib = _build.library("flash_attn")
-    fn = lib.sshslie_flash_attn_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for suffix in KERNEL_DTYPES.values():
+        fn = getattr(lib, f"sshslie_flash_attn_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -90,8 +96,9 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
     b, h, s, d = q.shape
     if not q.is_cuda or k.device != q.device or v.device != q.device:
         raise ValueError("flash_attention: q, k, v must lie on one CUDA device")
-    if any(t.dtype != torch.float32 for t in (q, k, v)):
-        raise ValueError(f"flash_attention: the kernel takes float32, got {q.dtype}")
+    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError("flash_attention: the kernel takes all-float32 or all-bfloat16 q, k, v, "
+                         f"got {[t.dtype for t in (q, k, v)]}")
     if k.shape != q.shape or v.shape != q.shape or d not in HEAD_DIMS:
         raise ValueError(f"flash_attention: unsupported shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)} (head dim in {HEAD_DIMS})")
@@ -101,10 +108,11 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
     if o.numel() == 0:
         return o
     lib = _library()
-    code = lib.sshslie_flash_attn_f32(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                      b * h, s, d, math.log2(math.e) / math.sqrt(d),
-                                      torch.cuda.current_stream(q.device).cuda_stream)
+    code = getattr(lib, f"sshslie_flash_attn_{KERNEL_DTYPES[q.dtype]}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, s, d,
+        math.log2(math.e) / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
     flash_attention.launches += 1
+    flash_attention.launches_by_dtype[q.dtype] += 1
     _build.check(lib, code, "flash attention kernel launch")
     return o
 
@@ -139,7 +147,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return FlashAttention.apply(q, k, v)
 
 
-flash_attention.launches = 0
+def reset_counts() -> None:
+    """Set the kernel's launch counts to 0."""
+    flash_attention.launches = 0
+    flash_attention.launches_by_dtype = dict.fromkeys(KERNEL_DTYPES, 0)
+
+
+reset_counts()
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -11,6 +11,11 @@ Layout as in the JAX package: x is NHWC (B, H, W, 64), w is HWIO
 * :func:`conv9_wgrad` is the wrapper of ``csrc/conv9_wgrad.cu``, the weight
   gradient, counted in ``conv9_wgrad.launches``; on a CPU tensor it computes
   :func:`conv9_wgrad_plain`.
+* Both take float32 or bfloat16 operands, as the Pallas kernels do, and
+  dispatch by dtype: all-float32 to the float32 entry, all-bfloat16 to the
+  bfloat16 one (float32 accumulation; conv9's output in bfloat16, the weight
+  gradient in float32). Mixed dtypes raise; nothing is converted. Each
+  launch also counts in ``launches_by_dtype[dtype]``.
 * Neither wrapper is differentiable: called where autograd would record it
   (grad mode on, an input that requires grad) it raises.
   :class:`ShallowConv` is the differentiable conv whose three passes all run
@@ -18,7 +23,10 @@ Layout as in the JAX package: x is NHWC (B, H, W, 64), w is HWIO
   ``conv9_fwd(g, conv9_dgrad_weights(w))``, only when x needs one; weight
   gradient ``conv9_wgrad(x, g, k)``; bias gradient a plain sum.
 * The plain versions are the same functions in plain PyTorch, tap by tap as
-  the kernels sum them: k*k float32 matrix products over the B*H*W pixels.
+  the kernels sum them: k*k matrix products over the B*H*W pixels, summed in
+  float32 at least whatever the operands' dtype (the TPU kernels accumulate
+  in float32); the conv's result is cast to x's dtype, the weight gradient
+  stays float32.
 * :func:`conv9_supported` is the gate ``models/layers.py::Conv2d`` uses:
   stride 1, odd k from 3 to 13, 64 channels in and out. It is the JAX gate
   without its TPU tile rules (W % 128), plus the kernels' own k limit.
@@ -33,10 +41,12 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from sshslie_torch.ops import _build
+from sshslie_torch.ops import _build, at_least_float32
 
 CHANNELS = 64
 KERNEL_SIZES = (3, 5, 7, 9, 11, 13)
+# The dtypes the kernels take, and the suffix of each one's C entry.
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def conv9_supported(shape: Tuple[int, ...], k: int, ci: int, co: int, stride: int = 1) -> bool:
@@ -46,25 +56,28 @@ def conv9_supported(shape: Tuple[int, ...], k: int, ci: int, co: int, stride: in
 
 
 def conv9_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Stride-1 SAME conv, NHWC x HWIO -> NHWC, as a sum of per-tap products."""
+    """Stride-1 SAME conv, NHWC x HWIO -> NHWC, as a sum of per-tap products
+    in float32 at least, cast to x's dtype."""
     b, h, wd, _ = x.shape
     k = w.shape[0]
     p = (k - 1) // 2
-    xp = F.pad(x, (0, 0, p, p, p, p))
-    y = x.new_zeros((b, h, wd, w.shape[-1]))
+    xp = F.pad(at_least_float32(x), (0, 0, p, p, p, p))
+    wf = at_least_float32(w)
+    y = xp.new_zeros((b, h, wd, w.shape[-1]))
     for kh in range(k):
         for kw in range(k):
-            y += xp[:, kh:kh + h, kw:kw + wd, :] @ w[kh, kw]
-    return y
+            y += xp[:, kh:kh + h, kw:kw + wd, :] @ wf[kh, kw]
+    return y.to(x.dtype)
 
 
 def conv9_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
-    """dw[kh,kw,ci,co] = sum_{b,h,w} xpad[b,h+kh,w+kw,ci] dy[b,h,w,co] -> (k,k,64,64)."""
+    """dw[kh,kw,ci,co] = sum_{b,h,w} xpad[b,h+kh,w+kw,ci] dy[b,h,w,co] -> (k,k,64,64),
+    summed and returned in float32 at least."""
     b, h, wd, ci = x.shape
     p = (k - 1) // 2
-    xp = F.pad(x, (0, 0, p, p, p, p))
-    dyf = dy.reshape(-1, dy.shape[-1])
-    dw = x.new_empty((k, k, ci, dy.shape[-1]))
+    xp = F.pad(at_least_float32(x), (0, 0, p, p, p, p))
+    dyf = at_least_float32(dy).reshape(-1, dy.shape[-1])
+    dw = xp.new_empty((k, k, ci, dy.shape[-1]))
     for kh in range(k):
         for kw in range(k):
             dw[kh, kw] = xp[:, kh:kh + h, kw:kw + wd, :].reshape(-1, ci).T @ dyf
@@ -84,39 +97,60 @@ def _not_differentiable(name: str, *tensors: torch.Tensor) -> None:
             "Call ops.conv9.shallow_conv (the ShallowConv autograd Function) instead")
 
 
-def _check_cuda_operands(name: str, *tensors: torch.Tensor) -> None:
+def _check_cuda_operands(name: str, *tensors: torch.Tensor) -> str:
+    """Raise unless the operands suit a kernel entry; return the entry's
+    dtype suffix ('f32' or 'bf16')."""
     dev = tensors[0].device
     if not tensors[0].is_cuda or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: operands on {[str(t.device) for t in tensors]}; "
                          "the kernel needs one CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise ValueError(f"{name}: the kernel takes float32, got {[t.dtype for t in tensors]}")
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or tensors[0].dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{name}: the kernel takes all-float32 or all-bfloat16 operands, "
+                         f"got {[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: operands must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: operands must be 16-byte aligned")
+    return KERNEL_DTYPES[tensors[0].dtype]
+
+
+def _count(wrapper, dtype: torch.dtype) -> None:
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[dtype] += 1
+
+
+def reset_counts() -> None:
+    """Set the launch counts of both wrappers to 0."""
+    for wrapper in (conv9_fwd, conv9_wgrad):
+        wrapper.launches = 0
+        wrapper.launches_by_dtype = dict.fromkeys(KERNEL_DTYPES, 0)
 
 
 def _library() -> ctypes.CDLL:
     lib = _build.library("conv9")
-    fn = lib.sshslie_conv_c64_f32
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for suffix in KERNEL_DTYPES.values():
+        fn = getattr(lib, f"sshslie_conv_c64_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
 def _wgrad_library() -> ctypes.CDLL:
     lib = _build.library("conv9_wgrad")
-    lib.sshslie_conv9_wgrad_splits.argtypes = [ctypes.c_int] * 3
-    lib.sshslie_conv9_wgrad_splits.restype = ctypes.c_int
-    fn = lib.sshslie_conv9_wgrad_f32
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    for suffix in KERNEL_DTYPES.values():
+        splits = getattr(lib, f"sshslie_conv9_wgrad_splits{'' if suffix == 'f32' else '_' + suffix}")
+        splits.argtypes = [ctypes.c_int] * 3
+        splits.restype = ctypes.c_int
+        fn = getattr(lib, f"sshslie_conv9_wgrad_{suffix}")
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     return lib
 
 
 def conv9_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Stride-1 SAME k x k conv, NHWC (B, H, W, 64) x HWIO (k, k, 64, 64) -> NHWC.
+    """Stride-1 SAME k x k conv, NHWC (B, H, W, 64) x HWIO (k, k, 64, 64) -> NHWC
+    in x's dtype (float32 or bfloat16, float32 accumulation).
 
     CPU tensors take :func:`conv9_plain`. CUDA tensors take the kernel; a
     shape, type or layout the kernel does not take raises. Not
@@ -125,7 +159,7 @@ def conv9_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _not_differentiable("conv9_fwd", x, w)
     if x.device.type == "cpu":
         return conv9_plain(x, w)
-    _check_cuda_operands("conv9_fwd", x, w)
+    suffix = _check_cuda_operands("conv9_fwd", x, w)
     k = w.shape[0]
     if tuple(w.shape) != (k, k, CHANNELS, CHANNELS) or not conv9_supported(x.shape, k, CHANNELS, CHANNELS):
         raise ValueError(f"conv9_fwd: unsupported shapes x {tuple(x.shape)}, w {tuple(w.shape)}")
@@ -134,18 +168,17 @@ def conv9_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if y.numel() == 0:
         return y
     lib = _library()
-    code = lib.sshslie_conv_c64_f32(x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, k,
-                                    torch.cuda.current_stream(x.device).cuda_stream)
-    conv9_fwd.launches += 1
+    code = getattr(lib, f"sshslie_conv_c64_{suffix}")(
+        x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, k,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _count(conv9_fwd, x.dtype)
     _build.check(lib, code, "conv9 kernel launch")
     return y
 
 
-conv9_fwd.launches = 0
-
-
 def conv9_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
-    """Weight gradient of the stride-1 SAME k x k 64 -> 64 conv -> (k, k, 64, 64).
+    """Weight gradient of the stride-1 SAME k x k 64 -> 64 conv -> (k, k, 64, 64)
+    in float32, from float32 or bfloat16 x and dy.
 
     CPU tensors take :func:`conv9_wgrad_plain`. CUDA tensors take the kernel
     (a split reduction over pixel rows into scratch, then a fixed-order sum
@@ -154,28 +187,29 @@ def conv9_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     _not_differentiable("conv9_wgrad", x, dy)
     if x.device.type == "cpu":
         return conv9_wgrad_plain(x, dy, k)
-    _check_cuda_operands("conv9_wgrad", x, dy)
+    suffix = _check_cuda_operands("conv9_wgrad", x, dy)
     if x.shape != dy.shape or not conv9_supported(x.shape, k, CHANNELS, CHANNELS):
         raise ValueError(f"conv9_wgrad: unsupported shapes x {tuple(x.shape)}, "
                          f"dy {tuple(dy.shape)}, k {k}")
     b, h, wd, _ = x.shape
     if x.numel() == 0:
-        return x.new_zeros((k, k, CHANNELS, CHANNELS))
+        return x.new_zeros((k, k, CHANNELS, CHANNELS), dtype=torch.float32)
     lib = _wgrad_library()
-    splits = lib.sshslie_conv9_wgrad_splits(b, h, k)
+    splits = getattr(lib, "sshslie_conv9_wgrad_splits" if suffix == "f32"
+                     else f"sshslie_conv9_wgrad_splits_{suffix}")(b, h, k)
     if splits < 0:
         _build.check(lib, -splits, "conv9_wgrad occupancy query")
     part = torch.empty((splits, k, k, CHANNELS, CHANNELS), dtype=torch.float32, device=x.device)
     dw = torch.empty((k, k, CHANNELS, CHANNELS), dtype=torch.float32, device=x.device)
-    code = lib.sshslie_conv9_wgrad_f32(x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(),
-                                       b, h, wd, k, splits,
-                                       torch.cuda.current_stream(x.device).cuda_stream)
-    conv9_wgrad.launches += 1
+    code = getattr(lib, f"sshslie_conv9_wgrad_{suffix}")(
+        x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd, k, splits,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _count(conv9_wgrad, x.dtype)
     _build.check(lib, code, "conv9_wgrad kernel launch")
     return dw
 
 
-conv9_wgrad.launches = 0
+reset_counts()
 
 
 class ShallowConv(torch.autograd.Function):
@@ -183,8 +217,11 @@ class ShallowConv(torch.autograd.Function):
     (JAX ``pallas_shallow_conv`` with ``_psc_fwd``/``_psc_bwd``; the JAX VJP
     takes dw from XLA, the port from its own ``conv9_wgrad`` kernel).
 
-    x NHWC (B, H, W, 64), w HWIO (k, k, 64, 64), b (64,). On CPU tensors the
-    same passes run on the plain versions.
+    x NHWC (B, H, W, 64), w HWIO (k, k, 64, 64), b (64,), all of one dtype,
+    float32 or bfloat16. The gradients come back in that dtype, as in
+    ``_psc_bwd``: dx from the conv9 kernel, dw from the float32 weight
+    gradient rounded to w's dtype, db a float32 sum cast to it. On CPU
+    tensors the same passes run on the plain versions.
     """
 
     @staticmethod
@@ -203,9 +240,9 @@ class ShallowConv(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = conv9_fwd(g, conv9_dgrad_weights(w))
         if ctx.needs_input_grad[1]:
-            dw = conv9_wgrad(x, g, w.shape[0])
+            dw = conv9_wgrad(x, g, w.shape[0]).to(w.dtype)
         if ctx.needs_input_grad[2]:
-            db = g.sum(dim=(0, 1, 2))
+            db = at_least_float32(g).sum(dim=(0, 1, 2)).to(w.dtype)
         return dx, dw, db
 
 

@@ -130,9 +130,6 @@ def main(cfg: Config):
         raise NotImplementedError("phase 'serve' is not ported yet: serving is ROADMAP.md "
                                   "queue 1, item 8")
     check_ported(cfg, training=cfg.phase in _TRAINING)
-    if cfg.matmul_precision not in ("", "float32", "highest"):
-        raise NotImplementedError(
-            f"matmul_precision {cfg.matmul_precision!r}: the port runs full float32 only so far")
     device = resolve_device(cfg.device)
     log_filepath = os.path.join("logs", "console_output_" + cfg.full_model_name + ".log")
     original_stdout = sys.stdout

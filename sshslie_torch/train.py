@@ -1,9 +1,29 @@
-"""Training engine of the port, as ``sshslie_tpu/train.py`` on its host pipeline.
+"""Training engine of the port, as ``sshslie_tpu/train.py``.
 
 * :func:`train_step` is one step of JAX ``make_train_step``: the forward with
   the re-decomposition of S, the six-term loss (``_make_loss_fn``), the
   gradients, the freeze mask and the Adam update (``_apply_update``). It
   returns the 7 terms as detached tensors on the device and syncs nothing.
+  Every other step is built on it or on its pieces, so their trajectories
+  agree by construction, as JAX builds all four from one loss function.
+* :func:`accum_train_step` is JAX ``make_accum_train_step``: the batch split
+  into K micro-batches, their gradients and terms summed and scaled by 1/K,
+  then one update (host pipeline only).
+* :func:`fused_train_step` is JAX ``make_fused_train_step``: the batch cropped
+  and augmented on the device from the (N, H, W, C) stack of
+  :func:`stack_cubes` (cube ``(batch_start + i) % N``, offsets in
+  [0, dim - P), one of 8 modes), then :func:`train_step`: no host-to-device
+  batch upload a step. :func:`multistep_train_step` runs K of them in one
+  host call and returns the chunk's terms summed (JAX
+  ``make_multistep_train_step``; a remainder chunk takes only its real
+  steps), so its trajectory is that of K single fused steps.
+* The fused pipeline's random stream: torch cannot replay JAX's threefry, so
+  each epoch's whole table of (x, y, mode) draws comes from numpy,
+  ``default_rng(SeedSequence([seed_value, epoch]))`` (:func:`fused_draws`),
+  and is uploaded once an epoch; steps index it on the device. The stream is
+  the same on every device, and resume replays it. A documented deviation
+  beside PARITY #19 (the three JAX pipelines draw from three streams too);
+  ``fit`` prints it in its "Patch sampler:" line.
 * Adam is ``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` without weight
   decay, with each epoch's StepLR value written into its param groups:
   optax ``scale_by_adam`` followed by ``p - lr * u`` is the same update.
@@ -11,24 +31,27 @@
   DecompositionNet's gradients are set to zero, not dropped, so Adam's
   moments and step counts advance as the JAX package's do; Adam is recreated
   at the unfreeze epoch (reference model.py:273-288).
-* :class:`Trainer` is ``Trainer.fit`` for the host pipeline: the
-  ``PatchSampler`` stream (numpy PCG64), one upload a step, per-epoch
+* :class:`Trainer` is ``Trainer.fit``: pipeline selection as JAX (fused on
+  same-shape cubes for ``fused_pipeline: auto|on``, else the host
+  ``PatchSampler`` stream, numpy PCG64, one upload a step), per-epoch
   averages of the 7 terms with one device-to-host sync an epoch, eval and
   checkpoint on the ``eval_every_epoch`` cadence, the final-tail checkpoint
   (PARITY #22), resume from ``model_epoch_latest.pth`` with the optimizer
   state and the sampler fast-forwarded.
 
-Not ported (ROADMAP.md queue 1): the fused, multistep and accumulating steps
-and bf16 (item 5); SIGTERM checkpointing, async eval, ``checkpoint_best``,
-the background writer, plots and MLflow (item 6); meshes (item 7).
+Not ported (ROADMAP.md queue 1): SIGTERM checkpointing, async eval,
+``checkpoint_best``, the background writer, plots and MLflow (item 6);
+meshes (item 7); ``fused_window`` (item 9); a CUDA graph of a multistep
+chunk (item 11).
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterable, Optional
 
+import numpy as np
 import torch
 
 from sshslie_torch import checkpoints, interop
@@ -37,6 +60,7 @@ from sshslie_torch.data.datasets import CubeStore, PatchSampler
 from sshslie_torch.device import resolve_device
 from sshslie_torch.models.enhance import LowLightEnhanceNet, build_model
 from sshslie_torch.ops.losses import total_loss
+from sshslie_torch.utils.augment import NUM_MODES, augment_batch
 from sshslie_torch.utils.schedule import step_lr
 
 LOSS_KEYS = (
@@ -68,19 +92,119 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
+def _backward(model: LowLightEnhanceNet, batch: torch.Tensor,
+              coeffs: Dict[str, float]) -> Dict[str, torch.Tensor]:
+    """The shared objective (JAX ``_make_loss_fn``): forward, loss, backward,
+    gradients added into ``p.grad`` → the detached terms."""
+    R_low, I_low, I_delta, S, R_enh = model.forward_with_redecomposition(batch)
+    total, terms = total_loss(batch, R_low, I_low, I_delta, S, R_enh, coeffs)
+    total.backward()
+    return {k: terms[k].detach() for k in LOSS_KEYS}
+
+
+def _update(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
+            freeze_decom: bool) -> None:
+    """Freeze mask and Adam (JAX ``_apply_update``)."""
+    if freeze_decom:
+        for p in model.decomposition_net.parameters():
+            p.grad.zero_()
+    optimizer.step()
+
+
+def _add_terms(sums: Optional[Dict[str, torch.Tensor]],
+               terms: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return terms if sums is None else {k: sums[k] + terms[k] for k in LOSS_KEYS}
+
+
 def train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
                batch: torch.Tensor, coeffs: Dict[str, float],
                freeze_decom: bool = False) -> Dict[str, torch.Tensor]:
     """One update on an NHWC batch → {LOSS_KEYS name: detached scalar tensor}."""
     optimizer.zero_grad(set_to_none=True)
-    R_low, I_low, I_delta, S, R_enh = model.forward_with_redecomposition(batch)
-    total, terms = total_loss(batch, R_low, I_low, I_delta, S, R_enh, coeffs)
-    total.backward()
-    if freeze_decom:
-        for p in model.decomposition_net.parameters():
-            p.grad.zero_()
-    optimizer.step()
-    return {k: terms[k].detach() for k in LOSS_KEYS}
+    terms = _backward(model, batch, coeffs)
+    _update(model, optimizer, freeze_decom)
+    return terms
+
+
+def accum_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
+                     batch: torch.Tensor, coeffs: Dict[str, float], accum_steps: int,
+                     freeze_decom: bool = False) -> Dict[str, torch.Tensor]:
+    """One update from ``accum_steps`` consecutive micro-batches of ``batch``:
+    the gradients and terms summed in micro-batch order and scaled by
+    1/accum_steps (every term is a mean over the batch, so this is the
+    full-batch update up to rounding)."""
+    b = batch.shape[0]
+    if b % accum_steps != 0:
+        raise ValueError(f"batch {b} not divisible by grad_accum_steps {accum_steps}")
+    optimizer.zero_grad(set_to_none=True)
+    sums = None
+    for micro in batch.chunk(accum_steps):
+        sums = _add_terms(sums, _backward(model, micro, coeffs))
+    inv = 1.0 / accum_steps
+    for p in model.parameters():
+        p.grad.mul_(inv)
+    _update(model, optimizer, freeze_decom)
+    return {k: sums[k] * inv for k in LOSS_KEYS}
+
+
+def stack_cubes(store: CubeStore, device) -> Optional[torch.Tensor]:
+    """The (N, H, W, C) float32 stack of the store's cubes on ``device``, or
+    None when their shapes differ (JAX ``stack_cubes``)."""
+    if len({c.shape for c in store.cubes}) != 1:
+        return None
+    return torch.from_numpy(np.stack(store.cubes)).to(device)
+
+
+def fused_draws(seed: int, epoch: int, num_batches: int, batch_size: int,
+                cube_hw: tuple, patch_size: int) -> np.ndarray:
+    """One epoch's (num_batches, batch_size, 3) int64 table of (x, y, mode):
+    crop offsets in [0, dim - patch_size) (exclusive, as the reference) and
+    modes in [0, 8), from ``default_rng(SeedSequence([seed, epoch]))``."""
+    rng = np.random.default_rng(np.random.SeedSequence([seed, epoch]))
+    size = (num_batches, batch_size)
+    h, w = cube_hw
+    xs = rng.integers(0, max(h - patch_size, 1), size=size)
+    ys = rng.integers(0, max(w - patch_size, 1), size=size)
+    modes = rng.integers(0, NUM_MODES, size=size)
+    return np.stack([xs, ys, modes], axis=-1)
+
+
+def sample_fused_batch(cubes: torch.Tensor, draws: torch.Tensor, batch_start: int,
+                       patch_size: int) -> torch.Tensor:
+    """The (B, P, P, C) batch of one fused step, on the cubes' device: sample i
+    crops cube ``(batch_start + i) % N`` at ``draws[i, :2]`` and takes mode
+    ``draws[i, 2]`` (JAX ``_sample_fused_batch``)."""
+    dev = cubes.device
+    idx = (batch_start + torch.arange(draws.shape[0], device=dev)) % cubes.shape[0]
+    offs = torch.arange(patch_size, device=dev)
+    rows = draws[:, 0, None] + offs
+    cols = draws[:, 1, None] + offs
+    patches = cubes[idx[:, None, None], rows[:, :, None], cols[:, None, :]]
+    return augment_batch(patches, draws[:, 2])
+
+
+def fused_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
+                     cubes: torch.Tensor, draws: torch.Tensor, batch_start: int,
+                     patch_size: int, coeffs: Dict[str, float],
+                     freeze_decom: bool = False) -> Dict[str, torch.Tensor]:
+    """One fused step: the batch sampled on the device, then :func:`train_step`."""
+    batch = sample_fused_batch(cubes, draws, batch_start, patch_size)
+    return train_step(model, optimizer, batch, coeffs, freeze_decom)
+
+
+def multistep_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
+                         cubes: torch.Tensor, epoch_draws: torch.Tensor,
+                         batch_ids: Iterable[int], batch_size: int, patch_size: int,
+                         coeffs: Dict[str, float],
+                         freeze_decom: bool = False) -> Dict[str, torch.Tensor]:
+    """The fused steps ``batch_ids`` of an epoch in one host call, each
+    exactly as :func:`fused_train_step` → their terms summed in step order."""
+    sums = None
+    for batch_id in batch_ids:
+        sums = _add_terms(sums, fused_train_step(
+            model, optimizer, cubes, epoch_draws[batch_id], batch_id * batch_size,
+            patch_size, coeffs, freeze_decom))
+    return sums
 
 
 class Trainer:
@@ -106,8 +230,10 @@ class Trainer:
         self.freeze_decom_epochs = int(cfg.freeze_decom_epochs or 0)
         self.all_epoch_losses: Dict[str, list] = {k: [] for k in LOSS_KEYS}
         self.eval_metrics: Dict[int, Dict[str, float]] = {}
+        self.pipeline = ""           # 'fused' or 'host', set by fit
         # Per trained epoch: (seconds the host spent sampling and uploading,
-        # wall seconds of the epoch's steps up to its sync).
+        # or drawing and uploading the fused draws, wall seconds of the
+        # epoch's steps up to its sync).
         self.epoch_seconds: list = []
 
     def load_pretrained(self, path: str) -> None:
@@ -174,14 +300,37 @@ class Trainer:
         if eval_result_dir:
             os.makedirs(eval_result_dir, exist_ok=True)
 
-        sampler = PatchSampler(train_store, cfg.batch_size, cfg.patch_size, seed=cfg.seed_value)
-        if start_epoch > 0:
-            sampler.skip_epochs(start_epoch)
-        print(f"Patch sampler: PatchSampler (sampler={cfg.sampler!r}, "
-              f"fused_pipeline={cfg.fused_pipeline!r} -> host pipeline, rng=numpy PCG64)")
+        # Pipeline selection (JAX Trainer.fit): the fused pipeline on a stack
+        # of same-shape cubes for 'auto'/'on' without accumulation, else the
+        # host sampler.
+        accum = max(int(cfg.grad_accum_steps), 1)
+        if accum > 1 and cfg.fused_pipeline == "on":
+            raise ValueError("grad_accum_steps > 1 requires the host pipeline; set "
+                             "fused_pipeline to 'auto' or 'off'")
+        cubes = sampler = None
+        if accum == 1 and cfg.fused_pipeline in ("auto", "on"):
+            cubes = stack_cubes(train_store, self.device)
+            if cubes is None and cfg.fused_pipeline == "on":
+                raise ValueError("fused_pipeline='on' requires all training cubes to share "
+                                 "one shape; use 'auto' or 'off' for mixed-size datasets")
+        k_steps = max(int(cfg.steps_per_dispatch), 1)
+        self.pipeline = "host" if cubes is None else "fused"
+        if cubes is not None:
+            print(f"Patch sampler: fused on-device pipeline (fused_pipeline="
+                  f"{cfg.fused_pipeline!r}, steps_per_dispatch={k_steps}, rng=numpy PCG64 "
+                  "table of each epoch's draws from SeedSequence([seed_value, epoch]); "
+                  "not the JAX threefry stream)")
+        else:
+            sampler = PatchSampler(train_store, cfg.batch_size, cfg.patch_size,
+                                   seed=cfg.seed_value)
+            if start_epoch > 0:
+                sampler.skip_epochs(start_epoch)
+            print(f"Patch sampler: PatchSampler (sampler={cfg.sampler!r}, "
+                  f"fused_pipeline={cfg.fused_pipeline!r} -> host pipeline, "
+                  f"grad_accum_steps={accum}, rng=numpy PCG64)")
         print("Ignored (speed only): "
               + ", ".join(f"{k}={getattr(cfg, k)!r}" for k in SPEED_ONLY_KEYS))
-        num_batches = sampler.num_batches
+        num_batches = len(train_store) // cfg.batch_size
 
         for epoch in range(start_epoch, cfg.epoch):
             freeze = 0 < self.freeze_decom_epochs and epoch < self.freeze_decom_epochs
@@ -198,16 +347,40 @@ class Trainer:
             count = 0
             host_s = 0.0
             start = time.perf_counter()
-            for batch_id in range(num_batches):
+            if cubes is not None:
+                # The epoch's draws, uploaded once; steps index them on the device.
                 t = time.perf_counter()
-                batch = self._upload(sampler.sample_batch(batch_id))
+                draws = torch.from_numpy(fused_draws(
+                    cfg.seed_value, epoch, num_batches, cfg.batch_size, tuple(cubes.shape[1:3]),
+                    cfg.patch_size)).to(self.device)
                 host_s += time.perf_counter() - t
-                terms = train_step(self.model, self.optimizer, batch, self.coeffs, freeze)
-                sums = terms if sums is None else {k: sums[k] + terms[k] for k in LOSS_KEYS}
-                count += 1
-                if cfg.log_every_step and (batch_id + 1) % cfg.log_every_step == 0:
-                    print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{batch_id+1}/{num_batches}] "
-                          f"Loss: {float(terms['total_loss']):.6f}")
+                for chunk_start in range(0, num_batches, k_steps):
+                    ids = range(chunk_start, min(chunk_start + k_steps, num_batches))
+                    terms = multistep_train_step(self.model, self.optimizer, cubes, draws, ids,
+                                                 cfg.batch_size, cfg.patch_size, self.coeffs,
+                                                 freeze)
+                    sums = _add_terms(sums, terms)
+                    count += len(ids)
+                    # log_every_step's cadence: print when the chunk crossed an N boundary.
+                    if cfg.log_every_step and ((ids[-1] + 1) // cfg.log_every_step
+                                               > ids[0] // cfg.log_every_step):
+                        print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{ids[-1]+1}/{num_batches}] "
+                              f"Loss: {float(terms['total_loss']) / len(ids):.6f}")
+            else:
+                for batch_id in range(num_batches):
+                    t = time.perf_counter()
+                    batch = self._upload(sampler.sample_batch(batch_id))
+                    host_s += time.perf_counter() - t
+                    if accum > 1:
+                        terms = accum_train_step(self.model, self.optimizer, batch, self.coeffs,
+                                                 accum, freeze)
+                    else:
+                        terms = train_step(self.model, self.optimizer, batch, self.coeffs, freeze)
+                    sums = _add_terms(sums, terms)
+                    count += 1
+                    if cfg.log_every_step and (batch_id + 1) % cfg.log_every_step == 0:
+                        print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{batch_id+1}/{num_batches}] "
+                              f"Loss: {float(terms['total_loss']):.6f}")
             # The one device-to-host sync of the epoch.
             host_sums = torch.stack([sums[k] for k in LOSS_KEYS]).cpu().tolist()
             self.epoch_seconds.append((host_s, time.perf_counter() - start))

@@ -78,13 +78,14 @@ def test_entry_point_raises_without_card_unless_cpu_is_asked(tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("phase,unported", [
-    ("train", {"fused_pipeline": "on"}),
-    ("train_and_test", {"grad_accum_steps": 2}),
+    ("train", {"fused_window": 2}),
+    ("train_and_test", {"matmul_precision": "tensorfloat32"}),
     ("serve", {}),
 ], ids=["train", "train_and_test", "serve"])
 def test_unported_phases_raise(tmp_path, monkeypatch, phase, unported):
     """Serving is not ported; the training phases are, and raise for what of
-    them is not (the on-device pipelines, accumulation), before any work."""
+    them is not (the rotating cube window, matmuls below full float32),
+    before any work."""
     from sshslie_torch import runner
     from sshslie_torch.config import load_config
 

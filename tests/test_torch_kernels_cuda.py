@@ -14,6 +14,17 @@ exp; chip_smoke.py measured up to 5.7e-7). conv9_wgrad: 2e-5 of the largest |dw|
 the plain version's matrix products). Gradients of the autograd Functions
 against autograd through the plain versions: 2e-5 of each gradient's
 largest magnitude.
+
+The bfloat16 entries, at the main path's shapes, against the plain versions
+on the same bfloat16 operands: conv9 and its dgrad within one bfloat16 step
+of the largest output, 2^-7 of it (both sum in float32 and round once; the
+sums' order differs, so a value near a rounding boundary may round the other
+way); conv9_wgrad, whose output is float32, within 2e-5 of the largest |dw|;
+flash within 2^-7 of the largest |o| plus 2^-9 of the largest |v| (the
+kernel keeps p in float32 as the Pallas kernel does, the plain
+``sdpa_chunked`` rounds p to bfloat16 before P V, which moves o by at most
+2^-9 of max|v|; then one bfloat16 step of o). Mixed dtypes raise; repeats are
+bit-identical.
 """
 
 import numpy as np
@@ -179,3 +190,88 @@ def test_kernel_outputs_carry_grad_fn(cuda_device):
         conv9.conv9_fwd(x, w)
     q = torch.randn(1, 1, 64, 16, device=cuda_device, requires_grad=True)
     assert attention.flash_attention(q, q.detach(), q.detach()).grad_fn is not None
+
+
+BF16_STEP = 2.0 ** -7    # one bfloat16 step of a value's magnitude, at most
+
+
+def _bf16(seed, shape, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 512, 512, 64), (8, 128, 128, 64), (1, 37, 53, 64)])
+def test_conv9_bf16_kernel_matches_plain_on_card(cuda_device, shape):
+    x, w = _bf16(21, shape).to(cuda_device), _bf16(22, (9, 9, 64, 64), 0.05).to(cuda_device)
+    before = conv9.conv9_fwd.launches_by_dtype[torch.bfloat16]
+    got = conv9.conv9_fwd(x, w)
+    torch.cuda.synchronize()
+    assert conv9.conv9_fwd.launches_by_dtype[torch.bfloat16] == before + 1
+    assert got.dtype == torch.bfloat16
+    _rel_close(got.float(), conv9.conv9_plain(x, w).float(), BF16_STEP, f"conv9 bf16 {shape}")
+    # dgrad at the training shape: the same entry with the reversed, transposed weights
+    wd = conv9.conv9_dgrad_weights(w)
+    _rel_close(conv9.conv9_fwd(x, wd).float(), conv9.conv9_plain(x, wd).float(), BF16_STEP, "dgrad")
+    assert torch.equal(got, conv9.conv9_fwd(x, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 128, 128, 64), (1, 37, 53, 64)])
+def test_conv9_wgrad_bf16_kernel_matches_plain_on_card(cuda_device, shape):
+    x, dy = _bf16(23, shape).to(cuda_device), _bf16(24, shape).to(cuda_device)
+    before = conv9.conv9_wgrad.launches_by_dtype[torch.bfloat16]
+    got = conv9.conv9_wgrad(x, dy, 9)
+    torch.cuda.synchronize()
+    assert conv9.conv9_wgrad.launches_by_dtype[torch.bfloat16] == before + 1
+    assert got.dtype == torch.float32
+    _rel_close(got, conv9.conv9_wgrad_plain(x, dy, 9), 2e-5, f"wgrad bf16 {shape}")
+    assert torch.equal(got, conv9.conv9_wgrad(x, dy, 9))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 4, 4096, 16), (1, 4, 4100, 16), (1, 1, 3, 16),
+                                   (1, 2, 300, 32), (1, 2, 300, 64)])
+def test_flash_bf16_kernel_matches_plain_on_card(cuda_device, shape):
+    q, k, v = (_bf16(30 + i, shape).to(cuda_device) for i in range(3))
+    before = attention.flash_attention.launches_by_dtype[torch.bfloat16]
+    got = attention.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention.launches_by_dtype[torch.bfloat16] == before + 1
+    assert got.dtype == torch.bfloat16
+    want = attention.sdpa_chunked(q, k, v).float()
+    tol = BF16_STEP * float(want.abs().max()) + 2.0 ** -9 * float(v.float().abs().max())
+    err = float((got.float() - want).abs().max())
+    assert err <= tol, f"flash bf16 {shape}: max|d| {err:.3e} > {tol:.3e}"
+    assert torch.equal(got, attention.flash_attention(q, k, v))
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_mixed_dtypes(cuda_device):
+    x32 = torch.zeros(1, 8, 8, 64, device=cuda_device)
+    x16 = x32.to(torch.bfloat16)
+    w32 = torch.zeros(9, 9, 64, 64, device=cuda_device)
+    for x, w in ((x32, w32.to(torch.bfloat16)), (x16, w32)):
+        with pytest.raises(ValueError, match="all-float32 or all-bfloat16"):
+            conv9.conv9_fwd(x, w)
+    with pytest.raises(ValueError, match="all-float32 or all-bfloat16"):
+        conv9.conv9_wgrad(x16, x32, 9)
+    q = torch.zeros(1, 1, 8, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="all-float32 or all-bfloat16"):
+        attention.flash_attention(q.to(torch.bfloat16), q, q)
+    with pytest.raises(ValueError):
+        attention.flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.cuda
+def test_shallow_conv_bf16_grads_on_card_match_plain_passes(cuda_device):
+    x, w, g = _bf16(40, (8, 32, 48, 64)), _bf16(41, (9, 9, 64, 64), 0.05), _bf16(42, (8, 32, 48, 64))
+    b = _bf16(43, (64,), 0.1)
+
+    def grads(dev):
+        ts = [t.to(dev).requires_grad_() for t in (x, w, b)]
+        return [t.float().cpu() for t in torch.autograd.grad(conv9.shallow_conv(*ts), ts, g.to(dev))]
+
+    got, want = grads(cuda_device), grads("cpu")     # the CPU takes the plain passes
+    for name, a, c in zip(("dx", "dw", "db"), got, want):
+        _rel_close(a, c, BF16_STEP, name)

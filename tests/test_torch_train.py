@@ -242,9 +242,9 @@ def test_runner_train_and_test_on_cpu(tmp_path, monkeypatch, rng):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("fused_pipeline", "on"), ("grad_accum_steps", 2), ("steps_per_dispatch", 2),
-    ("remat", True), ("mesh_shape", "4"), ("sampler", "native"), ("async_eval", True),
-    ("checkpoint_best", True), ("precision", "bfloat16"),
+    ("fused_window", 2), ("fused_window", "auto"), ("matmul_precision", "tensorfloat32"),
+    ("matmul_precision", "bfloat16"), ("mesh_shape", "4"), ("sampler", "native"),
+    ("async_eval", True), ("checkpoint_best", True), ("fused_window", 3),
 ])
 def test_values_the_port_cannot_honour_raise(tmp_path, monkeypatch, key, value):
     monkeypatch.chdir(tmp_path)
@@ -253,3 +253,29 @@ def test_values_the_port_cannot_honour_raise(tmp_path, monkeypatch, key, value):
         runner.main(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
         Trainer(cfg, 6)
+
+
+@pytest.mark.parametrize("key,value", [
+    ("fused_pipeline", "on"), ("grad_accum_steps", 2), ("steps_per_dispatch", 2),
+    ("remat", True), ("precision", "bfloat16"),
+])
+def test_pipeline_precision_and_remat_values_build_a_trainer(key, value):
+    """The on-device pipelines, accumulation, remat and bfloat16 no longer raise."""
+    cfg = load_config(None, {"phase": "train", "device": "cpu", "channels": 6, key: value})
+    trainer = Trainer(cfg, 6)
+    assert getattr(trainer.cfg, key) == value
+    assert trainer.model.remat == cfg.remat
+
+
+def test_fused_window_is_ignored_where_jax_ignores_it():
+    """JAX acts on fused_window only on the fused pipeline: with the host
+    pipeline asked for, or with accumulation, it builds."""
+    for extra in ({"fused_pipeline": "off"}, {"grad_accum_steps": 2}):
+        Trainer(load_config(None, {"device": "cpu", "channels": 6, "fused_window": 2, **extra}), 6)
+
+
+def test_fused_pipeline_on_with_accumulation_raises(golden_dir, tmp_path):
+    """As JAX: accumulation needs the host pipeline, so 'on' with K > 1 is a ValueError."""
+    cfg = load_config(None, dict(GOLDEN_KW, device="cpu", fused_pipeline="on", grad_accum_steps=2))
+    with pytest.raises(ValueError, match="requires the host pipeline"):
+        Trainer(cfg, 6).fit(CubeStore(golden_dir, normalization="self"), ckpt_dir=str(tmp_path))
