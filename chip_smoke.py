@@ -45,8 +45,9 @@ TransformerBlock, random weights from a seed; float32 with TF32 off, and
    step: 2 recomputed forwards), and ``--phase test --precision bfloat16``
    from the first one's checkpoint.
 8. Kernels against their plain versions on the card, each dtype with its
-   stated tolerance; ShallowConv's and FlashAttention's gradients against
-   autograd through the plain versions; one whole train step on the kernel
+   stated tolerance (the bfloat16 conv9, its dgrad and conv9_wgrad also at
+   (1, 37, 53, 64) for k = 3, 9 and 13); ShallowConv's and FlashAttention's
+   gradients against autograd through the plain versions; one whole train step on the kernel
    path against the plain path (``conv_impl: torch``, ``attention_impl:
    dense``) and a float64 step, in float32 (b2) and in bfloat16 (b8); the
    whole model at 512^2 on the kernel path against the plain path in both
@@ -482,6 +483,21 @@ def main() -> int:
         errs["wgrad_128_bf16"] = check_rel("conv9_wgrad bf16 (8, 128, 128, 64) k9",
                                            conv9.conv9_wgrad(xt8b, gt8b, 9),
                                            conv9.conv9_wgrad_plain(xt8b, gt8b, 9), 5e-5)
+        # The tensor-core bfloat16 entries off the main path's shapes too: ragged
+        # 8 x 64 tiles and 64-pixel segments, k = 3, 9 and 13 (their own
+        # generator, so the draws below stay as they were).
+        t_odd = time.perf_counter()
+        g_odd = torch.Generator().manual_seed(SEED + 5)
+        x_oddb = x_odd.to(bf16)
+        dy_oddb = torch.randn(x_odd.shape, generator=g_odd).to(dev).to(bf16)
+        for kk in (3, 9, 13):
+            wk = (torch.randn(kk, kk, 64, 64, generator=g_odd) * 0.02).to(dev).to(bf16)
+            for what, ww in (("", wk), (" dgrad", conv9.conv9_dgrad_weights(wk))):
+                check_rel(f"conv9 bf16{what} (1, 37, 53, 64) k{kk}", conv9.conv9_fwd(x_oddb, ww).float(),
+                          conv9.conv9_plain(x_oddb, ww).float(), BF16_STEP)
+            check_rel(f"conv9_wgrad bf16 (1, 37, 53, 64) k{kk}", conv9.conv9_wgrad(x_oddb, dy_oddb, kk),
+                      conv9.conv9_wgrad_plain(x_oddb, dy_oddb, kk), 5e-5)
+        log(f"bf16 checks at (1, 37, 53, 64), k = 3, 9, 13: {time.perf_counter() - t_odd:.2f} s")
         qkvb = [t.to(bf16) for t in qkv]
         want = attention.sdpa_chunked(*qkvb).float()
         # The kernel keeps p in float32, the plain version rounds it to

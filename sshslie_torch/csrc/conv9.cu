@@ -1,5 +1,6 @@
-// Stride-1 SAME k x k convolution, 64 -> 64 channels, float32 in and out,
-// float32 accumulation: the DecompositionNet's 9x9 shallow conv.
+// Stride-1 SAME k x k convolution, 64 -> 64 channels, float32 accumulation:
+// the DecompositionNet's 9x9 shallow conv, with a float32 and a bfloat16
+// entry.
 //
 // Replaces: sshslie_tpu/ops/conv_pallas.py::conv9_fwd (Pallas kernel
 // _fwd_kernel). Same function: y[b,h,w,co] = sum_{kh,kw,ci}
@@ -7,13 +8,15 @@
 // wrapper adds it outside, as the JAX package does). The TPU kernel's
 // width-pairing to 128 lanes and its W % 128 gate are MXU tiling rules and
 // are not carried over: any H, W works here, the ragged edge is masked.
+// Both entries also serve the input gradient (ShallowConv.backward, as
+// _psc_bwd), with the reversed and transposed weights.
 //
-// What bounds it on an H100: arithmetic. One 512x512x64 forward at k = 9 is
-// 2*512^2*81*64*64 = 1.74e11 FLOP against ~135 MB in and out, so ~1300 FLOP a
-// byte; float32 outside the tensor cores (TF32 is off for parity) peaks at
-// 67 TFLOP/s, which makes 2.6 ms the floor, against 0.04 ms for the bytes.
-//
-// Design, an implicit GEMM on the CUDA cores:
+// float32 entry (sshslie_conv_c64_f32). What bounds it on an H100:
+// arithmetic. One 512x512x64 forward at k = 9 is 2*512^2*81*64*64 = 1.74e11
+// FLOP against ~135 MB in and out, so ~1300 FLOP a byte; float32 outside the
+// tensor cores (TF32 is off for parity) peaks at 67 TFLOP/s, which makes
+// 2.6 ms the floor, against 0.04 ms for the bytes. Design, an implicit GEMM
+// on the CUDA cores:
 //   * A block of 256 threads owns an 8 x 32 pixel output tile and all 64
 //     output channels. Thread (pixel group, channel group) keeps 8 pixels of
 //     one row times 8 channels (co = 4g..4g+3 and 32+4g..32+4g+3) in 64
@@ -27,26 +30,66 @@
 //     registers once and reuses them for all k taps of that row: per tap it
 //     reads two float4 of weights (conflict-free: 8 channel groups cover the
 //     32 banks) for 64 FMA.
-// No tensor cores, TMA or pipelining yet: a right first kernel. Those are
-// later work.
 //
-// bfloat16 entry (sshslie_conv_c64_bf16): the same kernel on bfloat16 x and
-// w (conv_pallas.py::conv9_fwd on bfloat16 operands): the halo'd input and
-// the weights are widened to float32 as they are staged in shared memory,
-// products and sums are float32, and the output is rounded to bfloat16 once.
-// It also serves the bfloat16 input gradient (ShallowConv.backward, as
-// _psc_bwd). Its floor is the same 2.6 ms of float32 FMA at 512^2; the
-// card's own floor for this work in bfloat16 is the tensor cores' 989
-// TFLOP/s, 0.18 ms, which this form does not reach (a later kernel's work).
+// bfloat16 entry (sshslie_conv_c64_bf16): bfloat16 x and w, float32 sums,
+// the output rounded to bfloat16 once (conv_pallas.py::conv9_fwd on bfloat16
+// operands, preferred_element_type float32). What bounds it: the same 1.74e11
+// FLOP at 512^2 on the tensor cores (989 TFLOP/s dense bfloat16) is 0.176
+// ms, against 0.04 ms for the bytes. mma.sync tops out near two thirds of
+// that rate on an H100, so the products run as wgmma, and the design counts
+// the shared-memory bytes each product needs. An implicit GEMM with the
+// roles turned round, M = 64 output channels, N = output pixels, K = k*k
+// taps x 64 input channels:
+//   * A block of 256 threads (2 warpgroups) owns an 8 x 64 output tile and
+//     all 64 output channels, one block an SM. Its whole halo'd input tile,
+//     all 64 channels in bfloat16, stays in shared memory for the block's
+//     life: (8+k-1) x (64+k-1) pixel rows of 128 bytes, 144 KB at k = 9,
+//     190 KB at k = 13 (with the weight ring 223 KB, inside the 227 KB a
+//     block may have). It comes in by cp.async, the zero padding outside the
+//     image by src-size 0.
+//   * The weights stream one tap (64 x 64 bfloat16, 8 KB, HWIO as given) at a
+//     time through a ring of 4 cp.async stages. One __syncthreads a tap.
+//   * A, the tap's weights as co x ci, goes to registers by ldmatrix.x4.trans
+//     (HWIO keeps co contiguous, so the transposing load gives the row-major
+//     fragment: no host-side repacking, for the forward or the dgrad
+//     weights); warp w of a warpgroup holds channels 16w .. 16w+15.
+//   * B, the input pixels, is never loaded by the threads: per output row
+//     and 16 input channels one wgmma m64n64k16 reads the row's 64 pixels,
+//     shifted by the tap, straight from the input tile through a descriptor
+//     (a shift (kh, kw) is only another start row). Warpgroup g owns tile
+//     rows 4g .. 4g+3: 4 x 32 float32 accumulators a thread.
+//   * A tap's 16 wgmma of a warpgroup are committed as one group; A is
+//     double-buffered in registers, so the tensor cores run tap t while the
+//     threads wait for tap t+1's weights and load its fragments.
+//   * Every 128-byte row in shared memory stores its 16-byte chunk c at
+//     c ^ (row & 7) (mma.cuh): wgmma's 128-byte swizzle, and conflict-free
+//     for ldmatrix.
+//   * The accumulators are rounded to bfloat16 once, staged through shared
+//     memory (the input tile's space, after a barrier) as [pixel][co] rows
+//     and stored as 16-byte rows; the ragged edge is masked per pixel.
+//   * Shared-memory reads: a warpgroup's tap and k step moves 8 KB of input
+//     rows (wgmma) and 2 KB of weight fragments (ldmatrix) for 262,144
+//     multiply-adds, against 16 KB when both operands go through ldmatrix
+//     into mma.sync fragments. L2 traffic of the weights: every 512-pixel
+//     tile reads all k*k taps, 663 KB at k = 9: 0.34 GB at 512^2, 0.17 GB at
+//     b8 x 128^2.
+//   * Measured on an H100 (PERF.md, PR 5): 60% of the tensor cores' bound
+//     at 512^2. Neither 4 warpgroups of 32-pixel rows nor 64-pixel rows
+//     (this form) moved it, so the wgmma shape is not what holds it; the
+//     per-tap barrier and the unoverlapped tile load and epilogue of one
+//     block an SM are what is left to try.
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 constexpr int kC = 64;         // input and output channels
 constexpr int kTH = 8;         // output tile rows per block
 constexpr int kTW = 32;        // output tile columns per block
-constexpr int kCC = 4;         // input channels staged per chunk
-constexpr int kPix = 8;        // output pixels per thread (one row segment)
+constexpr int kCC = 4;         // input channels staged per chunk (float32 entry)
+constexpr int kPix = 8;        // output pixels per thread (float32 entry)
 constexpr int kThreads = 256;  // 32 pixel groups x 8 channel groups
 
 template <int K>
@@ -58,10 +101,10 @@ struct Tile {
   static constexpr int kSmemBytes = 4 * (kWFloats + kInFloats);
 };
 
-template <int K, class E>
+template <int K>
 __global__ void __launch_bounds__(kThreads, 2)
-conv_c64_kernel(const E* __restrict__ x, const E* __restrict__ w,
-                E* __restrict__ y, int H, int W) {
+conv_c64_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                float* __restrict__ y, int H, int W) {
   using T = Tile<K>;
   constexpr int P = (K - 1) / 2;
   extern __shared__ float4 smem4[];
@@ -75,7 +118,7 @@ conv_c64_kernel(const E* __restrict__ x, const E* __restrict__ w,
   const int pcol = (pg & 3) * kPix;   // tile column of the first pixel
   const int h0 = blockIdx.y * kTH;
   const int w0 = blockIdx.x * kTW;
-  const E* xb = x + static_cast<size_t>(blockIdx.z) * H * W * kC;
+  const float* xb = x + static_cast<size_t>(blockIdx.z) * H * W * kC;
 
   float acc[kPix][8];
 #pragma unroll
@@ -146,21 +189,178 @@ conv_c64_kernel(const E* __restrict__ x, const E* __restrict__ w,
   for (int j = 0; j < kPix; ++j) {
     const int ow = w0 + pcol + j;
     if (ow < W) {
-      E* o = y + ((static_cast<size_t>(blockIdx.z) * H + oh) * W + ow) * kC;
+      float* o = y + ((static_cast<size_t>(blockIdx.z) * H + oh) * W + ow) * kC;
       store4(o + cg * 4, make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]));
       store4(o + 32 + cg * 4, make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]));
     }
   }
 }
 
-template <int K, class T>
-int launch(const T* x, const T* w, T* y, int B, int H, int W, cudaStream_t stream) {
+// ---- bfloat16 entry: tensor cores ----
+
+constexpr int kTHb = 8;                     // output tile rows per block (2 warpgroups x 4)
+constexpr int kTWb = 64;                    // output tile columns per block
+constexpr int kWgRows = kTHb / 2;           // tile rows a warpgroup computes
+constexpr int kWStages = 4;                 // weight taps in shared memory
+constexpr int kTapBytes = kC * kC * 2;      // one tap of bfloat16 weights, 8 KB
+
+template <int K>
+struct TcTile {
+  static constexpr int kInH = kTHb + K - 1;
+  static constexpr int kInW = kTWb + K - 1;
+  static constexpr int kInBytes = kInH * kInW * kC * 2;
+  // 1024 bytes of slack: the input tile's base is rounded up to the swizzle
+  // pattern's 1024-byte period that wgmma's descriptors assume.
+  static constexpr int kSmemBytes = 1024 + kInBytes + kWStages * kTapBytes;
+  static_assert(kInBytes >= kTHb * kTWb * kC * 2, "the output staging reuses the input tile");
+};
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_c64_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+                     __nv_bfloat16* __restrict__ y, int H, int W) {
+  using T = TcTile<K>;
+  constexpr int P = (K - 1) / 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const unsigned xs = (smem_u32(smem) + 1023) & ~1023u;  // [kInH * kInW pixels][64 ci], swizzled
+  const unsigned ws = xs + T::kInBytes;                  // [kWStages][64 ci][64 co], swizzled
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;         // warpgroup: tile rows kWgRows wg .. kWgRows (wg + 1) - 1
+  const int wq = (tid >> 5) & 3;   // warp of the warpgroup: output channels 16 wq .. 16 wq + 15
+  const int h0 = blockIdx.y * kTHb;
+  const int w0 = blockIdx.x * kTWb;
+  const __nv_bfloat16* xb = x + static_cast<size_t>(blockIdx.z) * H * W * kC;
+
+  // The halo'd input tile, zero outside the image.
+  for (int i = tid; i < T::kInH * T::kInW * 8; i += kThreads) {
+    const int p = i >> 3;
+    const int c = i & 7;
+    const int iy = p / T::kInW;
+    const int gh = h0 - P + iy;
+    const int gw = w0 - P + (p - iy * T::kInW);
+    const bool in = gh >= 0 && gh < H && gw >= 0 && gw < W;
+    const __nv_bfloat16* src = in ? xb + (static_cast<size_t>(gh) * W + gw) * kC + c * 8 : xb;
+    cp_async16(xs + swz128(p, c), src, in ? 16 : 0);
+  }
+  auto load_tap = [&](int tap) {
+    const __nv_bfloat16* src = w + static_cast<size_t>(tap) * kC * kC;
+    const unsigned dst = ws + (tap % kWStages) * kTapBytes;
+    for (int i = tid; i < kC * 8; i += kThreads)
+      cp_async16(dst + swz128(i >> 3, i & 7), src + i * 8, 16);
+  };
+  // Group 0: the input tile and tap 0; then one group a tap (K * K >= 9 taps).
+  for (int tap = 0; tap < kWStages - 1; ++tap) {
+    load_tap(tap);
+    cp_async_commit();
+  }
+
+  // acc[j]: output channels (M) x the 64 pixels of tile row kWgRows wg + j (N).
+  float acc[kWgRows][32];
+#pragma unroll
+  for (int j = 0; j < kWgRows; ++j)
+#pragma unroll
+    for (int c = 0; c < 32; ++c) acc[j][c] = 0.f;
+
+  // A, the tap's weights as co x ci, by ldmatrix.x4.trans from the [ci][co]
+  // rows: lane l addresses ci row (l & 7) + 8 (l >> 4) of the 16-wide k step
+  // and the co chunk 2 wq + ((l >> 3) & 1).
+  const int arow = (lane & 7) + ((lane >> 4) << 3);
+  const int achunk = 2 * wq + ((lane >> 3) & 1);
+  // B, the pixels of tile row kWgRows wg + j shifted by the tap: pixel rows
+  // of the input tile, read by wgmma from shared memory.
+  const unsigned long long desc0 = wgmma_desc(xs + (kWgRows * wg) * T::kInW * 128);
+  unsigned a[2][4][4];  // two taps of A fragments: one being read by wgmma, one being loaded
+
+  // One tap: its weights' A fragments into a[par], then 4 k steps x
+  // kWgRows rows of wgmma, committed as one group.
+  auto run_tap = [&](int tap, auto par_tag) {
+    constexpr int par = decltype(par_tag)::value;
+    cp_async_wait<kWStages - 2>();  // this tap (and, at tap 0, the input) landed
+    if (tap == 0) fence_proxy_async();  // the input tile, written by cp.async, is read by wgmma
+    __syncthreads();  // ... for all threads; and tap - 1's weight slot is free again
+    if (tap + kWStages - 1 < K * K) load_tap(tap + kWStages - 1);
+    cp_async_commit();  // possibly empty: keeps one group per tap
+    wgmma_wait<1>();    // tap - 2's products are done: a[par] is free
+    const unsigned wslot = ws + (tap % kWStages) * kTapBytes;
+#pragma unroll
+    for (int ks = 0; ks < kC / 16; ++ks) ldsm_x4_trans(a[par][ks], wslot + swz128(ks * 16 + arow, achunk));
+    wgmma_fence();
+    const int kh = tap / K;
+    const int kw = tap - kh * K;
+    const unsigned long long dtap = desc0 + (((kh * T::kInW + kw) * 128) >> 4);
+#pragma unroll
+    for (int ks = 0; ks < kC / 16; ++ks)
+#pragma unroll
+      for (int j = 0; j < kWgRows; ++j)
+        wgmma_m64n64k16<0>(acc[j], a[par][ks], dtap + ((j * T::kInW * 128 + ks * 32) >> 4));
+    wgmma_commit();
+  };
+
+#pragma unroll 1
+  for (int tap = 0; tap < K * K; tap += 2) {
+    run_tap(tap, std::integral_constant<int, 0>());
+    if (tap + 1 < K * K) run_tap(tap + 1, std::integral_constant<int, 1>());
+  }
+
+  // Epilogue: round once, stage the tile's 512 x 64 outputs through shared
+  // memory as [pixel][co] rows, store 16-byte rows.
+  wgmma_wait<0>();
+  cp_async_wait<0>();
+  __syncthreads();  // every warpgroup is done with the input tile
+  const int g = lane >> 2;
+  const int q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < kWgRows; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int co = 16 * wq + g + 8 * ((i >> 1) & 1);
+      const int px = (kWgRows * wg + j) * kTWb + 8 * (i >> 2) + 2 * q + (i & 1);
+      const unsigned short v = __bfloat16_as_ushort(__float2bfloat16_rn(acc[j][i]));
+      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(xs + swz128(px, co >> 3) + (co & 7) * 2),
+                   "h"(v)
+                   : "memory");
+    }
+  __syncthreads();
+#pragma unroll 4
+  for (int i = tid; i < kTHb * kTWb * 8; i += kThreads) {
+    const int px = i >> 3;
+    const int c = i & 7;
+    const int oh = h0 + px / kTWb;
+    const int ow = w0 + px % kTWb;
+    if (oh < H && ow < W) {
+      uint4 v;
+      asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                   : "r"(xs + swz128(px, c))
+                   : "memory");
+      *reinterpret_cast<uint4*>(
+          y + ((static_cast<size_t>(blockIdx.z) * H + oh) * W + ow) * kC + c * 8) = v;
+    }
+  }
+}
+
+template <int K>
+int launch(const float* x, const float* w, float* y, int B, int H, int W, cudaStream_t stream) {
   constexpr int kSmem = Tile<K>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      conv_c64_kernel<K, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      conv_c64_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-  conv_c64_kernel<K, T><<<grid, kThreads, kSmem, stream>>>(x, w, y, H, W);
+  conv_c64_kernel<K><<<grid, kThreads, kSmem, stream>>>(x, w, y, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int launch(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16* y, int B, int H,
+           int W, cudaStream_t stream) {
+  constexpr int kSmem = TcTile<K>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_c64_bf16_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((W + kTWb - 1) / kTWb, (H + kTHb - 1) / kTHb, B);
+  conv_c64_bf16_kernel<K><<<grid, kThreads, kSmem, stream>>>(x, w, y, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 

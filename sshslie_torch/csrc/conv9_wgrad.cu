@@ -1,6 +1,6 @@
 // Weight gradient of the stride-1 SAME k x k convolution, 64 -> 64 channels,
-// float32 in and out, float32 accumulation: the backward pass of the
-// DecompositionNet's 9x9 shallow conv for its weights.
+// float32 or bfloat16 in, float32 accumulation and out: the backward pass of
+// the DecompositionNet's 9x9 shallow conv for its weights.
 //
 // Replaces: sshslie_tpu/ops/conv_pallas.py::conv9_wgrad (Pallas kernel
 // _wgrad_kernel). Same function:
@@ -10,11 +10,11 @@
 // parallel and in no order, so that does not carry over. Nor do the width
 // pairing to 128 lanes and the W % 128 gate: any B, H, W works here.
 //
-// What bounds it on an H100: arithmetic. At the training shape
-// (2, 128, 128, 64), k = 9, it is 2*32768*81*64*64 = 2.17e10 FLOP against
-// ~18 MB in and out, so ~1200 FLOP a byte; float32 outside the tensor cores
-// (TF32 is off for parity) peaks at 67 TFLOP/s: 0.32 ms, against ~5 us for
-// the bytes.
+// float32 entry (sshslie_conv9_wgrad_f32). What bounds it on an H100:
+// arithmetic. At the training shape (2, 128, 128, 64), k = 9, it is
+// 2*32768*81*64*64 = 2.17e10 FLOP against ~18 MB in and out, so ~1200 FLOP a
+// byte; float32 outside the tensor cores (TF32 is off for parity) peaks at 67
+// TFLOP/s: 0.32 ms, against ~5 us for the bytes.
 //
 // Design, a split-K reduction over the B*H*W pixels on the CUDA cores:
 //   * Block (slice s, input-channel chunk, kernel row kh) owns the outputs
@@ -35,13 +35,43 @@
 //     run. The number of slices fills the card's resident blocks once.
 // No tensor cores, TMA or pipelining yet: a right first kernel.
 //
-// bfloat16 entry (sshslie_conv9_wgrad_bf16): the same kernel on bfloat16 x
-// and dY (conv_pallas.py::conv9_wgrad on bfloat16 operands): both are widened
-// to float32 as they are staged in shared memory, and the partials, their
-// fixed-order sum and dW stay float32, so repeats are bit-identical. At the
-// bf16 training shape (8, 128, 128, 64) it is 8.7e10 FLOP: 1.3 ms of float32
-// FMA, against 0.088 ms on the tensor cores, which this form does not use.
+// bfloat16 entry (sshslie_conv9_wgrad_bf16): bfloat16 x and dY, float32
+// sums, partials and dW (conv_pallas.py::conv9_wgrad on bfloat16 operands).
+// What bounds it: at the bf16 training shape (8, 128, 128, 64), k = 9, the
+// 8.7e10 FLOP take 0.088 ms on the tensor cores (989 TFLOP/s), against
+// ~0.02 ms for the bytes; every block reads its slice's dY and X from L2.
+// Design, per tap a GEMM dW_tap^T (64 co x 64 ci) = dY^T (64 x P) X_tap
+// (P x 64) as wgmma, split over the P = B*H*W pixels:
+//   * Block (slice s, kernel row kh, tap group) owns the taps of row kh: the
+//     whole row up to k = 9, half of it above. Its warpgroups own 3 taps
+//     each (3 warpgroups, one block an SM, at k = 9), 3 x 32 float32
+//     accumulators a thread. Every warpgroup issues all 3 taps' wgmma: a
+//     wgmma under a run-time test is serialized by ptxas, so a tap past the
+//     block's (k = 5, 7, 11, 13) is computed from padding rows and not
+//     stored.
+//   * Per image row of the slice, 64 pixels at a time, the block stages the
+//     dY segment (64 px x 64 co) and the halo'd input segment (64+k-1 px x
+//     64 ci, zero outside the image by cp.async src-size 0) in bfloat16, 128
+//     bytes a pixel, chunk-swizzled (mma.cuh), through a ring of 4 stages:
+//     two landing while the tensor cores run the other two. One
+//     __syncthreads a segment.
+//   * A, dY^T, goes to registers by ldmatrix.x4.trans (warp w: output
+//     channels 16w .. 16w+15), once a segment for all taps of the
+//     warpgroup. B, X shifted by the tap, is read by wgmma m64n64k16 from
+//     the [px][ci] rows (MN-major) through a descriptor that starts at the
+//     tap's row. A segment's wgmma are committed as one group; A is
+//     double-buffered in registers.
+//   * Rows whose input row lands in the zero padding are skipped, partials
+//     go to the scratch buffer and the second kernel sums them in slice
+//     order, as in the float32 entry: repeats are bit-identical. The wrapper
+//     picks the slice count (ops/conv9.py::conv9_wgrad_bf16_splits) to fill
+//     one wave of resident blocks (sshslie_conv9_wgrad_resident_bf16).
+//   * L2 traffic: every (kh, tap group) reads all of x and dY once, k times
+//     the 33.5 MB of operands at b8 x 128^2 and k = 9: 0.3 GB.
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -49,7 +79,7 @@ constexpr int kC = 64;         // input and output channels
 constexpr int kCiB = 16;       // input channels a block owns
 constexpr int kTP = 64;        // pixels of a row staged at a time
 constexpr int kSeg = 8;        // pixels a thread walks with one register window
-constexpr int kThreads = 256;  // 16 input channels x 16 groups of 4 outputs
+constexpr int kThreads = 256;  // float32: 16 input channels x 16 groups of 4 outputs
 
 template <int K>
 struct WTile {
@@ -57,9 +87,9 @@ struct WTile {
   static constexpr int kInWPad = kInW | 1;  // odd row stride: fewer bank conflicts
 };
 
-template <int K, class E>
+template <int K>
 __global__ void __launch_bounds__(kThreads, 2)
-wgrad_c64_kernel(const E* __restrict__ x, const E* __restrict__ dy,
+wgrad_c64_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                  float* __restrict__ part, int B, int H, int W, int splits) {
   using T = WTile<K>;
   constexpr int P = (K - 1) / 2;
@@ -87,8 +117,8 @@ wgrad_c64_kernel(const E* __restrict__ x, const E* __restrict__ dy,
     const int h = r - b * H;
     const int hx = h + kh - P;  // the input row kernel row kh reads
     if (hx < 0 || hx >= H) continue;  // zero padding: the same for the whole block
-    const E* xrow = x + (static_cast<size_t>(b) * H + hx) * W * kC;
-    const E* drow = dy + (static_cast<size_t>(b) * H + h) * W * kC;
+    const float* xrow = x + (static_cast<size_t>(b) * H + hx) * W * kC;
+    const float* drow = dy + (static_cast<size_t>(b) * H + h) * W * kC;
     for (int w0 = 0; w0 < W; w0 += kTP) {
       __syncthreads();  // the previous segment is consumed
       for (int i = tid; i < kTP * (kC / 4); i += kThreads) {
@@ -160,13 +190,175 @@ __global__ void wgrad_reduce_kernel(const float4* __restrict__ part, float4* __r
   }
 }
 
-template <int K, class E>
+// ---- bfloat16 entry: tensor cores ----
+
+constexpr int kSegTc = 64;     // pixels of a row staged at a time
+constexpr int kStagesTc = 4;   // segments in shared memory: two loading, two being read
+constexpr int kWgTaps = 3;     // taps a warpgroup owns
+
+template <int K>
+struct TcWTile {
+  // Taps of one kernel row a block owns: the whole row up to k = 9; above
+  // it, half a row, so that the accumulators fit the registers. Warpgroup
+  // i takes taps 3i .. 3i+2 of them; every warpgroup runs all 3 (wgmma
+  // under a run-time test is serialized), and a tap past the block's is
+  // computed from padding rows and not stored.
+  static constexpr int kTaps = K <= 9 ? K : (K + 1) / 2;
+  static constexpr int kGroups = (K + kTaps - 1) / kTaps;
+  static constexpr int kWgs = (kTaps + kWgTaps - 1) / kWgTaps;
+  static constexpr int kThreads = 128 * kWgs;
+  static constexpr int kInW = kSegTc + K - 1;  // X rows loaded a segment
+  // X rows read: up to the last group's last warpgroup's last tap.
+  static constexpr int kXRows = kSegTc + (kGroups - 1) * kTaps + kWgs * kWgTaps - 1;
+  static constexpr int kDyBytes = kSegTc * kC * 2;
+  // Stages start on the swizzle pattern's 1024-byte period (wgmma reads X).
+  static constexpr int kStageBytes = (kDyBytes + kXRows * kC * 2 + 1023) / 1024 * 1024;
+  static constexpr int kSmemBytes = 1024 + kStagesTc * kStageBytes;
+  static_assert(kXRows >= kInW, "the X rows loaded fit the stage");
+};
+
+template <int K>
+__global__ void __launch_bounds__(TcWTile<K>::kThreads, 1)
+wgrad_c64_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ dy,
+                      float* __restrict__ part, int B, int H, int W, int splits) {
+  using T = TcWTile<K>;
+  constexpr int P = (K - 1) / 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const unsigned base = (smem_u32(smem) + 1023) & ~1023u;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int wg = tid >> 7;        // warpgroup
+  const int wq = (tid >> 5) & 3;  // warp of the warpgroup: output channels 16 wq .. 16 wq + 15
+  const int s = blockIdx.x;
+  const int kh = blockIdx.y;
+  const int kw0 = blockIdx.z * T::kTaps + wg * kWgTaps;  // this warpgroup's first tap
+  // Taps kw0 .. kw0 + ntaps - 1 are the block's (ntaps may be 0).
+  const int ntaps = max(0, min(kWgTaps, min(K, (blockIdx.z + 1) * T::kTaps) - kw0));
+  const long long rows = static_cast<long long>(B) * H;
+  const int r0 = static_cast<int>(rows * s / splits);
+  const int r1 = static_cast<int>(rows * (s + 1) / splits);
+  const int nseg = (W + kSegTc - 1) / kSegTc;
+
+  // Rows whose input row kh lands in the zero padding add nothing.
+  auto valid = [&](int r) {
+    const int hx = r % H + kh - P;
+    return hx >= 0 && hx < H;
+  };
+  int items = 0;  // (row, segment) pairs of the slice to sum
+  for (int r = r0; r < r1; ++r) items += valid(r);
+  items *= nseg;
+
+  // The load cursor: the next (row, segment) to stage.
+  int lr = r0;
+  while (lr < r1 && !valid(lr)) ++lr;
+  int lseg = 0;
+  // Stage the cursor's segment into slot st (dY, and X zero outside the
+  // image) and advance the cursor; past the slice's end, nothing.
+  auto load_next = [&](int st) {
+    if (lr >= r1) return;
+    const int b = lr / H;
+    const int h = lr - b * H;
+    const int w0 = lseg * kSegTc;
+    const __nv_bfloat16* drow = dy + (static_cast<size_t>(b) * H + h) * W * kC;
+    const __nv_bfloat16* xrow = x + (static_cast<size_t>(b) * H + h + kh - P) * W * kC;
+    const unsigned ds = base + st * T::kStageBytes;
+    for (int i = tid; i < (kSegTc + T::kInW) * 8; i += T::kThreads) {
+      const int p = i >> 3;
+      const int c = i & 7;
+      if (p < kSegTc) {
+        const bool in = w0 + p < W;
+        cp_async16(ds + swz128(p, c), in ? drow + static_cast<size_t>(w0 + p) * kC + c * 8 : dy,
+                   in ? 16 : 0);
+      } else {
+        const int q = p - kSegTc;
+        const int gw = w0 - P + q;
+        const bool in = gw >= 0 && gw < W;
+        cp_async16(ds + T::kDyBytes + swz128(q, c),
+                   in ? xrow + static_cast<size_t>(gw) * kC + c * 8 : x, in ? 16 : 0);
+      }
+    }
+    if (++lseg == nseg) {
+      lseg = 0;
+      do ++lr; while (lr < r1 && !valid(lr));
+    }
+  };
+
+  // acc[t]: dW of tap kw0 + t transposed, output channels (M) x input
+  // channels (N), 64 x 64.
+  float acc[kWgTaps][32];
+#pragma unroll
+  for (int t = 0; t < kWgTaps; ++t)
+#pragma unroll
+    for (int c = 0; c < 32; ++c) acc[t][c] = 0.f;
+
+  // A, dY^T (co x px), by ldmatrix.x4.trans from the [px][co] rows: lane l
+  // addresses pixel row (l & 7) + 8 (l >> 4) of the 16-pixel k step and the
+  // co chunk 2 wq + ((l >> 3) & 1). B, X (px x ci) shifted by the tap: 16
+  // pixel rows from row 16 ks + kw, read by wgmma from shared memory.
+  const int arow = (lane & 7) + ((lane >> 4) << 3);
+  const int achunk = 2 * wq + ((lane >> 3) & 1);
+  unsigned a[2][4][4];  // two segments of A fragments: one being read by wgmma, one being loaded
+
+  // One segment: its dY fragments into a[par], then 4 k steps x 3 taps of
+  // wgmma, committed as one group.
+  auto run_segment = [&](int it, auto par_tag) {
+    constexpr int par = decltype(par_tag)::value;
+    wgmma_wait<1>();  // segment it - 2's products are done: its slot and a[par] are free
+    cp_async_wait<1>();  // segment it landed
+    fence_proxy_async();  // ... and is visible to wgmma
+    __syncthreads();      // ... for all threads; and every warpgroup is done with it - 2
+    load_next((it + 2) % kStagesTc);
+    cp_async_commit();  // possibly empty: keeps one group per segment
+    const unsigned ds = base + (it % kStagesTc) * T::kStageBytes;
+#pragma unroll
+    for (int ks = 0; ks < kSegTc / 16; ++ks)
+      ldsm_x4_trans(a[par][ks], ds + swz128(ks * 16 + arow, achunk));
+    wgmma_fence();
+    const unsigned long long dx = wgmma_desc(ds + T::kDyBytes + kw0 * 128);
+#pragma unroll
+    for (int ks = 0; ks < kSegTc / 16; ++ks)
+#pragma unroll
+      for (int t = 0; t < kWgTaps; ++t)
+        wgmma_m64n64k16<1>(acc[t], a[par][ks], dx + (((ks * 16 + t) * 128) >> 4));
+    wgmma_commit();
+  };
+
+  for (int st = 0; st < 2; ++st) {
+    load_next(st);
+    cp_async_commit();  // possibly empty: keeps one group per segment
+  }
+#pragma unroll 1
+  for (int it = 0; it < items; it += 2) {
+    run_segment(it, std::integral_constant<int, 0>());
+    if (it + 1 < items) run_segment(it + 1, std::integral_constant<int, 1>());
+  }
+  wgmma_wait<0>();
+  cp_async_wait<0>();
+
+  // Partial of slice s: part[s][kh][kw][ci][co].
+  const int g = lane >> 2;
+  const int q = lane & 3;
+#pragma unroll
+  for (int t = 0; t < kWgTaps; ++t) {
+    if (t >= ntaps) break;
+    float* out = part + ((static_cast<size_t>(s) * K + kh) * K + kw0 + t) * kC * kC;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int co = 16 * wq + g + 8 * ((i >> 1) & 1);
+      const int ci = 8 * (i >> 2) + 2 * q + (i & 1);
+      out[ci * kC + co] = acc[t][i];
+    }
+  }
+}
+
+template <int K>
 int splits_for(int B, int H) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wgrad_c64_kernel<K, E>, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wgrad_c64_kernel<K>, kThreads, 0);
   if (err != cudaSuccess) return -static_cast<int>(err);
   // One wave of resident blocks: (kC / kCiB) * K blocks a slice.
   const long long capacity = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
@@ -176,13 +368,24 @@ int splits_for(int B, int H) {
   return static_cast<int>(splits < 1 ? 1 : splits);
 }
 
-template <int K, class E>
-int launch(const E* x, const E* dy, float* part, float* dw, int B, int H, int W,
-           int splits, cudaStream_t stream) {
-  const dim3 grid(splits, kC / kCiB, K);
-  wgrad_c64_kernel<K, E><<<grid, kThreads, 0, stream>>>(x, dy, part, B, H, W, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+// Blocks of the bfloat16 kernel the card holds at once.
+template <int K>
+int resident_bf16() {
+  using T = TcWTile<K>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(wgrad_c64_bf16_kernel<K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         T::kSmemBytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wgrad_c64_bf16_kernel<K>,
+                                                        T::kThreads, T::kSmemBytes);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return sms * (per_sm > 0 ? per_sm : 1);
+}
+
+int reduce(const float* part, float* dw, int K, int splits, cudaStream_t stream) {
   const int n4 = K * K * kC * kC / 4;
   const int blocks = (n4 + 255) / 256;
   wgrad_reduce_kernel<<<blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(part),
@@ -190,17 +393,29 @@ int launch(const E* x, const E* dy, float* part, float* dw, int B, int H, int W,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class E>
-int splits_entry(int B, int H, int K) {
-  switch (K) {
-    case 3: return splits_for<3, E>(B, H);
-    case 5: return splits_for<5, E>(B, H);
-    case 7: return splits_for<7, E>(B, H);
-    case 9: return splits_for<9, E>(B, H);
-    case 11: return splits_for<11, E>(B, H);
-    case 13: return splits_for<13, E>(B, H);
-    default: return -static_cast<int>(cudaErrorInvalidValue);
-  }
+template <int K>
+int launch(const float* x, const float* dy, float* part, float* dw, int B, int H, int W,
+           int splits, cudaStream_t stream) {
+  const dim3 grid(splits, kC / kCiB, K);
+  wgrad_c64_kernel<K><<<grid, kThreads, 0, stream>>>(x, dy, part, B, H, W, splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return reduce(part, dw, K, splits, stream);
+}
+
+template <int K>
+int launch(const __nv_bfloat16* x, const __nv_bfloat16* dy, float* part, float* dw, int B,
+           int H, int W, int splits, cudaStream_t stream) {
+  using T = TcWTile<K>;
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad_c64_bf16_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(splits, K, T::kGroups);
+  wgrad_c64_bf16_kernel<K><<<grid, T::kThreads, T::kSmemBytes, stream>>>(x, dy, part, B, H, W,
+                                                                         splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return reduce(part, dw, K, splits, stream);
 }
 
 template <class E>
@@ -230,12 +445,31 @@ int wgrad_entry(const void* x, const void* dy, void* part, void* dw, int B, int 
 // scratch. Returns a negative CUDA error code on failure (-1 for a K the
 // kernel does not take).
 SSHSLIE_EXPORT int sshslie_conv9_wgrad_splits(int B, int H, int K) {
-  return splits_entry<float>(B, H, K);
+  switch (K) {
+    case 3: return splits_for<3>(B, H);
+    case 5: return splits_for<5>(B, H);
+    case 7: return splits_for<7>(B, H);
+    case 9: return splits_for<9>(B, H);
+    case 11: return splits_for<11>(B, H);
+    case 13: return splits_for<13>(B, H);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// The same for sshslie_conv9_wgrad_bf16.
-SSHSLIE_EXPORT int sshslie_conv9_wgrad_splits_bf16(int B, int H, int K) {
-  return splits_entry<__nv_bfloat16>(B, H, K);
+// How many blocks of sshslie_conv9_wgrad_bf16's kernel this card holds at
+// once (one wave); the wrapper derives the slice count from it
+// (ops/conv9.py::conv9_wgrad_bf16_splits). Negative CUDA error code on
+// failure (-1 for a K the kernel does not take).
+SSHSLIE_EXPORT int sshslie_conv9_wgrad_resident_bf16(int K) {
+  switch (K) {
+    case 3: return resident_bf16<3>();
+    case 5: return resident_bf16<5>();
+    case 7: return resident_bf16<7>();
+    case 9: return resident_bf16<9>();
+    case 11: return resident_bf16<11>();
+    case 13: return resident_bf16<13>();
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // x, dy: (B, H, W, 64) float32; part: (splits, K, K, 64, 64) float32
@@ -247,8 +481,8 @@ SSHSLIE_EXPORT int sshslie_conv9_wgrad_f32(const void* x, const void* dy, void* 
   return wgrad_entry<float>(x, dy, part, dw, B, H, W, K, splits, stream);
 }
 
-// The same with x and dy in bfloat16; part and dw stay float32. splits from
-// sshslie_conv9_wgrad_splits_bf16.
+// The same with x and dy in bfloat16; part and dw stay float32. splits at
+// most B*H (ops/conv9.py::conv9_wgrad_bf16_splits).
 SSHSLIE_EXPORT int sshslie_conv9_wgrad_bf16(const void* x, const void* dy, void* part, void* dw,
                                             int B, int H, int W, int K, int splits,
                                             void* stream) {

@@ -10,6 +10,9 @@ is never loaded.
 
 Libraries go to ``build/sshslie_torch_kernels/`` at the root of the checkout.
 A build that fails raises with nvcc's output; nothing falls back.
+
+``python -m sshslie_torch.ops._build`` prints ptxas's registers, shared
+memory and spills of every kernel (``-Xptxas -v``, compile only).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from typing import Dict
 
@@ -109,3 +113,26 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     if code != 0:
         msg = lib.sshslie_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def ptxas_report() -> str:
+    """nvcc -Xptxas -v of every source, compiled to a throwaway object:
+    registers, shared memory and spill bytes of each kernel instantiation."""
+    nvcc = _nvcc()
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    procs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in kernel_names():
+            cmd = [nvcc, *flags, "-Xptxas", "-v", "-c", "-I", CSRC, "-o",
+                   os.path.join(tmp, f"{name}.o"), os.path.join(CSRC, f"{name}.cu")]
+            procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                           text=True)
+        out = []
+        for name, proc in procs.items():
+            text, _ = proc.communicate()
+            out.append(f"--- {name}.cu (exit {proc.returncode}) ---\n{text}")
+    return "\n".join(out)
+
+
+if __name__ == "__main__":
+    print(ptxas_report())

@@ -127,6 +127,23 @@ def reset_counts() -> None:
         wrapper.launches_by_dtype = dict.fromkeys(KERNEL_DTYPES, 0)
 
 
+def conv9_wgrad_bf16_taps(k: int) -> int:
+    """Taps of one kernel row that a block of the bfloat16 weight-gradient
+    kernel owns, 3 to a warpgroup (csrc/conv9_wgrad.cu, TcWTile::kTaps): the
+    whole row up to k = 9, half of it (rounded up) above."""
+    return k if k <= 9 else (k + 1) // 2
+
+
+def conv9_wgrad_bf16_splits(rows: int, k: int, resident: int) -> int:
+    """Pixel-row slices of the bfloat16 weight-gradient kernel for B*H =
+    ``rows`` image rows, where the card holds ``resident`` of its blocks at
+    once: one wave. A slice takes k * ceil(k / taps) blocks (kernel row,
+    group of taps); at least 1 slice, at most one row a slice. The wrapper
+    allocates ``splits * k * k * 64 * 64`` float32 of partials."""
+    per_slice = k * -(-k // conv9_wgrad_bf16_taps(k))
+    return max(1, min(rows, resident // per_slice))
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.library("conv9")
     for suffix in KERNEL_DTYPES.values():
@@ -138,10 +155,11 @@ def _library() -> ctypes.CDLL:
 
 def _wgrad_library() -> ctypes.CDLL:
     lib = _build.library("conv9_wgrad")
+    lib.sshslie_conv9_wgrad_splits.argtypes = [ctypes.c_int] * 3
+    lib.sshslie_conv9_wgrad_splits.restype = ctypes.c_int
+    lib.sshslie_conv9_wgrad_resident_bf16.argtypes = [ctypes.c_int]
+    lib.sshslie_conv9_wgrad_resident_bf16.restype = ctypes.c_int
     for suffix in KERNEL_DTYPES.values():
-        splits = getattr(lib, f"sshslie_conv9_wgrad_splits{'' if suffix == 'f32' else '_' + suffix}")
-        splits.argtypes = [ctypes.c_int] * 3
-        splits.restype = ctypes.c_int
         fn = getattr(lib, f"sshslie_conv9_wgrad_{suffix}")
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -195,10 +213,13 @@ def conv9_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     if x.numel() == 0:
         return x.new_zeros((k, k, CHANNELS, CHANNELS), dtype=torch.float32)
     lib = _wgrad_library()
-    splits = getattr(lib, "sshslie_conv9_wgrad_splits" if suffix == "f32"
-                     else f"sshslie_conv9_wgrad_splits_{suffix}")(b, h, k)
-    if splits < 0:
-        _build.check(lib, -splits, "conv9_wgrad occupancy query")
+    # float32: the kernel's slice count; bfloat16: its resident blocks, from
+    # which conv9_wgrad_bf16_splits derives the slice count.
+    query = (lib.sshslie_conv9_wgrad_splits(b, h, k) if suffix == "f32"
+             else lib.sshslie_conv9_wgrad_resident_bf16(k))
+    if query < 0:
+        _build.check(lib, -query, "conv9_wgrad occupancy query")
+    splits = query if suffix == "f32" else conv9_wgrad_bf16_splits(b * h, k, query)
     part = torch.empty((splits, k, k, CHANNELS, CHANNELS), dtype=torch.float32, device=x.device)
     dw = torch.empty((k, k, CHANNELS, CHANNELS), dtype=torch.float32, device=x.device)
     code = getattr(lib, f"sshslie_conv9_wgrad_{suffix}")(

@@ -158,3 +158,48 @@ def test_raw_wrappers_refuse_to_drop_gradients():
         conv9.conv9_wgrad(torch.from_numpy(x).requires_grad_(), torch.from_numpy(x), 3)
     with torch.no_grad():
         conv9.conv9_fwd(torch.from_numpy(x).requires_grad_(), torch.from_numpy(w))
+
+
+# The bfloat16 weight-gradient kernel's split plan (csrc/conv9_wgrad.cu):
+# the wrapper's slice count, and the slices' row ranges as the kernel
+# computes them, rows * s // splits .. rows * (s + 1) // splits.
+
+@pytest.mark.parametrize("k", conv9.KERNEL_SIZES)
+def test_wgrad_bf16_split_plan_fills_one_wave(k):
+    taps = conv9.conv9_wgrad_bf16_taps(k)
+    groups = -(-k // taps)
+    if k <= 9:
+        assert (taps, groups) == (k, 1)             # a block owns the whole kernel row
+    else:
+        assert (taps, groups) == ((k + 1) // 2, 2)  # half of it
+    per_slice = k * groups                      # blocks of one slice: (kernel row, tap group)
+    for rows, resident in ((1024, 132), (2, 132), (37, 264), (1, 9), (5000, 396), (500, 5)):
+        splits = conv9.conv9_wgrad_bf16_splits(rows, k, resident)
+        assert 1 <= splits <= rows
+        if resident >= per_slice:
+            assert splits * per_slice <= resident                          # one wave
+            assert splits == rows or (splits + 1) * per_slice > resident   # as many as fit
+        else:
+            assert splits == 1
+
+
+@pytest.mark.parametrize("shape,k", [((2, 5, 9, 64), 3), ((1, 7, 11, 64), 9), ((3, 4, 6, 64), 13)])
+def test_wgrad_bf16_slices_sum_to_the_weight_gradient(shape, k):
+    """Partials over the kernel's row slices, summed in slice order, give
+    conv9_wgrad_plain: every image row falls in exactly one slice."""
+    rng = np.random.default_rng(28)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+    rows = shape[0] * shape[1]
+    splits = conv9.conv9_wgrad_bf16_splits(rows, k, resident=132)
+    owner = torch.full((rows,), -1)
+    total = torch.zeros(k, k, 64, 64)
+    for s in range(splits):
+        r0, r1 = rows * s // splits, rows * (s + 1) // splits
+        assert (owner[r0:r1] == -1).all()
+        owner[r0:r1] = s
+        mask = torch.zeros(rows)
+        mask[r0:r1] = 1.0
+        total += conv9.conv9_wgrad_plain(x, dy * mask.view(shape[0], shape[1], 1, 1), k)
+    assert (owner >= 0).all()
+    _assert_rel_close(total.numpy(), conv9.conv9_wgrad_plain(x, dy, k).numpy(), GRAD_REL, f"k={k}")

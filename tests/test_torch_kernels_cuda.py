@@ -15,8 +15,9 @@ the plain version's matrix products). Gradients of the autograd Functions
 against autograd through the plain versions: 2e-5 of each gradient's
 largest magnitude.
 
-The bfloat16 entries, at the main path's shapes, against the plain versions
-on the same bfloat16 operands: conv9 and its dgrad within one bfloat16 step
+The bfloat16 entries (tensor-core kernels), at the main path's shapes and
+at ragged shapes for k = 3, 9 and 13, against the plain versions on the
+same bfloat16 operands: conv9 and its dgrad within one bfloat16 step
 of the largest output, 2^-7 of it (both sum in float32 and round once; the
 sums' order differs, so a value near a rounding boundary may round the other
 way); conv9_wgrad, whose output is float32, within 2e-5 of the largest |dw|;
@@ -200,33 +201,50 @@ def _bf16(seed, shape, scale=1.0):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(torch.bfloat16)
 
 
+# The main path's shapes at k = 9; ragged tiles (H, W not multiples of the
+# 8 x 64 output tile) at k = 3, 9 and 13; an image smaller than the k = 13
+# halo.
+CONV_BF16_CASES = [((1, 512, 512, 64), 9), ((8, 128, 128, 64), 9), ((1, 37, 53, 64), 9),
+                   ((1, 37, 53, 64), 3), ((1, 37, 53, 64), 13), ((3, 19, 70, 64), 3),
+                   ((3, 19, 70, 64), 9), ((3, 19, 70, 64), 13), ((2, 5, 9, 64), 13)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(1, 512, 512, 64), (8, 128, 128, 64), (1, 37, 53, 64)])
-def test_conv9_bf16_kernel_matches_plain_on_card(cuda_device, shape):
-    x, w = _bf16(21, shape).to(cuda_device), _bf16(22, (9, 9, 64, 64), 0.05).to(cuda_device)
+@pytest.mark.parametrize("shape,k", CONV_BF16_CASES)
+def test_conv9_bf16_kernel_matches_plain_on_card(cuda_device, shape, k):
+    x, w = _bf16(21, shape).to(cuda_device), _bf16(22, (k, k, 64, 64), 0.05).to(cuda_device)
     before = conv9.conv9_fwd.launches_by_dtype[torch.bfloat16]
     got = conv9.conv9_fwd(x, w)
     torch.cuda.synchronize()
     assert conv9.conv9_fwd.launches_by_dtype[torch.bfloat16] == before + 1
     assert got.dtype == torch.bfloat16
-    _rel_close(got.float(), conv9.conv9_plain(x, w).float(), BF16_STEP, f"conv9 bf16 {shape}")
-    # dgrad at the training shape: the same entry with the reversed, transposed weights
+    _rel_close(got.float(), conv9.conv9_plain(x, w).float(), BF16_STEP, f"conv9 bf16 {shape} k{k}")
+    # dgrad: the same entry with the reversed, transposed weights
     wd = conv9.conv9_dgrad_weights(w)
     _rel_close(conv9.conv9_fwd(x, wd).float(), conv9.conv9_plain(x, wd).float(), BF16_STEP, "dgrad")
     assert torch.equal(got, conv9.conv9_fwd(x, w))
 
 
+# The main path's shape; ragged segments (W not a multiple of the 64-pixel
+# segment) at k = 3, 9 and 13; B*H = 2 rows, fewer than the one-wave split
+# count, and an image smaller than the k = 13 halo, where most kernel rows
+# find only padding.
+WGRAD_BF16_CASES = [((8, 128, 128, 64), 9), ((1, 37, 53, 64), 9), ((1, 37, 53, 64), 3),
+                    ((1, 37, 53, 64), 13), ((3, 19, 70, 64), 3), ((3, 19, 70, 64), 9),
+                    ((3, 19, 70, 64), 13), ((1, 2, 40, 64), 9), ((2, 5, 9, 64), 13)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(8, 128, 128, 64), (1, 37, 53, 64)])
-def test_conv9_wgrad_bf16_kernel_matches_plain_on_card(cuda_device, shape):
+@pytest.mark.parametrize("shape,k", WGRAD_BF16_CASES)
+def test_conv9_wgrad_bf16_kernel_matches_plain_on_card(cuda_device, shape, k):
     x, dy = _bf16(23, shape).to(cuda_device), _bf16(24, shape).to(cuda_device)
     before = conv9.conv9_wgrad.launches_by_dtype[torch.bfloat16]
-    got = conv9.conv9_wgrad(x, dy, 9)
+    got = conv9.conv9_wgrad(x, dy, k)
     torch.cuda.synchronize()
     assert conv9.conv9_wgrad.launches_by_dtype[torch.bfloat16] == before + 1
     assert got.dtype == torch.float32
-    _rel_close(got, conv9.conv9_wgrad_plain(x, dy, 9), 2e-5, f"wgrad bf16 {shape}")
-    assert torch.equal(got, conv9.conv9_wgrad(x, dy, 9))
+    _rel_close(got, conv9.conv9_wgrad_plain(x, dy, k), 2e-5, f"wgrad bf16 {shape} k{k}")
+    assert torch.equal(got, conv9.conv9_wgrad(x, dy, k))
 
 
 @pytest.mark.cuda
