@@ -46,8 +46,10 @@ TransformerBlock, random weights from a seed; float32 with TF32 off, and
    from the first one's checkpoint.
 8. Kernels against their plain versions on the card, each dtype with its
    stated tolerance (the bfloat16 conv9, its dgrad and conv9_wgrad also at
-   (1, 37, 53, 64) for k = 3, 9 and 13); ShallowConv's and FlashAttention's
-   gradients against autograd through the plain versions; one whole train step on the kernel
+   (1, 37, 53, 64) for k = 3, 9 and 13; the bfloat16 flash kernel also
+   against the Pallas kernel's float32 p, at S = 4096 and 16384);
+   ShallowConv's and FlashAttention's gradients against autograd through
+   the plain versions; one whole train step on the kernel
    path against the plain path (``conv_impl: torch``, ``attention_impl:
    dense``) and a float64 step, in float32 (b2) and in bfloat16 (b8); the
    whole model at 512^2 on the kernel path against the plain path in both
@@ -62,7 +64,7 @@ TransformerBlock, random weights from a seed; float32 with TF32 off, and
    time and host dispatch apart, the real loop's host clock on the host
    sampler and on the fused pipeline; each kernel at the main paths' shapes
    in both dtypes (flash attention also at (1, 4, 16384, 16), the S of a
-   1024^2 cube), its plain version and one library call (cuDNN
+   1024^2 cube, in both dtypes), its plain version and one library call (cuDNN
    ``F.conv2d``, ``conv2d_input``, ``conv2d_weight``,
    ``F.scaled_dot_product_attention``, bfloat16 ones for the bfloat16 rows)
    as a yardstick only; the port never calls those.
@@ -114,19 +116,42 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def time_ms(fn, reps: int, warmup: int = 2) -> float:
+def time_ms(fn, reps: int, warmup: int = 2, queued: bool = False) -> float:
+    """ms of one ``fn()``: CUDA events around ``reps`` calls. ``queued``: the
+    calls are enqueued while the card sleeps (~10 ms), so they run back to
+    back and the host's dispatch is not timed (``tools/flash_bench.py``); the
+    kernels line times them as the main path runs them, dispatch included."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    if queued:
+        torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def flash_work(shape, esize: int) -> tuple:
+    """(operations, bytes, exponentials) of attention over (B, H, S, D):
+    q, k, v read once and o written once, elements of ``esize`` bytes."""
+    b, h, s, d = shape
+    return 4.0 * b * h * s * s * d, 4.0 * esize * b * h * s * d, float(b * h * s * s)
+
+
+def bound_ms(work, peak: float) -> tuple:
+    """(ms, "operations" or "bytes"): the larger of the operations at ``peak``
+    (the float32 FMA pipes; for bfloat16, the tensor cores' rate and the SFU's
+    exponentials) and the bytes at the memory rate."""
+    flops, nbytes, exps = work
+    t_ops = max(flops / peak, exps / PEAK_EXP if peak == PEAK_BF16_FLOPS else 0.0) * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def check_close(what: str, got, want, tol: float) -> float:
@@ -498,13 +523,27 @@ def main() -> int:
             check_rel(f"conv9_wgrad bf16 (1, 37, 53, 64) k{kk}", conv9.conv9_wgrad(x_oddb, dy_oddb, kk),
                       conv9.conv9_wgrad_plain(x_oddb, dy_oddb, kk), 5e-5)
         log(f"bf16 checks at (1, 37, 53, 64), k = 3, 9, 13: {time.perf_counter() - t_odd:.2f} s")
+        # The bfloat16 flash kernel carries p as a bfloat16 hi + lo pair, ~16
+        # bits: against sdpa_chunked on the operands widened to float32 (the
+        # Pallas kernel's float32 p) within one bfloat16 step of max|o|.
+        # Against the plain version, which rounds p to bfloat16 before P V,
+        # within that plus twice the plain version's own distance from the
+        # float32-p result on these inputs (the rounding of p; the 2^-9 of
+        # max|v| it can reach is ~1e-2 here, the size of o). max_abs_err is
+        # the distance from the plain version, as in every row.
         qkvb = [t.to(bf16) for t in qkv]
-        want = attention.sdpa_chunked(*qkvb).float()
-        # The kernel keeps p in float32, the plain version rounds it to
-        # bfloat16 before P V (at most 2^-9 of max|v|), then one bfloat16 step of o.
-        errs["flash_bf16"] = check_close(
-            "flash bf16 (1, 4, 4096, 16)", attention.flash_attention(*qkvb).float(), want,
-            BF16_STEP * float(want.abs().max()) + 2.0 ** -9 * float(qkvb[2].float().abs().max()))
+        qkvb_1024 = [t.to(bf16) for t in qkv_1024]
+        for key, what, qkv_ in (("flash_bf16", "(1, 4, 4096, 16)", qkvb),
+                                ("flash_1024_bf16", "(1, 4, 16384, 16)", qkvb_1024)):
+            got = attention.flash_attention(*qkv_).float()
+            want = attention.sdpa_chunked(*qkv_).float()
+            want32 = attention.sdpa_chunked(*(t.float() for t in qkv_))
+            check_close(f"flash bf16 {what} vs float32 p", got, want32,
+                        BF16_STEP * float(want32.abs().max()))
+            p_gap = float((want - want32).abs().max())
+            log(f"flash bf16 {what}: plain vs float32 p, max|d| = {p_gap:.3e}")
+            errs[key] = check_close(f"flash bf16 {what} vs plain", got, want,
+                                    BF16_STEP * float(want.abs().max()) + 2.0 * p_gap)
 
         # The autograd Functions' gradients against autograd through the plain versions.
         bias = weights.decomposition_net.shallow_conv[0].bias.detach().to(dev)
@@ -639,7 +678,7 @@ def main() -> int:
             gotb, wantb = bkernel_model(x), bplain_model(x)
         for name, a, b, a32 in zip(("R_low", "I_low", "I_delta", "S"), gotb, wantb, got32):
             # bfloat16 roundings that fall the other way (sums in another
-            # order, p in float32 in the flash kernel) carried through ~20
+            # order, p as a hi + lo pair in the flash kernel) carried through ~20
             # bfloat16 layers: a few bfloat16 steps at most, 2e-2 absolute at
             # outputs of order 1, and on average under half of the distance
             # from the float32 model, which a silent float32 run would show.
@@ -838,8 +877,7 @@ def main() -> int:
             return 2.0 * b * h * wd_ * 81 * c * c, 2.0 * xx.element_size() * xx.numel() + 4 * 81 * c * c, 0.0
 
         def flash_bound(q):
-            bq, hq, s, d = q.shape
-            return 4.0 * bq * hq * s * s * d, 4.0 * q.element_size() * q.numel(), float(bq * hq * s * s)
+            return flash_work(q.shape, q.element_size())
 
         xc, wc = x.permute(0, 3, 1, 2), w9.permute(3, 2, 0, 1).contiguous()
         xtc, gtc = xt.permute(0, 3, 1, 2), gt.permute(0, 3, 1, 2)
@@ -852,6 +890,7 @@ def main() -> int:
         q, k, v = qkv
         q2, k2, v2 = qkv_1024
         qb, kbb, vb = qkvb
+        qb2, kbb2, vb2 = qkvb_1024
         rows = []
         conv9_src, conv9_rep = "sshslie_torch/csrc/conv9.cu", "sshslie_tpu/ops/conv_pallas.py:147"
         wgrad_src, wgrad_rep = "sshslie_torch/csrc/conv9_wgrad.cu", "sshslie_tpu/ops/conv_pallas.py:215"
@@ -902,23 +941,24 @@ def main() -> int:
                  ("flash_attention", b16), lambda: attention.flash_attention(qb, kbb, vb),
                  lambda: attention.sdpa_chunked(qb, kbb, vb),
                  lambda: F.scaled_dot_product_attention(qb, kbb, vb), flash_bound(qb),
+                 PEAK_BF16_FLOPS),
+                ("flash_attention bf16 (1,4,16384,16) standalone", flash_src, flash_rep,
+                 "flash_1024_bf16", None, lambda: attention.flash_attention(qb2, kbb2, vb2),
+                 lambda: attention.sdpa_chunked(qb2, kbb2, vb2),
+                 lambda: F.scaled_dot_product_attention(qb2, kbb2, vb2), flash_bound(qb2),
                  PEAK_BF16_FLOPS)):
             ms = time_ms(fn, 20)
             plain_ms = time_ms(plain, 5)
             library_ms = time_ms(lib, 20)
             flops, nbytes, exps = work_
-            # float32 rows: the float32 FMA pipes; bfloat16 rows: the tensor
-            # cores' bfloat16 rate and, for flash, the SFU's exponentials.
-            t_ops = max(flops / peak, exps / PEAK_EXP if peak == PEAK_BF16_FLOPS else 0.0) * 1e3
-            t_bytes = nbytes / PEAK_BYTES * 1e3
+            bound, bound_by = bound_ms(work_, peak)
             rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                          "launches": main_path_launches(*count) if count else 0,
                          "max_abs_err": errs[key], "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
-                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                          "library_ms": library_ms})
             log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
-                f"bound {max(t_ops, t_bytes):.4f} ms ({flops:.3e} FLOP, {nbytes:.3e} B, "
+                f"bound {bound:.4f} ms ({flops:.3e} FLOP, {nbytes:.3e} B, "
                 f"{exps:.3e} exp)")
     finally:
         os.chdir(cwd)

@@ -1,9 +1,10 @@
-// Tensor-core building blocks of the bfloat16 conv kernels (conv9.cu,
-// conv9_wgrad.cu): cp.async copies into shared memory, ldmatrix loads of
-// A fragments, and wgmma (m64nNk16, bfloat16 operands, float32
-// accumulators) with B read from shared memory through a descriptor.
+// Tensor-core building blocks of the bfloat16 kernels (conv9.cu,
+// conv9_wgrad.cu, flash_attn.cu): cp.async copies into shared memory,
+// ldmatrix loads of fragments, mma.sync m16n8k16 (flash attention), and
+// wgmma (m64nNk16, bfloat16 operands, float32 accumulators) with B read
+// from shared memory through a descriptor (the conv kernels).
 //
-// Shared-memory layout they assume: rows of 128 bytes (64 bfloat16, one
+// Shared-memory layout the conv kernels assume: rows of 128 bytes (64 bfloat16, one
 // pixel's channels or one input channel's 64 output channels), each row
 // eight 16-byte chunks, chunk c of row r stored at chunk c ^ (r & 7). That
 // is wgmma's 128-byte swizzle when the tile starts on a 1024-byte boundary.
@@ -41,13 +42,37 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// Four 8x8 bfloat16 matrices, each transposed on the way: lane l gives the
-// address of row l % 8 of matrix l / 8, and register i receives matrix i's
-// fragment.
+// Four 8x8 bfloat16 matrices: lane l gives the address of row l % 8 (16
+// bytes) of matrix l / 8, and register i receives matrix i's fragment: lane
+// l holds row l / 4, elements 2 (l % 4) and 2 (l % 4) + 1 (the lower one in
+// the low half).
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// The same, each matrix transposed on the way: lane l holds rows 2 (l % 4)
+// and 2 (l % 4) + 1 of column l / 4.
 __device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], unsigned addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(addr));
+}
+
+// ---- mma.sync m16n8k16 (one warp) ----
+//
+// d (16 x 8, float32) += a (16 x 16 bfloat16) * b (16 x 8 bfloat16). With
+// g = lane / 4 and t = lane % 4: a[0] holds row g, columns 2t and 2t+1;
+// a[1] row g+8; a[2] row g, columns 2t+8 and 2t+9; a[3] row g+8, the same.
+// b0 holds rows (k) 2t and 2t+1 of column (n) g, b1 rows 2t+8 and 2t+9.
+// d[0], d[1] are row g, columns 2t and 2t+1; d[2], d[3] row g+8.
+__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                             unsigned b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+               "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---- wgmma (a warpgroup of 4 warps, asynchronous) ----

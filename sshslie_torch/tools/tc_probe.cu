@@ -5,26 +5,13 @@
 //     a descriptor that starts at an arbitrary row of a 128-byte-swizzled
 //     tile, as the conv kernels address a tap's shifted pixel window;
 //   * throughput of mma.sync m16n8k16 (with and without the ldmatrix loads
-//     of a 64 x 64 warp tile) and of wgmma with A from registers, in loops
-//     on data already in shared memory and registers.
+//     of a 64 x 64 warp tile; both helpers from mma.cuh, as flash_attn.cu
+//     uses them) and of wgmma with A from registers, in loops on data
+//     already in shared memory and registers.
 #include "common.cuh"
 #include "mma.cuh"
 
 namespace {
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ void mma_m16n8k16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
-                                             unsigned b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-               "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // d (64 x 32, float32) += a (64 x 16 bfloat16, registers) * B (16 x 32,
 // K-major in shared memory at desc).

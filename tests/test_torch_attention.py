@@ -7,6 +7,10 @@ Tolerance 2e-5 absolute, as tests/test_attention.py holds the JAX forms to
 each other; the measured gaps here are below 1e-6. The FlashAttention
 gradients against ``jax.grad`` through ``_flash_attention_ad`` (interpret
 mode): 1e-5 of each gradient's largest magnitude (measured <= 9.8e-7).
+bfloat16 operands: one bfloat16 step of max|o| against JAX's sdpa_chunked
+(measured 0 and 4.9e-4 at max|o| 0.79 and 0.56), plus 2^-9 of max|v|
+against the Pallas kernel, whose p stays float32 (measured 3.9e-3 and
+2.0e-3).
 """
 
 import numpy as np
@@ -20,6 +24,7 @@ from sshslie_tpu.ops import attention as ja
 from sshslie_torch.ops import attention as ta
 
 ATOL = 2e-5
+BF16_STEP = 2.0 ** -7    # one bfloat16 step of a value's magnitude, at most
 
 
 def _qkv(seed, shape):
@@ -69,6 +74,28 @@ def test_flash_plain_path_matches_pallas_interpret_at_edges(s):
     want = np.asarray(ja.flash_attention(*_j(arrs), block_q=32, block_k=32, interpret=True))
     got = ta.flash_attention(*_t(arrs)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("s", [100, 257])
+def test_flash_plain_path_bf16_matches_jax(s):
+    # bfloat16 operands in both frameworks. The port's CPU path is
+    # sdpa_chunked, which rounds p to bfloat16 before P V as JAX's does: one
+    # bfloat16 step of max|o| (a sum in another order may round the other
+    # way). The Pallas kernel keeps p in float32, which moves o by at most
+    # 2^-9 of max|v| more.
+    arrs = _qkv(9, (1, 2, s, 16))
+    tb = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+    jb = [jnp.asarray(a).astype(jnp.bfloat16) for a in arrs]
+    got = ta.flash_attention(*tb)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    vmax = float(np.abs(tb[2].float().numpy()).max())
+    want = np.asarray(ja.sdpa_chunked(*jb).astype(jnp.float32))
+    tol = BF16_STEP * float(np.abs(want).max())
+    assert float(np.abs(got - want).max()) <= tol
+    want = np.asarray(ja.flash_attention(*jb, block_q=32, block_k=32, interpret=True).astype(jnp.float32))
+    tol = BF16_STEP * float(np.abs(want).max()) + 2.0 ** -9 * vmax
+    assert float(np.abs(got - want).max()) <= tol
 
 
 def test_auto_short_sequence_is_dense(qkv):
