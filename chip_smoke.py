@@ -28,6 +28,23 @@ TransformerBlock, random weights from a seed; float32 with TF32 off, and
    float32. Every epoch's 7 average terms finite; model_epoch_1/2/latest.pth
    with a non-empty optimizer state; the test phase's S cubes and scores
    finite.
+5b. Main path, the rest of the stock train_and_test run: ``runner.main`` as
+   in 5 with ``epoch: 3``, ``eval_every_epoch: 1``, ``plot_every_epoch: 1``,
+   ``use_mlflow``, ``async_eval``, ``checkpoint_best``, ``checkpoint_async``,
+   ``checkpoint_keep: 2`` and ``profile_dir``. Launch counts exact (conv9 3 a
+   step plus 1 a cube evaluated or tested, conv9_wgrad 2 a step, flash 1 a
+   cube, all float32); the three evals ran on the ``async-eval`` thread on a
+   side stream and score, within 1e-6, as a synchronous re-eval of the same
+   weights (``model_epoch_N.pth`` where it is still on disk), which scores
+   the same from the saved files (``eval_metric_source: disk``);
+   ``model_epoch_best.pth`` is the best-PSNR epoch's file; ``runs/<run>/``
+   holds the run params, 3 x 8 epoch metrics, PSNR_dB/SSIM/SAM, the model
+   summary and the console log; the trace file parses (its top device ops are
+   printed when it holds CUDA kernels); the plots exist when matplotlib
+   imports. Then SIGTERM, under ``torch.backends.cudnn.deterministic``: a
+   50-epoch ``train`` run signalled after epoch 1 stops with
+   ``model_epoch_latest.pth`` at epoch 1, and resumed to epoch 3 its epoch
+   terms equal an uninterrupted 3-epoch run's bit for bit.
 6. Main path, bfloat16 test phase: as 4 with ``precision: bfloat16``; the
    bfloat16 conv9 and flash entries must have launched, and no float32 one.
 7. Main path, bfloat16 training at bench.py's "best" shape: b8 x 128^2 x 64,
@@ -291,6 +308,265 @@ def grad_errors(params, ref, lr, sd, rel_floor=1e-8):
     return out
 
 
+# Kernel classes of a trace, by name: the first pattern found in the name wins.
+KERNEL_CLASSES = (
+    ("hand kernels (conv9, conv9_wgrad, flash)", ("conv_c64", "wgrad_c64", "wgrad_reduce", "flash_")),
+    ("FFT (cuFFT)", ("fft", "FFT")),
+    ("Adam (foreach)", ("multi_tensor_apply", "foreach")),
+    ("reductions", ("reduce_kernel",)),
+    ("elementwise and copies", ("elementwise", "vectorized", "copy", "index", "Memcpy", "Memset")),
+    ("convolutions (cuDNN)", ("cudnn", "xmma_fprop", "xmma_dgrad", "xmma_wgrad", "implicit_gemm",
+                              "wgrad_alg", "dgrad_", "conv")),
+    ("matrix products (cuBLAS)", ("gemm", "cublas", "Kernel2")),
+)
+
+
+def trace_device_ops(path: str, top: int = 10) -> tuple:
+    """The CUDA kernels of a Chrome trace: ([(name, total ms, count)] of the
+    ``top`` largest by total time, {class: total ms} over all of them, their
+    total ms); ([], {}, 0.0) when it holds none."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    totals: dict = {}
+    for e in events:
+        if e.get("cat") == "kernel" and e.get("ph") == "X":
+            ms, n = totals.get(e["name"], (0.0, 0))
+            totals[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
+    classes: dict = {}
+    for name, (ms, _) in totals.items():
+        cls = next((c for c, pats in KERNEL_CLASSES if any(p in name for p in pats)), "other")
+        classes[cls] = classes.get(cls, 0.0) + ms
+    rows = sorted(((k, ms, n) for k, (ms, n) in totals.items()), key=lambda r: -r[1])
+    return rows[:top], classes, sum(ms for _, ms, _ in rows)
+
+
+def run_engine(train_kw: dict, common: dict) -> dict:
+    """Main path 5b: ``runner.main`` on ``train_and_test`` with the engine keys
+    on, its checks, then the SIGTERM runs. Returns the first run's launch counts."""
+    import builtins
+    import signal
+    import threading
+    import types
+
+    import torch
+
+    from sshslie_torch import checkpoints, evaluate, interop, runner
+    from sshslie_torch.config import load_config
+    from sshslie_torch.data.datasets import CubeStore
+    from sshslie_torch.models.enhance import build_model
+    from sshslie_torch.ops import attention, conv9
+
+    t0 = time.perf_counter()
+    ecfg = load_config(None, {**train_kw, "train_data": "./data/low/train",
+                              "model_name": "chip_smoke_engine", "epoch": 3,
+                              "eval_every_epoch": 1, "plot_every_epoch": 1, "use_mlflow": True,
+                              "async_eval": True, "checkpoint_best": True,
+                              "checkpoint_async": True, "checkpoint_keep": 2,
+                              "profile_dir": "./profile"})
+    steps = ecfg.epoch * (len(os.listdir(ecfg.train_data)) // ecfg.batch_size)
+    cubes_run = 2 * ecfg.epoch + 2            # eval cubes at each epoch, then the test cubes
+    evals = {}
+    sync_evaluate = evaluate.evaluate_model
+
+    def recording_evaluator(view, eval_store, out_dir, epoch, label_dir):
+        side = torch.cuda.current_stream().cuda_stream != torch.cuda.default_stream().cuda_stream
+        weights = {k: v.detach().to("cpu", copy=True) for k, v in view.model.state_dict().items()}
+        scores = sync_evaluate(view, eval_store, out_dir, epoch, label_dir)
+        evals[epoch] = (threading.current_thread().name, side, weights, scores)
+        return scores
+
+    evaluate.evaluate_model = recording_evaluator     # runner.run_train imports it at call time
+    try:
+        zero_counts(conv9, attention)
+        t = time.perf_counter()
+        result = runner.main(ecfg)
+        torch.cuda.synchronize()
+        counts = read_counts(conv9, attention)
+    finally:
+        evaluate.evaluate_model = sync_evaluate
+    trainer = result["trainer"]
+    log(f"main path (float32 engine run): {time.perf_counter() - t:.2f} s; {steps} steps on the "
+        f"{trainer.pipeline} pipeline; launches {counts}; eval metrics {trainer.eval_metrics}")
+    check_launches("float32 engine run", counts, "float32", {
+        "conv9": (3 * steps + cubes_run,) * 2, "conv9_wgrad": (2 * steps,) * 2,
+        "flash_attention": (cubes_run,) * 2})
+    if sorted(evals) != [1, 2, 3] or sorted(trainer.eval_metrics) != [1, 2, 3]:
+        raise AssertionError(f"engine run: evals {sorted(evals)}, recorded {trainer.eval_metrics}")
+    for ep, (thread, side, _, scores) in evals.items():
+        if not (thread.startswith("async-eval") and side) or scores != trainer.eval_metrics[ep]:
+            raise AssertionError(f"engine run: eval {ep} on thread {thread!r}, side stream {side}")
+    log("engine run: the three evals ran on the async-eval thread, on a side stream")
+
+    # The async scores against synchronous re-evals of the same weights, from
+    # memory and from the saved files. Epoch files pruned by checkpoint_keep
+    # are re-evaluated from the weights the worker evaluated.
+    ckdir = ecfg.test_model_dir
+    on_disk = sorted(int(n[len("model_epoch_"):-4]) for n in os.listdir(ckdir)
+                     if n[len("model_epoch_"):-4].isdigit())
+    if on_disk != [2, 3]:
+        raise AssertionError(f"engine run: epoch files on disk {on_disk} (checkpoint_keep 2)")
+    store = CubeStore(ecfg.eval_data, normalization=ecfg.normalization,
+                      global_min=ecfg.global_min, global_max=ecfg.global_max)
+    worst = {"async_vs_sync": 0.0, "disk_vs_memory": 0.0}
+    for ep in (1, 2, 3):
+        model = build_model(ecfg, ecfg.channels)
+        if ep in on_disk:
+            interop.load_checkpoint(checkpoints.epoch_path(ckdir, ep), model)
+            if any(not torch.equal(v.cpu(), evals[ep][2][k]) for k, v in model.state_dict().items()):
+                raise AssertionError(f"engine run: model_epoch_{ep}.pth differs from the weights "
+                                     "the async eval took")
+        else:
+            model.load_state_dict(evals[ep][2])
+        got = {}
+        for source in ("memory", "disk"):
+            view = types.SimpleNamespace(model=model, cfg=load_config(None, {
+                **common, "eval_metric_source": source, "phase": "train"}))
+            got[source] = sync_evaluate(view, store, f"./reeval_{source}", ep, ecfg.label_dir)
+        for key, want in trainer.eval_metrics[ep].items():
+            worst["async_vs_sync"] = max(worst["async_vs_sync"], abs(got["memory"][key] - want))
+            worst["disk_vs_memory"] = max(worst["disk_vs_memory"],
+                                          abs(got["disk"][key] - got["memory"][key]))
+    log(f"engine run: async eval vs a synchronous re-eval (epochs 2, 3 from model_epoch_N.pth, "
+        f"epoch 1 from the evaluated weights) max|d| {worst['async_vs_sync']:.3e}; "
+        f"eval_metric_source disk vs memory max|d| {worst['disk_vs_memory']:.3e} (tolerance 1e-6)")
+    if not (worst["async_vs_sync"] <= 1e-6 and worst["disk_vs_memory"] <= 1e-6):
+        raise AssertionError(f"engine run: re-eval differs: {worst}")
+
+    # model_epoch_best: the best PSNR among the files still on disk and the
+    # epoch it holds (a winner copied before its prune stays the best).
+    best_file = checkpoints.best_path(ckdir)
+    best_ep = torch.load(best_file, map_location="cpu", weights_only=True)["epoch"]
+    psnr = {ep: m["psnr"] for ep, m in trainer.eval_metrics.items()}
+    want_ep = max(set(on_disk) | {best_ep}, key=psnr.get)
+    if best_ep != want_ep:
+        raise AssertionError(f"engine run: model_epoch_best holds epoch {best_ep}, PSNR {psnr}")
+    if best_ep in on_disk:
+        with open(best_file, "rb") as fa, open(checkpoints.epoch_path(ckdir, best_ep), "rb") as fb:
+            if fa.read() != fb.read():
+                raise AssertionError(f"engine run: model_epoch_best != model_epoch_{best_ep}")
+    log(f"engine run: model_epoch_best.pth is epoch {best_ep} (PSNR by epoch {psnr}; on disk "
+        f"{on_disk}){', byte-equal to its file' if best_ep in on_disk else ''}")
+
+    # runs/<experiment>/: params, 3 x 8 epoch metrics, the test scores, artifacts.
+    rdir = os.path.join("runs", ecfg.full_model_name)
+    with open(os.path.join(rdir, "params.json")) as fh:
+        params = json.load(fh)
+    with open(os.path.join(rdir, "metrics.jsonl")) as fh:
+        metrics = [json.loads(line) for line in fh]
+    want_params = {"phase", "data_min", "data_max", "seed", "patch_size", "model_name",
+                   "c_loss_reconstruction", "alpha_i_smooth_delta", "data_train", "data_test",
+                   "epochs", "start_lr", "adaptive_lr", "batch_size", "optimizer", "model_path"}
+    per_epoch = [sum(len(m) - 1 for m in metrics if m["step"] == e) for e in range(ecfg.epoch)]
+    tested = {k for m in metrics if m["step"] is None for k in m if k != "step"}
+    arts = os.path.join(rdir, "artifacts")
+    logs = os.listdir(os.path.join(arts, "run_logs"))
+    if (not want_params <= set(params) or per_epoch != [8] * ecfg.epoch
+            or tested != {"PSNR_dB", "SSIM", "SAM"}
+            or not os.path.exists(os.path.join(arts, "model_summary.txt"))
+            or logs != [f"console_output_{ecfg.full_model_name}.log"]):
+        raise AssertionError(f"engine run: runs/ holds params {sorted(params)}, metrics a step "
+                             f"{per_epoch}, test metrics {tested}, artifacts {os.listdir(arts)}")
+    log(f"engine run: {rdir} holds {len(params)} params, {len(metrics)} metric lines (8 an epoch, "
+        f"then PSNR_dB/SSIM/SAM), artifacts {sorted(os.listdir(arts))}")
+
+    traces = [os.path.join("profile", n) for n in os.listdir("profile") if n.endswith(".json")]
+    if len(traces) != 1:
+        raise AssertionError(f"engine run: traces {traces}")
+    top, classes, total_ms = trace_device_ops(traces[0])
+    log(f"engine run: trace {traces[0]} ({os.path.getsize(traces[0])} bytes) parses; CUDA kernel "
+        f"events: {'yes' if top else 'none'}")
+    if top:
+        steps_traced = len(os.listdir(ecfg.train_data)) // ecfg.batch_size
+        log(f"  kernels of the traced first epoch ({steps_traced} steps, its checkpoint, the start "
+            f"of its async eval): {total_ms:.3f} ms in all")
+        for cls, ms in sorted(classes.items(), key=lambda r: -r[1]):
+            log(f"  class {ms:9.3f} ms {100 * ms / total_ms:5.1f}%  {cls}")
+    for name, ms, n in top:
+        log(f"  device op {ms:9.3f} ms {n:5d}x  {name[:140]}")
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ImportError:
+        have_mpl = False
+    plots = sorted(n for n in os.listdir(ecfg.eval_result_dir) if n.endswith(".png"))
+    if have_mpl and plots != ["eval_metrics.png", "loss_curves.png"]:
+        raise AssertionError(f"engine run: plots {plots}")
+    log(f"engine run: matplotlib {'imports' if have_mpl else 'does not import'} on this machine; "
+        f"plots {plots}")
+
+    # SIGTERM and resume, against an uninterrupted run, on cuDNN's deterministic algorithms.
+    torch.backends.cudnn.deterministic = True
+    try:
+        def train_run(name, **kw):
+            cfg = load_config(None, {**train_kw, "train_data": "./data/low/train", "phase": "train",
+                                     "eval_every_epoch": 100, "model_name": name, **kw})
+            return cfg, runner.main(cfg)["trainer"]
+
+        _, straight = train_run("chip_smoke_straight", epoch=3)
+        fired = []
+        orig_print = builtins.print
+
+        def hooked(*args, **kw):
+            orig_print(*args, **kw)
+            if not fired and args and str(args[0]).startswith("Epoch [1/50] Average Loss"):
+                fired.append(True)
+                os.kill(os.getpid(), signal.SIGTERM)
+
+        builtins.print = hooked
+        try:
+            scfg, stopped = train_run("chip_smoke_sigterm", epoch=50)
+        finally:
+            builtins.print = orig_print
+        latest = torch.load(checkpoints.latest_path(scfg.test_model_dir), map_location="cpu",
+                            weights_only=True)
+        if not fired or len(stopped.all_epoch_losses["total_loss"]) != 1 or latest["epoch"] != 1 \
+                or not latest["optimizer_state_dict"]["state"] \
+                or signal.getsignal(signal.SIGTERM) != signal.SIG_DFL:
+            raise AssertionError(f"SIGTERM run: {len(stopped.all_epoch_losses['total_loss'])} "
+                                 f"epochs, latest at epoch {latest['epoch']}")
+        _, resumed = train_run("chip_smoke_sigterm", epoch=3, resume=True,
+                               test_timestamp=scfg.timestamp)
+        same = all(stopped.all_epoch_losses[k] + resumed.all_epoch_losses[k]
+                   == straight.all_epoch_losses[k] for k in straight.all_epoch_losses)
+        log(f"SIGTERM after epoch 1 of 50: stopped with model_epoch_latest.pth at epoch 1; resumed "
+            f"to epoch 3, epoch terms equal the uninterrupted run's bit for bit: {same} (total "
+            f"{stopped.all_epoch_losses['total_loss'] + resumed.all_epoch_losses['total_loss']} vs "
+            f"{straight.all_epoch_losses['total_loss']})")
+        if not same:
+            raise AssertionError("the run resumed after SIGTERM differs from the uninterrupted run")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    # Host I/O that the background writers take off the training thread: an
+    # epoch checkpoint (the host copy stays on the training thread) and one
+    # eval cube's outputs (S, R_low, I_low), host clock, 3 repeats each.
+    from sshslie_torch.train import host_copy
+
+    io = {"host copy": [], "checkpoint write": [], "cube save": []}
+    model, opt = trainer.model, trainer.optimizer
+    infer = evaluate.Inferencer(model)
+    R, I, Id, S = (t[0] for t in infer.batched(store[0][None]))
+    for i in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sd, od = host_copy(model.state_dict()), host_copy(opt.state_dict())
+        io["host copy"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        saved = interop.save_checkpoint(f"./io_{i}.pth", sd, 3, od)
+        checkpoints.copy_checkpoint(saved, f"./io_{i}_latest.pth")
+        io["checkpoint write"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        evaluate._save_outputs(ecfg, f"./io_{i}", "cube0.mat", S, R, I, Id,
+                               evaluate._ready_event(S))
+        io["cube save"].append(time.perf_counter() - t)
+    log(f"host I/O, ms: {', '.join(f'{k} {[round(v * 1e3, 2) for v in vs]}' for k, vs in io.items())}"
+        f"; checkpoint {os.path.getsize('./io_0.pth')} bytes; one 512^2x64 cube's S, R_low, "
+        f"I_low {sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk('./io_0') for f in fs)}"
+        " bytes")
+    log(f"main path 5b (engine run, re-evals, SIGTERM runs, host I/O): "
+        f"{time.perf_counter() - t0:.2f} s")
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -391,6 +667,9 @@ def main() -> int:
                                   "model_name": "chip_smoke_train"})
         train_counts = run_training("float32 train_and_test", tcfg, "float32")
 
+        # ---- main path 5b: the rest of the stock run (tracking, async eval, best, trace, SIGTERM) ----
+        engine_counts = run_engine(train_kw, common)
+
         # ---- main path 3: the bfloat16 test phase ----
         btest_counts = run_test_phase("bfloat16 test", bcfg, "bfloat16")
 
@@ -443,7 +722,8 @@ def main() -> int:
             "bfloat16", {"conv9": (2, 2), "conv9_wgrad": (0, 0), "flash_attention": (2, 2)})
 
         def main_path_launches(name, dtype):
-            runs = (test_counts, train_counts) if dtype == "float32" else (btest_counts, btrain_counts)
+            runs = ((test_counts, train_counts, engine_counts) if dtype == "float32"
+                    else (btest_counts, btrain_counts))
             return sum(r[name][dtype] for r in runs)
 
         # ---- kernels against their plain versions on the card ----
@@ -964,7 +1244,8 @@ def main() -> int:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
     log(f"launches on the main paths: float32 test {test_counts}, float32 train_and_test "
-        f"{train_counts}, bfloat16 test {btest_counts}, bfloat16 train_and_test {btrain_counts}")
+        f"{train_counts}, float32 engine run {engine_counts}, bfloat16 test {btest_counts}, "
+        f"bfloat16 train_and_test {btrain_counts}")
     log(f"chip_smoke total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

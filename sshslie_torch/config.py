@@ -23,11 +23,18 @@ the same enum checks and the same derived run directories. It differs in:
   ``train.py``), not JAX's threefry. ``precision: bfloat16`` and ``remat``
   are the JAX semantics (``models/``).
 
+The engine keys are the JAX package's: ``async_eval`` (the eval on a worker
+thread and a side stream, from a snapshot of the weights), ``checkpoint_best``,
+``checkpoint_async`` (the background checkpoint writer), ``use_mlflow``
+(mlflow, else the file tracker under ``runs/``), ``plot_every_epoch``,
+``profile_dir`` (a ``torch.profiler`` Chrome trace of the first trained
+epoch) and ``eval_metric_source``.
+
 Every key loads. A value that asks for behaviour the port lacks raises
 ``NotImplementedError`` naming its ROADMAP.md item (:func:`check_ported`);
-keys that only change speed (``prefetch_batches``, ``checkpoint_async``,
-``jit_cache_dir``, ...) or only the JAX package's serving are ignored, and
-training prints the speed-only ones.
+keys that only change speed (``prefetch_batches``, ``jit_cache_dir``) or only
+the JAX package's serving and sharded eval are ignored, and training prints
+the speed-only ones.
 """
 
 from __future__ import annotations
@@ -125,17 +132,17 @@ class Config:
     grad_accum_steps: int = 1             # micro-batches a step (host pipeline)
     log_every_step: int = 0               # >0: print the loss every N batches
     checkpoint_keep: int = 0              # >0: keep only the newest N model_epoch_N.pth
-    checkpoint_best: bool = False         # true raises (not ported yet)
-    use_mlflow: bool = True               # JAX key; the port logs no MLflow runs
+    checkpoint_best: bool = False         # true: copy the best-eval-PSNR epoch to model_epoch_best
+    use_mlflow: bool = True               # mlflow if it imports, else runs/<experiment>/ files
     jit_cache_dir: str = "~/.cache/sshslie_tpu/xla"  # JAX key; speed only, ignored
-    profile_dir: str = ""                 # JAX key; ignored
+    profile_dir: str = ""                 # non-empty: torch.profiler trace of the first epoch
     eval_pad_multiple: int = 1            # >1: edge-pad H,W to a multiple before the forward
     eval_batch: int = 1                   # >1: stack same-shape cubes into one forward
     eval_sharded: bool = False            # JAX key; ignored
     eval_shard_mode: str = "spatial"      # JAX key; ignored
-    async_eval: bool = False              # true raises (not ported yet)
-    eval_metric_source: str = "memory"    # JAX key; ignored (scores from memory, same values)
-    checkpoint_async: bool = True         # JAX key; speed only, ignored (writes are synchronous)
+    async_eval: bool = False              # true: evals on a worker thread and a side stream
+    eval_metric_source: str = "memory"    # 'memory' | 'disk': score S in memory or the saved files
+    checkpoint_async: bool = True         # write checkpoints on a background thread
     serve_host: str = "127.0.0.1"         # JAX key; ignored
     serve_port: int = 8900                # JAX key; ignored
     serve_pad_multiple: int = 64          # JAX key; ignored
@@ -271,11 +278,9 @@ _NOT_PORTED = (
                        and c.grad_accum_steps <= 1),
      "fused_window (a rotating window of cubes on the device)", "item 9"),
     (False, lambda c: c.sampler == "native", "sampler: native", "item 9"),
-    (False, lambda c: bool(c.async_eval), "async_eval: true", "item 6"),
-    (False, lambda c: bool(c.checkpoint_best), "checkpoint_best: true", "item 6"),
 )
 # Training keys that change only speed; training prints them as ignored.
-SPEED_ONLY_KEYS = ("prefetch_batches", "checkpoint_async", "jit_cache_dir")
+SPEED_ONLY_KEYS = ("prefetch_batches", "jit_cache_dir")
 
 
 def check_ported(cfg: "Config", training: bool) -> None:

@@ -11,17 +11,24 @@
   ``torch.cuda.synchronize()`` on the card), and saves the denormalised S,
   S·(max−min)+min in float32, plus the artifacts the config asks for.
 * :func:`evaluate_model` is the mid-training eval: every eval cube through
-  the trainer's model, saved to ``eval_result_dir/epoch_N/``, scored in
-  memory against ``label_dir`` (the JAX ``eval_metric_source: memory``
-  path), the average PSNR/SSIM/SAM returned.
+  the model of the trainer (or of a snapshot view with ``.model`` and
+  ``.cfg``), saved to ``eval_result_dir/epoch_N/``, scored against
+  ``label_dir`` in memory (``eval_metric_source: memory``) or from the saved
+  files (``disk``, :func:`calc_metrics` once the saves have landed), the
+  average PSNR/SSIM/SAM returned.
+* :class:`_OverlappedSaver` saves the outputs on a worker thread, at most
+  ``depth`` cubes behind the forward. The worker's device-to-host copies run
+  on its own stream after an event recorded on the producing stream, never
+  on a bare ``.cpu()`` of another stream's tensor. A trainer may own one
+  across epochs (``trainer.eval_saver``), drained before disk metrics, at
+  the end of ``fit`` and so before the test phase reads anything.
 
-Outputs are saved as each cube finishes, outside its timed window; the JAX
-package's background saver, its asynchronous eval and its sharded
-inferencers are not ported yet.
+The sharded inferencers are not ported yet (ROADMAP.md queue 1, item 7).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from collections import OrderedDict
@@ -69,15 +76,17 @@ class Inferencer:
             return pad_forward_crop_batch(self.model, x, m, m)
 
 
-def _inference_stream(infer: Inferencer, store: CubeStore, eval_batch: int):
+def _inference_stream(infer: Inferencer, store: CubeStore, eval_batch: int,
+                      timed: bool = False):
     """Yield ``(idx, R, I, I_delta, S, seconds)`` per cube, ``eval_batch``
-    same-shape cubes to a forward. ``seconds`` is the cube's share of its
-    chunk's synchronised wall time."""
+    same-shape cubes to a forward. With ``timed``, ``seconds`` is the cube's
+    share of its chunk's wall time up to the end of the current stream's work
+    (else 0.0, and nothing waits for the card)."""
     groups: "OrderedDict[tuple, list]" = OrderedDict()
     for idx, shape in enumerate(store.shapes):
         groups.setdefault(tuple(shape), []).append(idx)
     batch = max(int(eval_batch), 1)
-    sync = infer.device.type == "cuda"
+    sync = timed and infer.device.type == "cuda"
     for idxs in groups.values():
         for lo in range(0, len(idxs), batch):
             chunk = idxs[lo: lo + batch]
@@ -89,8 +98,8 @@ def _inference_stream(infer: Inferencer, store: CubeStore, eval_batch: int):
             start = time.perf_counter()
             R, I, Id, S = infer.batched(stack)
             if sync:
-                torch.cuda.synchronize(infer.device)
-            per_cube = (time.perf_counter() - start) / len(chunk)
+                torch.cuda.current_stream(infer.device).synchronize()
+            per_cube = (time.perf_counter() - start) / len(chunk) if timed else 0.0
             for j, i in enumerate(chunk):
                 yield i, R[j], I[j], Id[j], S[j], per_cube
 
@@ -101,18 +110,89 @@ def _denormalize(cfg: Config, S: np.ndarray) -> np.ndarray:
     return S
 
 
-def _save_outputs(cfg: Config, out_dir: str, filename: str, S, R, I, I_delta) -> None:
+def _ready_event(t: torch.Tensor) -> Optional["torch.cuda.Event"]:
+    """An event recorded on the current stream after ``t``'s producer, for a
+    consumer on another thread or stream (None on the CPU)."""
+    if not t.is_cuda:
+        return None
+    ev = torch.cuda.Event()
+    ev.record(torch.cuda.current_stream(t.device))
+    return ev
+
+
+def _save_outputs(cfg: Config, out_dir: str, filename: str, S, R, I, I_delta,
+                  ready: Optional["torch.cuda.Event"] = None) -> None:
     """Denormalise and save S, and the artifacts the config asks for
-    (reference model.py:371-388). Each tensor leaves the device only if saved."""
-    S = _denormalize(cfg, S.cpu().numpy())
-    save_hsi(os.path.join(out_dir, filename), S, key=cfg.mat_key_prediction)
-    artifact_dir = os.path.join(out_dir, "artifacts")
+    (reference model.py:371-388). Each tensor leaves the device only if saved.
+    With ``ready`` (the producer's event), the copies run on a stream of their
+    own after it, so they overlap the producer's next work instead of queueing
+    behind it; copies to pageable memory end before the tensors are released."""
+    artifacts = [(suffix, t) for flag, suffix, t in ((cfg.save_reflectance, "_R_low", R),
+                                                     (cfg.save_illumination, "_I_low", I),
+                                                     (cfg.save_i_delta, "_I_delta", I_delta))
+                 if flag]
+    with torch.cuda.stream(torch.cuda.Stream(S.device)) if ready is not None \
+            else contextlib.nullcontext():
+        if ready is not None:
+            torch.cuda.current_stream(S.device).wait_event(ready)
+        S = S.cpu().numpy()
+        artifacts = [(suffix, t.cpu().numpy()) for suffix, t in artifacts]
+    save_hsi(os.path.join(out_dir, filename), _denormalize(cfg, S), key=cfg.mat_key_prediction)
     stem = os.path.splitext(filename)[0]
-    for flag, suffix, t in ((cfg.save_reflectance, "_R_low", R),
-                            (cfg.save_illumination, "_I_low", I),
-                            (cfg.save_i_delta, "_I_delta", I_delta)):
-        if flag:
-            save_hsi(os.path.join(artifact_dir, stem + suffix + ".mat"), t.cpu().numpy())
+    for suffix, t in artifacts:
+        save_hsi(os.path.join(out_dir, "artifacts", stem + suffix + ".mat"), t)
+
+
+class _OverlappedSaver:
+    """Bounded single-worker save pipeline (JAX ``_OverlappedSaver``).
+
+    * back-pressure: at most ``depth`` saves are pending, so queued saves pin
+      at most ``depth`` cubes' outputs on the device;
+    * fail-fast: :meth:`submit` first waits for the oldest save beyond the
+      depth, so a failed write surfaces ``depth`` cubes later, not after the
+      whole dataset.
+    """
+
+    def __init__(self, depth: int = 2):
+        from collections import deque
+        from concurrent.futures import ThreadPoolExecutor
+
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="save")
+        self._pending: "deque" = deque()
+        self.depth = max(int(depth), 1)
+
+    def submit(self, fn, *args) -> None:
+        while len(self._pending) >= self.depth:
+            self._pending.popleft().result()
+        self._pending.append(self._pool.submit(fn, *args))
+
+    def drain(self) -> None:
+        """Block until every pending save has landed (raises the first failure)."""
+        while self._pending:
+            self._pending.popleft().result()
+
+    def close(self) -> None:
+        """Drain and shut the worker down."""
+        try:
+            self.drain()
+        finally:
+            self._pool.shutdown(wait=True)
+
+    def __enter__(self) -> "_OverlappedSaver":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        try:
+            if exc_type is None:
+                self.drain()
+            else:
+                # The forward raised: report save errors without masking it.
+                while self._pending:
+                    e = self._pending.popleft().exception()
+                    if e is not None:
+                        print(f"(save error during teardown: {e})")
+        finally:
+            self._pool.shutdown(wait=True)
 
 
 def _score_in_memory(name: str, S: torch.Tensor, cfg: Config, label_dir: str):
@@ -146,9 +226,11 @@ def _average_scores(per_file: Dict[str, tuple]) -> Dict[str, float]:
 
 def evaluate_model(trainer, eval_store: CubeStore, eval_result_dir: str, epoch: int,
                    label_dir: Optional[str]) -> Optional[Dict[str, float]]:
-    """Mid-training eval (reference model.py:343-404), synchronous: returns
-    ``{psnr, ssim, sam}`` averaged over the cubes with ground truth, or None
-    when there is no eval cube or no ground truth."""
+    """Mid-training eval (reference model.py:343-404) with ``trainer.model``
+    and ``trainer.cfg``: returns ``{psnr, ssim, sam}`` averaged over the cubes
+    with ground truth, or None when there is no eval cube or no ground truth.
+    Saves go to ``trainer.eval_saver`` when the trainer owns one (left
+    running), else to a saver drained before returning."""
     if len(eval_store) == 0:
         print(f"--- No files found for evaluation. Skipping evaluation for epoch {epoch} ---")
         return None
@@ -157,21 +239,37 @@ def evaluate_model(trainer, eval_store: CubeStore, eval_result_dir: str, epoch: 
     epoch_dir = os.path.join(eval_result_dir, f"epoch_{epoch}")
     os.makedirs(epoch_dir, exist_ok=True)
     infer = Inferencer(trainer.model, cfg.eval_pad_multiple)
+    from_memory = cfg.eval_metric_source != "disk"
+    persistent = getattr(trainer, "eval_saver", None)
+    saver = persistent if persistent is not None else _OverlappedSaver()
     per_file: Dict[str, tuple] = {}
-    for idx, R, I, Id, S, _sec in _inference_stream(infer, eval_store, cfg.eval_batch):
-        filename = os.path.basename(eval_store.files[idx])
-        if label_dir:
-            sc = _score_in_memory(filename, S, cfg, label_dir)
-            if sc is not None:
-                per_file[filename] = sc
-        _save_outputs(cfg, epoch_dir, filename, S, R, I, Id)
+    with contextlib.nullcontext() if persistent is not None else saver:
+        for idx, R, I, Id, S, _sec in _inference_stream(infer, eval_store, cfg.eval_batch):
+            filename = os.path.basename(eval_store.files[idx])
+            if from_memory and label_dir:
+                sc = _score_in_memory(filename, S, cfg, label_dir)
+                if sc is not None:
+                    per_file[filename] = sc
+            saver.submit(_save_outputs, cfg, epoch_dir, filename, S, R, I, Id, _ready_event(S))
     scores = None
-    if label_dir:
+    if label_dir and from_memory:
         if per_file:
             scores = _average_scores(per_file)
         else:
             print(f"--- Eval metrics skipped for epoch {epoch}: "
                   "Number of files must be greater than 0 ---")
+    elif label_dir:
+        # The disk source reads this epoch's files: they must have landed.
+        saver.drain()
+        try:
+            avg = metrics_mod.calc_metrics(
+                im_dir=os.path.normpath(os.path.join(epoch_dir, "*.mat")),
+                label_dir=os.path.normpath(label_dir), data_min=None, data_max=cfg.global_max,
+                mat_key_prediction=cfg.mat_key_prediction, mat_key_gt=cfg.mat_key,
+                device=infer.device)
+            scores = {"psnr": avg[0], "ssim": avg[1], "sam": avg[2]}
+        except ValueError as e:
+            print(f"--- Eval metrics skipped for epoch {epoch}: {e} ---")
     print(f"--- Evaluation for epoch {epoch} finished. Results saved to {epoch_dir} ---")
     return scores
 
@@ -179,20 +277,23 @@ def evaluate_model(trainer, eval_store: CubeStore, eval_result_dir: str, epoch: 
 def test_model(model: torch.nn.Module, cfg: Config, model_dir: str, test_store: CubeStore,
                save_dir: str, timings: Optional[Dict[str, float]] = None) -> float:
     """Test phase (reference model.py:406-443): load the latest checkpoint,
-    run every cube timed, save the outputs. Returns the mean seconds a cube;
+    run every cube timed, save the outputs on the background saver (outside
+    the timed window). Returns the mean seconds a cube;
     ``timings``, when given, receives each file's seconds."""
     interop.load_checkpoint(checkpoints.latest_path(model_dir), model)
     os.makedirs(save_dir, exist_ok=True)
     infer = Inferencer(model, cfg.eval_pad_multiple)
     total = 0.0
-    for idx, R, I, Id, S, run_time in _inference_stream(infer, test_store, cfg.eval_batch):
-        filename = os.path.basename(test_store.files[idx])
-        print(f"Processing {filename}")
-        total += run_time
-        if timings is not None:
-            timings[filename] = run_time
-        _save_outputs(cfg, save_dir, filename, S, R, I, Id)
-        print(f"Processed {filename} in {run_time:.4f} seconds.")
+    with _OverlappedSaver() as saver:
+        for idx, R, I, Id, S, run_time in _inference_stream(infer, test_store, cfg.eval_batch,
+                                                            timed=True):
+            filename = os.path.basename(test_store.files[idx])
+            print(f"Processing {filename}")
+            total += run_time
+            if timings is not None:
+                timings[filename] = run_time
+            saver.submit(_save_outputs, cfg, save_dir, filename, S, R, I, Id, _ready_event(S))
+            print(f"Processed {filename} in {run_time:.4f} seconds.")
     n = len(test_store)
     avg = total / n if n else 0.0
     print(f"Average run time: {avg:.4f} seconds.")

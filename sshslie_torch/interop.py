@@ -18,7 +18,7 @@ reads what the port writes.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -70,17 +70,19 @@ def jax_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 
 def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
                     epoch: Optional[int] = None,
-                    optimizer: Optional[torch.optim.Optimizer] = None) -> str:
+                    optimizer: Union[None, torch.optim.Optimizer, Dict[str, Any]] = None) -> str:
     """Write a reference-format ``.pth`` through a temporary file and an
     atomic rename. ``optimizer_state_dict`` is the given optimizer's real
-    ``state_dict()`` (a trainer's Adam, for resume); without one it is a fresh
-    Adam over as many parameters (empty moments), which the reference's
-    ``load_checkpoint`` reads unconditionally (model.py:606)."""
+    ``state_dict()`` (a trainer's Adam, for resume), or the given optimizer
+    state dict (a host copy, for the background writer); without either it
+    is a fresh Adam over as many parameters (empty moments), which the
+    reference's ``load_checkpoint`` reads unconditionally (model.py:606)."""
     sd = {k: v.detach().cpu() for k, v in state_dict.items()}
     if optimizer is None:
         optimizer = torch.optim.Adam([torch.nn.Parameter(torch.zeros(1)) for _ in sd], lr=1e-3)
+    opt_state = optimizer if isinstance(optimizer, dict) else optimizer.state_dict()
     payload: Dict[str, Any] = {"model_state_dict": sd,
-                               "optimizer_state_dict": _to_cpu(optimizer.state_dict())}
+                               "optimizer_state_dict": _to_cpu(opt_state)}
     if epoch is not None:
         payload["epoch"] = int(epoch)
     tmp = path + ".tmp"

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -111,8 +112,7 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
     code = getattr(lib, f"sshslie_flash_attn_{KERNEL_DTYPES[q.dtype]}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, s, d,
         math.log2(math.e) / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
-    flash_attention.launches += 1
-    flash_attention.launches_by_dtype[q.dtype] += 1
+    _count(q.dtype)
     _build.check(lib, code, "flash attention kernel launch")
     return o
 
@@ -147,10 +147,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return FlashAttention.apply(q, k, v)
 
 
+# The counts are read-modify-writes from every thread that launches (the
+# training thread and the async-eval worker): one lock keeps them exact.
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(dtype: torch.dtype) -> None:
+    with _COUNT_LOCK:
+        flash_attention.launches += 1
+        flash_attention.launches_by_dtype[dtype] += 1
+
+
 def reset_counts() -> None:
     """Set the kernel's launch counts to 0."""
-    flash_attention.launches = 0
-    flash_attention.launches_by_dtype = dict.fromkeys(KERNEL_DTYPES, 0)
+    with _COUNT_LOCK:
+        flash_attention.launches = 0
+        flash_attention.launches_by_dtype = dict.fromkeys(KERNEL_DTYPES, 0)
 
 
 reset_counts()

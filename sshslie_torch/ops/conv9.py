@@ -35,6 +35,7 @@ Layout as in the JAX package: x is NHWC (B, H, W, 64), w is HWIO
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Tuple
 
 import torch
@@ -115,16 +116,23 @@ def _check_cuda_operands(name: str, *tensors: torch.Tensor) -> str:
     return KERNEL_DTYPES[tensors[0].dtype]
 
 
+# The counts are read-modify-writes from every thread that launches (the
+# training thread and the async-eval worker): one lock keeps them exact.
+_COUNT_LOCK = threading.Lock()
+
+
 def _count(wrapper, dtype: torch.dtype) -> None:
-    wrapper.launches += 1
-    wrapper.launches_by_dtype[dtype] += 1
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.launches_by_dtype[dtype] += 1
 
 
 def reset_counts() -> None:
     """Set the launch counts of both wrappers to 0."""
-    for wrapper in (conv9_fwd, conv9_wgrad):
-        wrapper.launches = 0
-        wrapper.launches_by_dtype = dict.fromkeys(KERNEL_DTYPES, 0)
+    with _COUNT_LOCK:
+        for wrapper in (conv9_fwd, conv9_wgrad):
+            wrapper.launches = 0
+            wrapper.launches_by_dtype = dict.fromkeys(KERNEL_DTYPES, 0)
 
 
 def conv9_wgrad_bf16_taps(k: int) -> int:

@@ -11,9 +11,15 @@ on ``model_epoch_latest.pth`` of ``test_timestamp``; ``train_and_test`` does
 both, testing from the checkpoint the run just wrote. Float32 runs in full
 float32 on the card: both TF32 switches are set off and printed.
 
+Every run is tracked as in the JAX package (``observability.MLflowShim``,
+``use_mlflow``): one experiment named after the run, its params and loss
+weights, the config file, the git commit and the port's own source files,
+the data directories, the trainer's params and epoch metrics, the test
+phase's ``PSNR_dB``/``SSIM``/``SAM`` and the console log under
+``run_logs``; without mlflow, as files under ``runs/<experiment>/``.
+
 The ``serve`` phase is not ported yet and raises, as does any config value
-the port cannot honour (``config.check_ported``). MLflow logging is not
-ported.
+the port cannot honour (``config.check_ported``).
 """
 
 from __future__ import annotations
@@ -29,29 +35,34 @@ import torch
 
 from sshslie_torch.config import Config, check_ported, parse_args
 from sshslie_torch.device import resolve_device
+from sshslie_torch.observability import Logger, MLflowShim, RunObserver
 
 _TRAINING = ("train", "train_and_test")
 
 
-class Logger:
-    """Tee stdout to the terminal and a UTF-8 log file (reference logger.py:3-24)."""
+def _log_source_artifacts(mlflow) -> None:
+    """Log the git commit of the checkout (only when the package's parent
+    directory is the checkout's top level) and the port's engine modules, so
+    that every run says what code made it (reference main.py:243-248)."""
+    import subprocess
 
-    def __init__(self, filepath: str):
-        os.makedirs(os.path.dirname(filepath) or ".", exist_ok=True)
-        self.terminal = sys.stdout
-        self.log = open(filepath, "w", encoding="utf-8")
-
-    def write(self, message: str) -> None:
-        self.terminal.write(message)
-        self.log.write(message)
-        self.flush()
-
-    def flush(self) -> None:
-        self.terminal.flush()
-        self.log.flush()
-
-    def close(self) -> None:
-        self.log.close()
+    pkg = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.dirname(pkg)
+    try:
+        toplevel = subprocess.run(["git", "-C", root, "rev-parse", "--show-toplevel"],
+                                  capture_output=True, text=True, timeout=10).stdout.strip()
+        head = ""
+        if toplevel and os.path.realpath(toplevel) == os.path.realpath(root):
+            head = subprocess.run(["git", "-C", root, "rev-parse", "HEAD"],
+                                  capture_output=True, text=True, timeout=10).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        head = ""
+    if head:
+        mlflow.log_param("source_git_commit", head)
+    for name in ("runner.py", "config.py", "train.py", "evaluate.py", "metrics.py"):
+        path = os.path.join(pkg, name)
+        if os.path.exists(path):
+            mlflow.log_artifact(path)
 
 
 def run_train(trainer, cfg: Config) -> None:
@@ -65,10 +76,10 @@ def run_train(trainer, cfg: Config) -> None:
                 label_dir=cfg.label_dir)
 
 
-def _build_trainer(cfg: Config, channels: int, device: torch.device):
+def _build_trainer(cfg: Config, channels: int, device: torch.device, mlflow: MLflowShim):
     from sshslie_torch.train import Trainer
 
-    trainer = Trainer(cfg, channels, device)
+    trainer = Trainer(cfg, channels, device, mlflow=mlflow, observer=RunObserver())
     if cfg.pretrained_model and not os.path.exists(cfg.pretrained_model):
         raise FileNotFoundError(f"pretrained_model {cfg.pretrained_model!r} does not exist")
     if cfg.pretrained_model:
@@ -101,8 +112,9 @@ def run_test(model: torch.nn.Module, cfg: Config) -> dict:
     return seconds
 
 
-def run_eval_metrics(cfg: Config, device: torch.device):
-    """Average PSNR/SSIM/SAM of the saved test outputs against ``label_dir``."""
+def run_eval_metrics(cfg: Config, device: torch.device, mlflow: MLflowShim):
+    """Average PSNR/SSIM/SAM of the saved test outputs against ``label_dir``,
+    logged as ``PSNR_dB``, ``SSIM`` and ``SAM``."""
     from sshslie_torch.metrics import calc_metrics
 
     scores = calc_metrics(
@@ -117,6 +129,9 @@ def run_eval_metrics(cfg: Config, device: torch.device):
     print(f"\n===> Avg.PSNR : {scores[0]:.4f}")
     print(f"===> Avg.SSIM : {scores[1]:.4f}")
     print(f"===> Avg.SAM  : {scores[2]:.4f}")
+    mlflow.log_metric("PSNR_dB", scores[0])
+    mlflow.log_metric("SSIM", scores[1])
+    mlflow.log_metric("SAM", scores[2])
     return scores
 
 
@@ -163,21 +178,40 @@ def main(cfg: Config):
             channels = load_hsi(train_files[0], mat_key=cfg.mat_key).shape[-1]
             cfg.channels = channels
 
+        mlflow = MLflowShim(enabled=cfg.use_mlflow)
+        trainer = _build_trainer(cfg, channels, device, mlflow) if cfg.phase in _TRAINING else None
+        mlflow.set_experiment(cfg.full_model_name)
         result: dict = {}
-        if cfg.phase in _TRAINING:
-            trainer = _build_trainer(cfg, channels, device)
-            run_train(trainer, cfg)
-            result["trainer"] = trainer
-            if cfg.phase == "train":
-                return result
-            # cfg.test_model_dir is this run's checkpoint directory.
-            model = trainer.model
-        else:
-            from sshslie_torch.models.enhance import build_model
+        with mlflow.start_run():
+            run_params = {"phase": cfg.phase, "data_min": cfg.global_min,
+                          "data_max": cfg.global_max, "seed": cfg.seed_value,
+                          "patch_size": cfg.patch_size, "model_name": cfg.full_model_name}
+            for key in ("c_loss_reconstruction", "c_loss_r_fidelity", "c_loss_i_smooth_low",
+                        "c_loss_i_smooth_delta", "c_loss_fourier", "c_loss_spectral_cons",
+                        "alpha_i_smooth_low", "alpha_i_smooth_delta"):
+                run_params[key] = getattr(cfg, key)
+            # One call: the file tracker rewrites params.json a call.
+            mlflow.log_params(run_params)
+            if cfg.config_path:
+                mlflow.log_artifact(cfg.config_path)
+            _log_source_artifacts(mlflow)
+            if trainer is not None:
+                mlflow.log_param("data_train", cfg.train_data)
+            if cfg.phase != "train":
+                mlflow.log_param("data_test", cfg.test_data)
+            if trainer is not None:
+                run_train(trainer, cfg)
+                result["trainer"] = trainer
+                # cfg.test_model_dir is this run's checkpoint directory.
+                model = trainer.model
+            else:
+                from sshslie_torch.models.enhance import build_model
 
-            model = build_model(cfg, channels, device)
-        result["seconds"] = run_test(model, cfg)
-        result["scores"] = run_eval_metrics(cfg, device)
+                model = build_model(cfg, channels, device)
+            if cfg.phase != "train":
+                result["seconds"] = run_test(model, cfg)
+                result["scores"] = run_eval_metrics(cfg, device, mlflow)
+            mlflow.log_artifact(log_filepath, artifact_path="run_logs")
         return result
     except Exception as e:
         print(f"\n--- An error occurred: {e} ---")

@@ -37,17 +37,31 @@
   averages of the 7 terms with one device-to-host sync an epoch, eval and
   checkpoint on the ``eval_every_epoch`` cadence, the final-tail checkpoint
   (PARITY #22), resume from ``model_epoch_latest.pth`` with the optimizer
-  state and the sampler fast-forwarded.
+  state and the sampler fast-forwarded. Around it, as JAX: run-level
+  tracking through ``mlflow`` (``observability.MLflowShim``) and plots and
+  the model summary through ``observer``; ``async_eval``; ``checkpoint_best``;
+  ``checkpoint_async`` (``checkpoints.AsyncWriter``); the cross-epoch eval
+  saver; SIGTERM/SIGINT checkpoint-and-stop; a ``profile_dir`` trace of the
+  first trained epoch; one device-memory line after the first epoch.
+* ``async_eval``: nothing is donated in PyTorch, so the snapshot stays on the
+  device: at the eval epoch the state dict is cloned on the training stream
+  and an event recorded after it. One ``async-eval`` worker owns a model
+  built with the trainer's config; on a side stream it waits on the event,
+  loads the snapshot and runs the evaluator, then waits for its stream, so
+  the snapshot is released only after every read of it. On the CPU the same
+  code runs without streams.
 
-Not ported (ROADMAP.md queue 1): SIGTERM checkpointing, async eval,
-``checkpoint_best``, the background writer, plots and MLflow (item 6);
-meshes (item 7); ``fused_window`` (item 9); a CUDA graph of a multistep
-chunk (item 11).
+Not ported (ROADMAP.md queue 1): meshes (item 7); ``fused_window`` (item 9);
+a CUDA graph of a multistep chunk (item 11).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import signal
+import sys
+import threading
 import time
 from typing import Callable, Dict, Iterable, Optional
 
@@ -55,6 +69,7 @@ import numpy as np
 import torch
 
 from sshslie_torch import checkpoints, interop
+from sshslie_torch.observability import Profiler
 from sshslie_torch.config import SPEED_ONLY_KEYS, Config, check_ported
 from sshslie_torch.data.datasets import CubeStore, PatchSampler
 from sshslie_torch.device import resolve_device
@@ -207,6 +222,46 @@ def multistep_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optim
     return sums
 
 
+def report_hbm_pressure(device: torch.device, threshold: float = 0.92) -> Optional[str]:
+    """One line of device-memory pressure, printed once after the first
+    trained epoch: the caching allocator's peak reserved bytes against the
+    card's total, with a warning at ``threshold``. None on the CPU."""
+    if device.type != "cuda":
+        return None
+    peak = torch.cuda.max_memory_reserved(device)
+    total = torch.cuda.mem_get_info(device)[1]
+    if peak <= 0 or total <= 0:
+        return None
+    gib = 1024.0 ** 3
+    line = (f"Device memory pressure: peak reserved {peak / gib:.2f}/{total / gib:.2f} GiB "
+            f"({100.0 * peak / total:.1f}%)")
+    if peak >= threshold * total:
+        line += " — near the ceiling: consider a smaller batch/patch or remat: true"
+    print(line)
+    return line
+
+
+def host_copy(tree):
+    """A host copy of a (nested) state dict that later in-place updates of the
+    live tensors cannot reach: ``.cpu()`` of a CPU tensor is the tensor itself."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, dict):
+        return {k: host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(host_copy(v) for v in tree)
+    return tree
+
+
+class _SnapshotView:
+    """What the evaluator reads of a trainer (``.cfg``, ``.model``) for an
+    async eval: the worker's own model, loaded with the eval epoch's weights."""
+
+    def __init__(self, cfg: Config, model: torch.nn.Module):
+        self.cfg = cfg
+        self.model = model
+
+
 class Trainer:
     """Epoch orchestration (reference train_model, model.py:236-341).
 
@@ -216,9 +271,13 @@ class Trainer:
     """
 
     def __init__(self, cfg: Config, channels: int, device=None,
-                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 mlflow=None, observer=None):
         check_ported(cfg, training=True)
         self.cfg = cfg
+        self.mlflow = mlflow          # observability.MLflowShim or None
+        self.observer = observer      # observability.RunObserver or None
+        self.eval_saver = None        # evaluate._OverlappedSaver while fit runs a sync eval
         self.channels = channels
         self.device = resolve_device(cfg.device if device is None else device)
         self.model = build_model(cfg, channels, self.device,
@@ -254,14 +313,6 @@ class Trainer:
             # while the card runs this step.
             return batch.pin_memory().to(self.device, non_blocking=True)
         return batch
-
-    def _save_epoch_ckpt(self, ckpt_dir: str, epoch: int, label: str = "Checkpoint") -> None:
-        saved = interop.save_checkpoint(checkpoints.epoch_path(ckpt_dir, epoch),
-                                        self.model.state_dict(), epoch, self.optimizer)
-        latest = checkpoints.copy_checkpoint(saved, checkpoints.latest_path(ckpt_dir))
-        print(f"{label} saved at {latest}")
-        if self.cfg.checkpoint_keep > 0:
-            checkpoints.prune_checkpoints(ckpt_dir, self.cfg.checkpoint_keep)
 
     def fit(self, train_store: CubeStore, eval_store: Optional[CubeStore] = None,
             evaluator: Optional[Callable] = None, ckpt_dir: Optional[str] = None,
@@ -331,74 +382,318 @@ class Trainer:
         print("Ignored (speed only): "
               + ", ".join(f"{k}={getattr(cfg, k)!r}" for k in SPEED_ONLY_KEYS))
         num_batches = len(train_store) // cfg.batch_size
+        if self.mlflow:
+            self.mlflow.log_params({
+                "epochs": cfg.epoch,
+                "start_lr": cfg.start_lr,
+                "adaptive_lr": abs(cfg.lr_update_factor - 1) > 1e-6,
+                "batch_size": cfg.batch_size,
+                "optimizer": "Adam",
+            })
+        if self.observer:
+            self.observer.log_model_summary(self.model, ckpt_dir, self.mlflow)
 
-        for epoch in range(start_epoch, cfg.epoch):
-            freeze = 0 < self.freeze_decom_epochs and epoch < self.freeze_decom_epochs
-            if self.freeze_decom_epochs > 0:
-                if freeze:
-                    print(f"Epoch {epoch+1}: DecompositionNet frozen")
-                elif epoch == self.freeze_decom_epochs:
-                    # The reference recreates Adam at unfreeze: moments and counts reset.
-                    self.optimizer = make_optimizer(self.model, cfg.start_lr)
-                    print(f"Epoch {epoch+1}: DecompositionNet unfrozen")
-            lr = self._lr_for_epoch(epoch)
-            set_lr(self.optimizer, lr)
-            sums: Optional[Dict[str, torch.Tensor]] = None
-            count = 0
-            host_s = 0.0
-            start = time.perf_counter()
-            if cubes is not None:
-                # The epoch's draws, uploaded once; steps index them on the device.
-                t = time.perf_counter()
-                draws = torch.from_numpy(fused_draws(
-                    cfg.seed_value, epoch, num_batches, cfg.batch_size, tuple(cubes.shape[1:3]),
-                    cfg.patch_size)).to(self.device)
-                host_s += time.perf_counter() - t
-                for chunk_start in range(0, num_batches, k_steps):
-                    ids = range(chunk_start, min(chunk_start + k_steps, num_batches))
-                    terms = multistep_train_step(self.model, self.optimizer, cubes, draws, ids,
-                                                 cfg.batch_size, cfg.patch_size, self.coeffs,
-                                                 freeze)
-                    sums = _add_terms(sums, terms)
-                    count += len(ids)
-                    # log_every_step's cadence: print when the chunk crossed an N boundary.
-                    if cfg.log_every_step and ((ids[-1] + 1) // cfg.log_every_step
-                                               > ids[0] // cfg.log_every_step):
-                        print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{ids[-1]+1}/{num_batches}] "
-                              f"Loss: {float(terms['total_loss']) / len(ids):.6f}")
+        run_evals = evaluator is not None and eval_store is not None and bool(eval_result_dir)
+        eval_pool = None
+        pending_evals: list = []
+        if cfg.async_eval and run_evals:
+            eval_pool, eval_snapshot = self._async_evaluator(
+                evaluator, eval_store, eval_result_dir, label_dir)
+        # The sync eval's saver lives across epochs: an eval epoch's copies and
+        # .mat writes overlap the next training epochs (the async worker runs
+        # whole evals and keeps a saver a call).
+        if run_evals and eval_pool is None:
+            from sshslie_torch.evaluate import _OverlappedSaver
+
+            self.eval_saver = _OverlappedSaver()
+        ckpt_writer = checkpoints.AsyncWriter() if cfg.checkpoint_async else None
+
+        # checkpoint_best: per fit run, so a resumed run starts its best afresh
+        # (the epoch files stay the durable record).
+        best = {"psnr": float("-inf"), "ep": None, "written_ep": None}
+
+        def _record_eval(ep: int, scores) -> None:
+            if scores is None:
+                return
+            self.eval_metrics[ep] = scores
+            if cfg.checkpoint_best and "psnr" in scores and scores["psnr"] > best["psnr"]:
+                best["psnr"], best["ep"] = scores["psnr"], ep
+            if self.observer and eval_result_dir:
+                self.observer.plot_eval_metrics(
+                    self.eval_metrics, os.path.join(eval_result_dir, "eval_metrics.png"))
+
+        def _sync_best() -> None:
+            """Copy the winning epoch file to model_epoch_best, FIFO behind the
+            epoch save on the writer. The candidate is read here, on the
+            training thread, where its epoch's save is already queued."""
+            if not cfg.checkpoint_best or best["ep"] is None or best["ep"] == best["written_ep"]:
+                return
+            ep, psnr = best["ep"], best["psnr"]
+
+            def _copy() -> None:
+                src = checkpoints.epoch_path(ckpt_dir, ep)
+                if not os.path.exists(src):
+                    # A lagging async eval can outlive its epoch file under
+                    # checkpoint_keep: fall back to the best still on disk, so
+                    # a later epoch that beats it (but not the pruned one) is
+                    # still copied. A newer candidate recorded meanwhile stays.
+                    prev = best["written_ep"]
+                    print(f"checkpoint_best: epoch {ep} checkpoint was already pruned; "
+                          f"best left at epoch {prev}")
+                    if best["ep"] == ep:
+                        best["ep"] = prev
+                        best["psnr"] = (self.eval_metrics.get(prev, {}).get("psnr", float("-inf"))
+                                        if prev is not None else float("-inf"))
+                    return
+                checkpoints.copy_checkpoint(src, checkpoints.best_path(ckpt_dir))
+                best["written_ep"] = ep
+                print(f"Best checkpoint updated: epoch {ep} (PSNR {psnr:.4f})")
+
+            if ckpt_writer is not None:
+                ckpt_writer.submit(_copy)
             else:
-                for batch_id in range(num_batches):
-                    t = time.perf_counter()
-                    batch = self._upload(sampler.sample_batch(batch_id))
-                    host_s += time.perf_counter() - t
-                    if accum > 1:
-                        terms = accum_train_step(self.model, self.optimizer, batch, self.coeffs,
-                                                 accum, freeze)
-                    else:
-                        terms = train_step(self.model, self.optimizer, batch, self.coeffs, freeze)
-                    sums = _add_terms(sums, terms)
-                    count += 1
-                    if cfg.log_every_step and (batch_id + 1) % cfg.log_every_step == 0:
-                        print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{batch_id+1}/{num_batches}] "
-                              f"Loss: {float(terms['total_loss']):.6f}")
-            # The one device-to-host sync of the epoch.
-            host_sums = torch.stack([sums[k] for k in LOSS_KEYS]).cpu().tolist()
-            self.epoch_seconds.append((host_s, time.perf_counter() - start))
-            avg = {k: v / count for k, v in zip(LOSS_KEYS, host_sums)}
-            for k in LOSS_KEYS:
-                self.all_epoch_losses[k].append(avg[k])
+                _copy()
 
-            if (epoch + 1) % cfg.eval_every_epoch == 0:
-                if evaluator is not None and eval_store is not None and eval_result_dir:
-                    scores = evaluator(self, eval_store, eval_result_dir, epoch + 1, label_dir)
-                    if scores is not None:
-                        self.eval_metrics[epoch + 1] = scores
-                self._save_epoch_ckpt(ckpt_dir, epoch + 1)
-            print(f"Epoch [{epoch+1}/{cfg.epoch}] Average Loss: {avg['total_loss']:.6f} "
-                  f"(host sampling {self.epoch_seconds[-1][0]:.3f} s of "
-                  f"{self.epoch_seconds[-1][1]:.3f} s)")
+        def _save_epoch_ckpt(ep: int, label: str = "Checkpoint") -> None:
+            """Epoch file, latest byte-copy, retention prune. With
+            checkpoint_async the weights and the Adam state are copied to the
+            host now (the next step updates them in place) and the rest runs
+            on the writer."""
+            def _write(state_dict, opt_state) -> None:
+                saved = interop.save_checkpoint(checkpoints.epoch_path(ckpt_dir, ep),
+                                                state_dict, ep, opt_state)
+                latest = checkpoints.copy_checkpoint(saved, checkpoints.latest_path(ckpt_dir))
+                print(f"{label} saved at {latest}")
+                if cfg.checkpoint_keep > 0:
+                    checkpoints.prune_checkpoints(ckpt_dir, cfg.checkpoint_keep)
 
-        # Final-tail checkpoint (PARITY #22): the last epochs are saved even
-        # when the epoch count is not a multiple of eval_every_epoch.
-        if cfg.epoch > start_epoch and cfg.epoch % cfg.eval_every_epoch != 0:
-            self._save_epoch_ckpt(ckpt_dir, cfg.epoch, label="Final checkpoint")
+            if ckpt_writer is None:
+                _write(self.model.state_dict(), self.optimizer)
+            else:
+                ckpt_writer.submit(_write, host_copy(self.model.state_dict()),
+                                   host_copy(self.optimizer.state_dict()))
+
+        def _drain_evals(block: bool) -> None:
+            """Record the finished async evals in epoch order, each followed by
+            its best-copy (its epoch's save is already queued), so that a
+            winner pruned before its copy re-arms the tracker before the next
+            eval is compared, however late the evals finish."""
+            remaining = []
+            for ep, fut in pending_evals:
+                if block or fut.done():
+                    try:
+                        _record_eval(ep, fut.result())
+                    except Exception as e:  # noqa: BLE001
+                        # A failed eval is reported, never raised: it must not
+                        # end training nor mask a training error in finally.
+                        print(f"async eval for epoch {ep} failed: {type(e).__name__}: {e}")
+                    _sync_best()
+                else:
+                    remaining.append((ep, fut))
+            pending_evals[:] = remaining
+
+        # Preemption: on SIGTERM/SIGINT finish the epoch, write a resumable
+        # checkpoint and return. Handlers only in the main thread (the signal
+        # API's rule), restored in finally.
+        self._stop_requested = False
+        prev_handlers = {}
+        if threading.current_thread() is threading.main_thread():
+            def _request_stop(signum, _frame):
+                if self._stop_requested:
+                    # A second signal restores the handlers and stops mid-epoch.
+                    for sig, handler in prev_handlers.items():
+                        signal.signal(sig, handler)
+                    raise KeyboardInterrupt
+                self._stop_requested = True
+                # os.write is async-signal-safe; print() into a buffered
+                # stdout the signal interrupted would raise.
+                os.write(2, f"\nsignal {signum}: will checkpoint and stop after this epoch "
+                            "(repeat to force)\n".encode())
+
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev_handlers[sig] = signal.signal(sig, _request_stop)
+
+        profiler = Profiler(cfg.profile_dir, self.device)
+        try:
+            # Trace the first trained epoch, its eval and checkpoint included.
+            profiler.start()
+            for epoch in range(start_epoch, cfg.epoch):
+                avg, lr = self._train_epoch(epoch, cubes, sampler, num_batches, accum, k_steps)
+                if epoch == start_epoch:
+                    report_hbm_pressure(self.device)
+                if (eval_result_dir and self.observer
+                        and (epoch + 1) % cfg.plot_every_epoch == 0):
+                    self.observer.plot_loss_curve(
+                        self.all_epoch_losses, os.path.join(eval_result_dir, "loss_curves.png"))
+                if (epoch + 1) % cfg.eval_every_epoch == 0:
+                    if eval_pool is not None:
+                        pending_evals.append((epoch + 1, eval_snapshot(epoch + 1)))
+                    elif run_evals:
+                        _record_eval(epoch + 1, evaluator(self, eval_store, eval_result_dir,
+                                                          epoch + 1, label_dir))
+                    _save_epoch_ckpt(epoch + 1)
+                    # After the epoch file is queued: the sync eval's scores
+                    # are in, so the best copy can follow it.
+                    _sync_best()
+                if profiler.active:
+                    print(f"Profiler trace written to {profiler.stop()}")
+                if self.mlflow:
+                    self.mlflow.log_metric("learning_rate", lr, step=epoch)
+                    self.mlflow.log_metrics(avg, step=epoch)
+                print(f"Epoch [{epoch+1}/{cfg.epoch}] Average Loss: {avg['total_loss']:.6f} "
+                      f"(host sampling {self.epoch_seconds[-1][0]:.3f} s of "
+                      f"{self.epoch_seconds[-1][1]:.3f} s)")
+                if eval_pool is not None:
+                    _drain_evals(block=False)
+                if self._stop_requested:
+                    # Queued saves also copy into latest: drain first, so the
+                    # preemption write is the newest.
+                    if ckpt_writer is not None:
+                        ckpt_writer.drain()
+                    interop.save_checkpoint(checkpoints.latest_path(ckpt_dir),
+                                            self.model.state_dict(), epoch + 1, self.optimizer)
+                    print(f"Preemption checkpoint written at epoch {epoch+1}; "
+                          "stopping (resume with resume: true)")
+                    break
+
+            # Final-tail checkpoint (PARITY #22): the last epochs are saved even
+            # when the epoch count is not a multiple of eval_every_epoch.
+            if (not self._stop_requested and cfg.epoch > start_epoch
+                    and cfg.epoch % cfg.eval_every_epoch != 0):
+                _save_epoch_ckpt(cfg.epoch, label="Final checkpoint")
+        finally:
+            for sig, handler in prev_handlers.items():
+                signal.signal(sig, handler)
+            if profiler.active:
+                # A raise in the traced epoch still writes its trace.
+                try:
+                    print(f"Profiler trace written to {profiler.stop()}")
+                except Exception as e:  # noqa: BLE001
+                    print(f"profiler stop failed: {e}")
+            # Evals are drained here, so a training error does not drop them;
+            # a failed eval is reported, never raised.
+            if eval_pool is not None:
+                try:
+                    _drain_evals(block=True)
+                finally:
+                    eval_pool.shutdown(wait=True)
+            # A failed write raises when training succeeded (a lost checkpoint
+            # is worse than a failed run), and is only reported when it would
+            # mask the training error in flight.
+            in_flight = sys.exc_info()[0] is not None
+            eval_saver, self.eval_saver = self.eval_saver, None
+            for name, closer in (("checkpoint write", ckpt_writer), ("eval save", eval_saver)):
+                if closer is None:
+                    continue
+                try:
+                    closer.close()
+                except Exception as e:  # noqa: BLE001
+                    if not in_flight:
+                        raise
+                    print(f"{name} failed during teardown: {type(e).__name__}: {e}")
+            if self.observer is not None:
+                self.observer.drain()
+
+        if self.mlflow:
+            self.mlflow.log_param("model_path",
+                                  os.path.normpath(checkpoints.latest_path(ckpt_dir)))
+
+    def _async_evaluator(self, evaluator: Callable, eval_store: CubeStore,
+                         eval_result_dir: str, label_dir: Optional[str]):
+        """The async eval's worker → (its pool, ``submit(epoch)`` → a future of
+        the scores). ``submit`` runs on the training thread: it clones the
+        state dict there, in the training stream's order, and records an
+        event after the clone."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="async-eval")
+        view = _SnapshotView(self.cfg, build_model(
+            self.cfg, self.channels, self.device,
+            generator=torch.Generator().manual_seed(self.cfg.seed_value)))
+        cuda = self.device.type == "cuda"
+        eval_stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def run(snapshot, ready, epoch):
+            with torch.cuda.stream(eval_stream) if cuda else contextlib.nullcontext():
+                if cuda:
+                    eval_stream.wait_event(ready)
+                view.model.load_state_dict(snapshot)
+                try:
+                    return evaluator(view, eval_store, eval_result_dir, epoch, label_dir)
+                finally:
+                    # Every read of the snapshot (and of the saver's
+                    # tensors) is done before the future completes and the
+                    # snapshot is released to the training stream's pool.
+                    if cuda:
+                        eval_stream.synchronize()
+
+        def submit(epoch: int):
+            snapshot = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(self.device))
+            return pool.submit(run, snapshot, ready, epoch)
+
+        return pool, submit
+
+    def _train_epoch(self, epoch: int, cubes: Optional[torch.Tensor], sampler,
+                     num_batches: int, accum: int, k_steps: int):
+        """One epoch of steps → (the 7 average terms, the epoch's lr), with its
+        one device-to-host sync; appends to ``all_epoch_losses`` and
+        ``epoch_seconds``."""
+        cfg = self.cfg
+        freeze = 0 < self.freeze_decom_epochs and epoch < self.freeze_decom_epochs
+        if self.freeze_decom_epochs > 0:
+            if freeze:
+                print(f"Epoch {epoch+1}: DecompositionNet frozen")
+            elif epoch == self.freeze_decom_epochs:
+                # The reference recreates Adam at unfreeze: moments and counts reset.
+                self.optimizer = make_optimizer(self.model, cfg.start_lr)
+                print(f"Epoch {epoch+1}: DecompositionNet unfrozen")
+        lr = self._lr_for_epoch(epoch)
+        set_lr(self.optimizer, lr)
+        sums: Optional[Dict[str, torch.Tensor]] = None
+        count = 0
+        host_s = 0.0
+        start = time.perf_counter()
+        if cubes is not None:
+            # The epoch's draws, uploaded once; steps index them on the device.
+            t = time.perf_counter()
+            draws = torch.from_numpy(fused_draws(
+                cfg.seed_value, epoch, num_batches, cfg.batch_size, tuple(cubes.shape[1:3]),
+                cfg.patch_size)).to(self.device)
+            host_s += time.perf_counter() - t
+            for chunk_start in range(0, num_batches, k_steps):
+                ids = range(chunk_start, min(chunk_start + k_steps, num_batches))
+                terms = multistep_train_step(self.model, self.optimizer, cubes, draws, ids,
+                                             cfg.batch_size, cfg.patch_size, self.coeffs, freeze)
+                sums = _add_terms(sums, terms)
+                count += len(ids)
+                # log_every_step's cadence: print when the chunk crossed an N boundary.
+                if cfg.log_every_step and ((ids[-1] + 1) // cfg.log_every_step
+                                           > ids[0] // cfg.log_every_step):
+                    print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{ids[-1]+1}/{num_batches}] "
+                          f"Loss: {float(terms['total_loss']) / len(ids):.6f}")
+        else:
+            for batch_id in range(num_batches):
+                t = time.perf_counter()
+                batch = self._upload(sampler.sample_batch(batch_id))
+                host_s += time.perf_counter() - t
+                if accum > 1:
+                    terms = accum_train_step(self.model, self.optimizer, batch, self.coeffs,
+                                             accum, freeze)
+                else:
+                    terms = train_step(self.model, self.optimizer, batch, self.coeffs, freeze)
+                sums = _add_terms(sums, terms)
+                count += 1
+                if cfg.log_every_step and (batch_id + 1) % cfg.log_every_step == 0:
+                    print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{batch_id+1}/{num_batches}] "
+                          f"Loss: {float(terms['total_loss']):.6f}")
+        # The one device-to-host sync of the epoch.
+        host_sums = torch.stack([sums[k] for k in LOSS_KEYS]).cpu().tolist()
+        self.epoch_seconds.append((host_s, time.perf_counter() - start))
+        avg = {k: v / count for k, v in zip(LOSS_KEYS, host_sums)}
+        for k in LOSS_KEYS:
+            self.all_epoch_losses[k].append(avg[k])
+        return avg, lr

@@ -35,7 +35,7 @@ def _imported_roots(path):
 
 def test_sources_exist():
     names = {os.path.relpath(p, ROOT) for p in _port_sources()}
-    assert "chip_smoke.py" in names and "sshslie_torch/runner.py" in names
+    assert {"chip_smoke.py", "sshslie_torch/runner.py", "sshslie_torch/observability.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -46,11 +46,13 @@ def test_no_jax_imports(path):
 
 def test_import_pulls_in_no_jax_and_builds_nothing():
     # Only what the port's import adds counts: an interpreter's startup hooks
-    # may load modules of their own before it.
-    code = ("import sys\nbefore = set(sys.modules)\n"
+    # may load modules of their own before it. matplotlib is blocked: the
+    # card's machine may not have it, and only a plot that renders imports it.
+    code = ("import sys\nbefore = set(sys.modules)\nsys.modules['matplotlib'] = None\n"
             "import sshslie_torch, sshslie_torch.runner, sshslie_torch.evaluate, "
             "sshslie_torch.interop, sshslie_torch.models.enhance, sshslie_torch.ops.conv9, "
-            "sshslie_torch.ops.attention, sshslie_torch.ops.losses, sshslie_torch.train\n"
+            "sshslie_torch.ops.attention, sshslie_torch.ops.losses, sshslie_torch.train, "
+            "sshslie_torch.observability, sshslie_torch.metrics, sshslie_torch.checkpoints\n"
             f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "built = list(sshslie_torch.ops._build._libs)\n"
             "print(bad, built); sys.exit(1 if bad or built else 0)")

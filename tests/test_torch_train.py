@@ -231,7 +231,9 @@ def test_runner_train_and_test_on_cpu(tmp_path, monkeypatch, rng):
     assert all(np.isfinite(v) for v in trainer.eval_metrics[2].values())
     assert os.path.exists(os.path.join(cfg.eval_result_dir, "epoch_2", "t0.mat"))
     # Epoch 2 on the eval cadence, epoch 3 as the final tail; checkpoint_keep 1 pruned epoch 2.
-    assert sorted(os.listdir(cfg.test_model_dir)) == ["model_epoch_3.pth", "model_epoch_latest.pth"]
+    # The run's model summary lies beside them, as in the JAX package.
+    assert sorted(os.listdir(cfg.test_model_dir)) == ["model_epoch_3.pth", "model_epoch_latest.pth",
+                                                      "model_summary.txt"]
     assert np.isfinite(result["scores"]).all()
     assert os.path.exists(os.path.join(cfg.test_result_dir, "t0.mat"))
     params, epoch = load_torch_checkpoint(checkpoints.latest_path(cfg.test_model_dir))
@@ -244,7 +246,7 @@ def test_runner_train_and_test_on_cpu(tmp_path, monkeypatch, rng):
 @pytest.mark.parametrize("key,value", [
     ("fused_window", 2), ("fused_window", "auto"), ("matmul_precision", "tensorfloat32"),
     ("matmul_precision", "bfloat16"), ("mesh_shape", "4"), ("sampler", "native"),
-    ("async_eval", True), ("checkpoint_best", True), ("fused_window", 3),
+    ("fused_window", 3),
 ])
 def test_values_the_port_cannot_honour_raise(tmp_path, monkeypatch, key, value):
     monkeypatch.chdir(tmp_path)
