@@ -47,6 +47,34 @@ TransformerBlock, random weights from a seed; float32 with TF32 off, and
    terms equal an uninterrupted 3-epoch run's bit for bit.
 6. Main path, bfloat16 test phase: as 4 with ``precision: bfloat16``; the
    bfloat16 conv9 and flash entries must have launched, and no float32 one.
+6b. Main path, serving (``serve.build_server_from_config``, real HTTP on
+   127.0.0.1, port 0), on the test phases' 512^2 cubes and checkpoints; the
+   launch counts are set to 0 before each request and read after it, conv9
+   and flash exactly once a request in its dtype. (a) float32,
+   ``serve_pad_multiple: 64``, warmed at 512^2 and 1024^2: a .mat request
+   whose S equals the test phase's within 1e-5 of (max - min); a ragged
+   500x460 request; a 1000x1000 u16 request (bucket 1024^2, flash at S =
+   16384); a u16 body decoded on the card, equal to the host path; bf16, u16
+   (the card's codes, within 1 LSB of a host re-quantization) and
+   ``artifacts=1`` responses; ``/metrics`` with 0 errors; a dimension bomb and
+   a deflate bomb answered 4xx, then a valid request. (e) ``/reload`` to a
+   second seeded checkpoint with ``X-Reload-Token`` (a wrong token 403): S
+   equals that checkpoint's test-phase S within 1e-5 of (max - min). (b)
+   ``serve_max_batch: 4``, ``serve_batch_window_ms: 50``: four concurrent
+   512^2 requests coalesce (fewer launches than requests) and each S equals
+   its single request's within 1e-5 of (max - min). (c) ``precision:
+   bfloat16``: the bfloat16 entries only, at 512^2 and 1024^2. (d)
+   ``serve_quantize`` int8, fp8, int4: the kernels run the dequantized
+   weights; S on the card equals the CPU's with the same quantized weights
+   within 1e-4 on a 64^2 cube; PSNR against the float32 S at 512^2 (int8 at
+   least int4's); then ``quantization_impact`` int4 with output calibration
+   on one 256^2 cube. Times: X-Inference-Seconds (median of 5) and its
+   upload and forward apart; the host round trip of each wire encoding,
+   split by stage (the handler's decode, normalise, fetch and encode timed
+   where it calls them, the client's encode and decode, HTTP and the rest
+   by subtraction); SUSTAIN_CLIENTS closed-loop clients for SUSTAIN_S
+   seconds (u16 in and out) on the float32 service and on the
+   micro-batched one, launches counted: requests/s, p50/p90/max latency.
 7. Main path, bfloat16 training at bench.py's "best" shape: b8 x 128^2 x 64,
    ``precision: bfloat16``, ``fused_pipeline: on``, ``steps_per_dispatch:
    2`` on the sixteen 256^2 cubes (one 2-step chunk an epoch), 2 epochs with
@@ -62,7 +90,8 @@ TransformerBlock, random weights from a seed; float32 with TF32 off, and
    step: 2 recomputed forwards), and ``--phase test --precision bfloat16``
    from the first one's checkpoint.
 8. Kernels against their plain versions on the card, each dtype with its
-   stated tolerance (the bfloat16 conv9, its dgrad and conv9_wgrad also at
+   stated tolerance (float32 conv9 and flash also at the micro-batched
+   serving shapes (4, 512, 512, 64) and (4, 4, 4096, 16); the bfloat16 conv9, its dgrad and conv9_wgrad also at
    (1, 37, 53, 64) for k = 3, 9 and 13; the bfloat16 flash kernel also
    against the Pallas kernel's float32 p, at S = 4096 and 16384);
    ShallowConv's and FlashAttention's gradients against autograd through
@@ -81,19 +110,23 @@ TransformerBlock, random weights from a seed; float32 with TF32 off, and
    time and host dispatch apart, the real loop's host clock on the host
    sampler and on the fused pipeline; each kernel at the main paths' shapes
    in both dtypes (flash attention also at (1, 4, 16384, 16), the S of a
-   1024^2 cube, in both dtypes), its plain version and one library call (cuDNN
+   1024^2 cube, in both dtypes; conv9 and flash at the micro-batched serving
+   shapes), its plain version and one library call (cuDNN
    ``F.conv2d``, ``conv2d_input``, ``conv2d_weight``,
    ``F.scaled_dot_product_attention``, bfloat16 ones for the bfloat16 rows)
    as a yardstick only; the port never calls those.
 
 Prints one JSON line of kernels, then the card's name and power limit, and
-last ``{"ok": true, "device": {...}}``. Any failure exits non-zero before
+last ``{"ok": true, "device": {...}}``. A row's "launches" are the launches
+the wrappers counted at its (pass, dtype, shape) over the main paths' reads
+(4, 5, 5b, 6, 6b, 7); a row with none fails the run. Any failure exits non-zero before
 the last line. Needs one CUDA card, nvcc and the repository's files.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import io
 import json
 import math
 import os
@@ -109,6 +142,7 @@ SIZE, BANDS = 512, 64
 N_TRAIN = 4
 N_TRAIN_BF16, SIZE_BF16 = 16, 256        # the bfloat16 run's training cubes
 GLOBAL_MIN, GLOBAL_MAX = 238.0, 4095.0   # config/config.yml
+SUSTAIN_CLIENTS, SUSTAIN_S = 4, 15.0     # serving's closed-loop load, on each of two services
 PEAK_F32_FLOPS = 67e12                   # H100 SXM, float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12                 # H100 SXM, dense bfloat16 on the tensor cores
 PEAK_EXP = 16 * 132 * 1.98e9             # H100 SXM: exponentials, 16 a clock per SM (SFU)
@@ -233,6 +267,21 @@ def read_counts(conv9, attention) -> dict:
 def zero_counts(conv9, attention) -> None:
     conv9.reset_counts()
     attention.reset_counts()
+
+
+# Main-path launches by (kernel, pass, dtype, shape), as the wrappers count
+# them (``launches_by_shape``), summed over every main path's read: each row
+# of the kernels line takes its "launches" from here.
+MAIN_SHAPES: dict = {}
+
+
+def tally_shapes(conv9, attention) -> None:
+    """Add the launches counted since the last zero_counts to MAIN_SHAPES."""
+    for name, wrapper in (("conv9", conv9.conv9_fwd), ("conv9_wgrad", conv9.conv9_wgrad),
+                          ("flash_attention", attention.flash_attention)):
+        for (role, dt, shape), n in wrapper.launches_by_shape.items():
+            key = (name, role, str(dt).replace("torch.", ""), shape)
+            MAIN_SHAPES[key] = MAIN_SHAPES.get(key, 0) + n
 
 
 def check_launches(what: str, counts: dict, dtype: str, want: dict) -> None:
@@ -382,6 +431,7 @@ def run_engine(train_kw: dict, common: dict) -> dict:
         result = runner.main(ecfg)
         torch.cuda.synchronize()
         counts = read_counts(conv9, attention)
+        tally_shapes(conv9, attention)
     finally:
         evaluate.evaluate_model = sync_evaluate
     trainer = result["trainer"]
@@ -567,6 +617,545 @@ def run_engine(train_kw: dict, common: dict) -> dict:
     return counts
 
 
+def _http(srv, method: str, path: str, body: bytes = None, headers: dict = None) -> tuple:
+    """One request to a running server → (status, response headers, body)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(srv.host, srv.port, timeout=300)
+    try:
+        conn.request(method, path, body=body, headers=dict(headers or {}))
+        resp = conn.getresponse()
+        return resp.status, resp.headers, resp.read()
+    finally:
+        conn.close()
+
+
+def _median(xs) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def run_serving(cfg, bcfg, test_kw: dict, card: str) -> dict:
+    """Main path 6b: the serving path (``serve.build_server_from_config``, its
+    HTTP server on 127.0.0.1, port 0) on the float32 test phase's cubes and
+    checkpoint. Launch counts are set to 0 before each request and read after
+    it. Returns the serving launches by kernel and dtype, plus the launches at
+    the shapes only serving gives the kernels."""
+    import concurrent.futures as cf
+    import threading
+    import zlib
+
+    import numpy as np
+    import scipy.io as sio
+    import torch
+
+    from sshslie_torch import checkpoints, interop, metrics, runner, serve
+    from sshslie_torch.config import load_config
+    from sshslie_torch.models.enhance import LowLightEnhanceNet, build_model
+    from sshslie_torch.ops import attention, conv9, quant
+    from sshslie_torch.utils.io_hsi import load_hsi, normalize_like_load
+
+    t0 = time.perf_counter()
+    span = GLOBAL_MAX - GLOBAL_MIN
+    tol = 1e-5 * span                       # 1e-5 on the normalised scale
+    token = "chip-smoke-reload-token"
+    serve_kw = dict(test_kw, phase="serve", serve_port=0, serve_pad_multiple=64,
+                    use_mlflow=False)
+    total = {k: {"float32": 0, "bfloat16": 0} for k in ("conv9", "conv9_wgrad", "flash_attention")}
+
+    def counted(what, dtype, fn, want=1):
+        """fn() with the launch counts set to 0 before and read after; conv9
+        and flash exactly ``want`` times in ``dtype``, nothing else."""
+        zero_counts(conv9, attention)
+        out = fn()
+        torch.cuda.synchronize()
+        counts = read_counts(conv9, attention)
+        tally_shapes(conv9, attention)
+        check_launches(what, counts, dtype, {"conv9": (want, want), "flash_attention": (want, want),
+                                             "conv9_wgrad": (0, 0)})
+        for k, by in counts.items():
+            for dt, n in by.items():
+                total[k][dt] += n
+        return out
+
+    def enhance(srv, body, headers=None, query="", ok=True):
+        status, rh, data = _http(srv, "POST", "/enhance" + query, body, headers)
+        if ok and status != 200:
+            raise AssertionError(f"POST /enhance{query}: HTTP {status}: {data[:300]!r}")
+        return status, rh, data
+
+    def f32_body(cube):
+        return serve.encode_cube(cube, "f32")
+
+    def s_of(rh, data):
+        return serve.decode_cube_response(data, rh, mat_key="data")
+
+    def sustained(what, srv, body, headers, query, batch_sizes=None):
+        """Closed-loop load over real HTTP: SUSTAIN_CLIENTS threads, started
+        before the timed span, post ``body`` back to back until SUSTAIN_S
+        seconds have passed; every request started before then completes.
+        Launch counts are set to 0 before and read after: conv9 and flash
+        once a forward (a request, or a batch when ``batch_sizes`` records
+        the batcher's runs). Returns (requests, span s, sorted latencies s)."""
+        lat, errors = [], []
+        gate = threading.Barrier(SUSTAIN_CLIENTS + 1)
+        stop = [0.0]
+
+        def client():
+            gate.wait()
+            try:
+                while time.perf_counter() < stop[0]:
+                    t = time.perf_counter()
+                    status, _, data = _http(srv, "POST", "/enhance" + query, body, headers)
+                    if status != 200:
+                        raise AssertionError(f"{what}: HTTP {status}: {data[:300]!r}")
+                    lat.append((t, time.perf_counter()))
+            except BaseException as e:  # noqa: BLE001 — raised below, on the main thread
+                errors.append(e)
+
+        threads = [threading.Thread(target=client, daemon=True) for _ in range(SUSTAIN_CLIENTS)]
+        for th in threads:
+            th.start()
+        before = len(batch_sizes) if batch_sizes is not None else 0
+        zero_counts(conv9, attention)
+        start = time.perf_counter()
+        stop[0] = start + SUSTAIN_S
+        gate.wait()
+        for th in threads:
+            th.join(timeout=SUSTAIN_S + 300)
+        torch.cuda.synchronize()
+        counts = read_counts(conv9, attention)
+        tally_shapes(conv9, attention)
+        if errors or any(th.is_alive() for th in threads):
+            raise AssertionError(f"{what}: client errors {errors[:3]}")
+        runs = len(lat) if batch_sizes is None else len(batch_sizes) - before
+        check_launches(what, counts, "float32", {"conv9": (runs, runs),
+                                                 "flash_attention": (runs, runs),
+                                                 "conv9_wgrad": (0, 0)})
+        for k, by in counts.items():
+            for dt, n in by.items():
+                total[k][dt] += n
+        span = max(end for _, end in lat) - start
+        return len(lat), span, sorted(end - t for t, end in lat)
+
+    def load_line(what, n, span, lats, extra=""):
+        pct = lambda p: lats[min(len(lats) - 1, int(p * len(lats)))]  # noqa: E731
+        log(f"serving times ({card}): {what}, {SUSTAIN_CLIENTS} closed-loop clients for "
+            f"{SUSTAIN_S} s: {n} requests in {span!r} s, {n / span!r} requests/s; latency "
+            f"p50 {pct(0.5)!r} s, p90 {pct(0.9)!r} s, max {lats[-1]!r} s{extra}")
+
+    def metric(srv, name):
+        _, _, text = _http(srv, "GET", "/metrics")
+        return float([l for l in text.decode().splitlines() if l.startswith(name + " ")][0].split()[-1])
+
+    cubes = [np.ascontiguousarray(sio.loadmat(os.path.join(cfg.test_data, f"cube{i}.mat"))["data"],
+                                  dtype=np.float32) for i in range(2)]
+    s_test = load_hsi(os.path.join(cfg.test_result_dir, "cube0.mat"), mat_key=cfg.mat_key_prediction)
+    # A 1000^2 cube (bucket 1024^2) and a ragged 500x460 one (bucket 512^2).
+    n_big = 2 * SIZE - 24
+    big = np.ascontiguousarray(np.pad(cubes[0], ((0, n_big - SIZE),) * 2 + ((0, 0),),
+                                      mode="reflect"))
+    ragged_hw = (SIZE - 12, SIZE - 52)
+
+    # ---- (a) float32, one request at a time ----
+    t = time.perf_counter()
+    acfg = load_config(None, {**serve_kw, "model_name": cfg.model_name,
+                              "serve_warmup": f"{SIZE}x{SIZE},{2 * SIZE}x{2 * SIZE}",
+                              "serve_reload_token": token})
+    srv = serve.build_server_from_config(acfg).start()
+    svc = srv.service
+    n_direct = 0
+    try:
+        log(f"serving (a): float32 service built and warmed (512^2, 1024^2) in "
+            f"{time.perf_counter() - t:.2f} s")
+        _, _, health = _http(srv, "GET", "/health")
+        health = json.loads(health)
+        if health["backend"] != "cuda" or health["channels"] != BANDS:
+            raise AssertionError(f"/health: {health}")
+        log(f"serving /health: {health}")
+        with open(os.path.join(cfg.test_data, "cube0.mat"), "rb") as fh:
+            mat_body = fh.read()
+        rh, data = counted("serve float32 512^2 .mat", "float32",
+                           lambda: enhance(srv, mat_body)[1:])
+        s1 = sio.loadmat(io.BytesIO(data))["data"]
+        check_close("serving S 512^2 (.mat) vs the test phase's S, raw scale", torch.from_numpy(s1),
+                    torch.from_numpy(s_test), tol)
+        log(f"  X-Inference-Seconds {rh['X-Inference-Seconds']}")
+        blob, hd = f32_body(cubes[0][:ragged_hw[0], :ragged_hw[1]])
+        rh, data = counted("serve float32 500x460 (bucket 512^2)", "float32",
+                           lambda: enhance(srv, blob, hd, "?encoding=f32")[1:])
+        ragged = s_of(rh, data)
+        if ragged.shape != ragged_hw + (BANDS,) or not np.isfinite(ragged).all():
+            raise AssertionError(f"ragged request: S {ragged.shape}")
+        blob, hd = serve.encode_cube(big, "u16")
+        rh, data = counted("serve float32 1000^2 u16 body (bucket 1024^2, flash at S = 16384)",
+                           "float32", lambda: enhance(srv, blob, hd, "?encoding=u16")[1:])
+        sbig = s_of(rh, data)
+        if sbig.shape != (n_big, n_big, BANDS) or not np.isfinite(sbig).all():
+            raise AssertionError(f"1000^2 request: S {sbig.shape}")
+        # The u16 body takes the device-decode path (one call of the service's
+        # u16 decode function), and gives the same S as the host path on the
+        # same payload.
+        decodes = []
+        encoded_fn = svc._encoded_fn
+
+        def counting_encoded_fn(encoding):
+            fn = encoded_fn(encoding)
+
+            def decode(*args):
+                decodes.append(encoding)
+                return fn(*args)
+            return decode
+
+        svc._encoded_fn = counting_encoded_fn
+        try:
+            blob, hd = serve.encode_cube(cubes[0], "u16")
+            rh, data = counted("serve float32 512^2 u16 body", "float32",
+                               lambda: enhance(srv, blob, hd, "?encoding=f32")[1:])
+        finally:
+            del svc._encoded_fn
+        if decodes != ["u16"]:
+            raise AssertionError(f"the u16 request body took the device decode {decodes} times, "
+                                 f"expected once")
+        host = counted("serve float32 512^2 host decode", "float32",
+                       lambda: svc.enhance(serve.decode_cube_response(blob, hd))["S"])
+        n_direct += 1
+        check_close("serving S, u16 body decoded on the card vs on the host", torch.from_numpy(
+            s_of(rh, data)), torch.from_numpy(host), tol)
+        # Responses: bf16, u16 (the card's codes), artifacts.
+        blob, hd = f32_body(cubes[0])
+        rh, data = counted("serve float32 512^2 bf16 response", "float32",
+                           lambda: enhance(srv, blob, hd, "?encoding=bf16")[1:])
+        # Rounded twice (S on the card, then the denormalised S on the wire),
+        # half a bfloat16 step each.
+        check_rel("serving bf16 response vs the f32 S", torch.from_numpy(s_of(rh, data)),
+                  torch.from_numpy(s1), BF16_STEP)
+        rh, data = counted("serve float32 512^2 u16 response", "float32",
+                           lambda: enhance(srv, blob, hd, "?encoding=u16")[1:])
+        codes = np.frombuffer(data, "<u2").reshape(s1.shape).astype(np.int64)
+        lo, hi = float(s1.min()), float(s1.max())
+        host_codes = np.round((s1.astype(np.float64) - lo) / ((hi - lo) / 65535.0))
+        lsb = int(np.abs(codes - host_codes).max())
+        log(f"serving u16 response: codes vs a host re-quantization of the f32 S, max |d| = {lsb} "
+            f"LSB (tolerance 1)")
+        if lsb > 1:
+            raise AssertionError(f"u16 passthrough off by {lsb} LSB")
+        check_close("serving u16 response decoded vs the f32 S", torch.from_numpy(s_of(rh, data)),
+                    torch.from_numpy(s1), (hi - lo) / 65000.0)
+        rh, data = counted("serve float32 512^2 artifacts=1", "float32",
+                           lambda: enhance(srv, blob, hd, "?artifacts=1")[1:])
+        arts = sio.loadmat(io.BytesIO(data))
+        if {k: arts[k].shape for k in ("R_low", "I_low", "I_delta")} != {
+                "R_low": (SIZE, SIZE, BANDS), "I_low": (SIZE, SIZE, 1), "I_delta": (SIZE, SIZE, 1)}:
+            raise AssertionError(f"artifacts: {[(k, v.shape) for k, v in arts.items()]}")
+        check_close("serving artifacts=1 S vs the f32 S", torch.from_numpy(arts["data"]),
+                    torch.from_numpy(s1), tol)
+        n_http = 7
+        requests, errors = metric(srv, "sshslie_requests_total"), metric(srv, "sshslie_request_errors_total")
+        log(f"serving /metrics: requests {requests}, errors {errors}")
+        if requests != n_http + n_direct or errors != 0:
+            raise AssertionError(f"/metrics: requests {requests} (want {n_http + n_direct}), errors {errors}")
+        # Two hostile requests, then a valid one.
+        status, _, data = enhance(srv, b"\x00" * 64, {"X-Cube-Encoding": "f32",
+                                                      "X-Cube-Shape": "100000x100000x224"}, ok=False)
+        status2, _, data2 = enhance(srv, zlib.compress(b"\x00" * (16 << 20), 9), {
+            "X-Cube-Encoding": "f32", "X-Cube-Shape": f"8x8x{BANDS}", "Content-Encoding": "deflate"},
+            ok=False)
+        log(f"serving hostile requests: dimension bomb HTTP {status} {data[:90]!r}; deflate bomb "
+            f"HTTP {status2} {data2[:90]!r}")
+        if not (400 <= status < 500 and 400 <= status2 < 500):
+            raise AssertionError(f"hostile requests got HTTP {status}, {status2}")
+        blob, hd = f32_body(cubes[1][:64, :64])
+        enhance(srv, blob, hd, "?encoding=f32")
+        if metric(srv, "sshslie_request_errors_total") != 2:
+            raise AssertionError("/metrics does not count the two hostile requests")
+
+        log(f"serving (a): requests and checks {time.perf_counter() - t0:.2f} s into path 6b")
+        # Singles for (b), on this service's weights.
+        mb_inputs = [cubes[0], cubes[1], np.ascontiguousarray(cubes[0][::-1]),
+                     np.ascontiguousarray(cubes[1][:, ::-1])]
+        singles = [svc.enhance(c)["S"] for c in mb_inputs]
+
+        # Times: X-Inference-Seconds (the service's seconds), median of 5.
+        def seconds(fn, n=5):
+            fn()
+            return [fn()["seconds"] for _ in range(n)]
+
+        t512 = seconds(lambda: svc.enhance(cubes[0], wire="u16_wire"))
+        t1024 = seconds(lambda: svc.enhance(big, wire="u16_wire"))
+
+        def in_new_thread(fn):
+            out = []
+            th = threading.Thread(target=lambda: out.append(fn()))
+            th.start()
+            th.join()
+            return out[0]
+
+        # As the HTTP server runs a request: on a thread of its own.
+        t512_thread = seconds(lambda: in_new_thread(lambda: svc.enhance(cubes[0], wire="u16_wire")))
+        # X-Inference-Seconds split: the upload of the normalised 512^2 cube
+        # (pageable host memory) and the forward on it once resident, each
+        # ending in a synchronize, median of 5.
+        x_host = normalize_like_load(cubes[0].copy(), cfg.normalization, GLOBAL_MAX, GLOBAL_MIN)
+
+        def upload():
+            t = time.perf_counter()
+            x_dev = torch.from_numpy(x_host).to(svc.device)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t, x_dev
+
+        x_dev = upload()[1]
+
+        def forward():
+            t = time.perf_counter()
+            with svc._device_lock:
+                svc._infer(svc.params, x_dev)
+                torch.cuda.synchronize()
+            return time.perf_counter() - t
+
+        t_upload = [upload()[0] for _ in range(5)]
+        forward()
+        t_forward = [forward() for _ in range(5)]
+        # Host round trip of one 512^2 request per wire encoding (request and
+        # response in one encoding), median of 3, split by stage: the server's
+        # decode, normalisation (host-decoded bodies), upload + forward +
+        # synchronize (X-Inference-Seconds), fetch (S off the card,
+        # denormalised) and encode, timed where the handler calls them; the
+        # client's encode and decode; HTTP and the rest by subtraction.
+        stage = {}
+        originals = (serve.decode_cube_response, serve.encode_cube, serve.encode_cube_prequantized,
+                     serve.io_hsi.normalize_like_load)
+        decode0, encode0 = originals[:2]
+
+        def timed(name, fn):
+            def wrapper(*args, **kwargs):
+                t = time.perf_counter()
+                try:
+                    return fn(*args, **kwargs)
+                finally:
+                    stage[name] = stage.get(name, 0.0) + time.perf_counter() - t
+            return wrapper
+
+        (serve.decode_cube_response, serve.encode_cube, serve.encode_cube_prequantized,
+         serve.io_hsi.normalize_like_load) = (
+            timed("server decode", originals[0]), timed("server encode", originals[1]),
+            timed("server encode", originals[2]), timed("server normalise", originals[3]))
+        svc._finalize = timed("server fetch", svc._finalize)
+        trips, splits = {}, {}
+        try:
+            for enc in ("mat", "f32", "bf16", "u16"):
+                ts, parts = [], []
+                for _ in range(3):
+                    stage.clear()
+                    t = time.perf_counter()
+                    blob, hd = encode0(cubes[0], enc)
+                    t_sent = time.perf_counter()
+                    rh, data = enhance(srv, blob, hd, f"?encoding={enc}")[1:]
+                    t_back = time.perf_counter()
+                    decode0(data, rh, mat_key="data")
+                    t_end = time.perf_counter()
+                    part = {"client encode": t_sent - t, **stage,
+                            "server upload+forward": float(rh["X-Inference-Seconds"]),
+                            "client decode": t_end - t_back}
+                    part["HTTP and the rest"] = (t_end - t) - sum(part.values())
+                    ts.append(t_end - t)
+                    parts.append(part)
+                trips[enc] = ts
+                split = {k: _median([p.get(k, 0.0) for p in parts]) for k in parts[-1]}
+                splits[enc] = dict(sorted(split.items(), key=lambda kv: -kv[1]))
+        finally:
+            (serve.decode_cube_response, serve.encode_cube, serve.encode_cube_prequantized,
+             serve.io_hsi.normalize_like_load) = originals
+            del svc._finalize
+        # Sustained load on this one-at-a-time service: u16 bodies (decoded on
+        # the card) and u16 responses (the card's codes).
+        u16_body = serve.encode_cube(cubes[0], "u16")
+        load_single = sustained("serve float32 512^2, one at a time, sustained", srv,
+                                *u16_body, "?encoding=u16")
+
+        log(f"serving (a): times taken, {time.perf_counter() - t0:.2f} s into path 6b")
+        # ---- (e) /reload to a second seeded checkpoint ----
+        rcfg = load_config(None, dict(test_kw, model_name="chip_smoke_reload", precision="float32"))
+        os.makedirs(rcfg.test_model_dir)
+        rpath = interop.save_checkpoint(
+            checkpoints.latest_path(rcfg.test_model_dir),
+            LowLightEnhanceNet(BANDS, generator=torch.Generator().manual_seed(SEED + 1)).state_dict(),
+            epoch=7)
+        runner.main(rcfg)
+        s_reload_test = load_hsi(os.path.join(rcfg.test_result_dir, "cube0.mat"),
+                                 mat_key=rcfg.mat_key_prediction)
+        status, _, data = _http(srv, "POST", f"/reload?checkpoint={os.path.abspath(rpath)}",
+                                headers={"X-Reload-Token": "wrong"})
+        if status != 403:
+            raise AssertionError(f"/reload with a wrong token: HTTP {status}")
+        status, _, data = _http(srv, "POST", f"/reload?checkpoint={os.path.abspath(rpath)}",
+                                headers={"X-Reload-Token": token})
+        info = json.loads(data)
+        if status != 200 or info["epoch"] != 7:
+            raise AssertionError(f"/reload: HTTP {status} {info}")
+        blob, hd = f32_body(cubes[0])
+        rh, data = counted("serve float32 512^2 after /reload", "float32",
+                           lambda: enhance(srv, blob, hd, "?encoding=f32")[1:])
+        s_r = s_of(rh, data)
+        moved = float(np.abs(s_r - s1).max())
+        log(f"serving /reload: {info}; S moved by max|d| {moved:.3f} (raw scale)")
+        if not moved > 100 * tol:
+            raise AssertionError("S did not change after /reload")
+        check_close("serving S after /reload vs the new weights' test-phase S, raw scale",
+                    torch.from_numpy(s_r), torch.from_numpy(s_reload_test), tol)
+    finally:
+        srv.shutdown()
+
+    log(f"serving (e): reload done, {time.perf_counter() - t0:.2f} s into path 6b")
+    # ---- (b) micro-batching ----
+    t = time.perf_counter()
+    mcfg = load_config(None, {**serve_kw, "model_name": cfg.model_name, "serve_warmup": f"{SIZE}x{SIZE}",
+                              "serve_max_batch": 4, "serve_batch_window_ms": 50})
+    srv = serve.build_server_from_config(mcfg).start()
+    msvc = srv.service
+    sizes = []
+    run_batch = msvc.batcher._run_batch
+
+    def recording(xs):
+        sizes.append(len(xs))
+        return run_batch(xs)
+
+    msvc.batcher._run_batch = recording
+    bodies = [f32_body(c) for c in mb_inputs]
+    try:
+        log(f"serving (b): micro-batched service built and warmed (B = 1, 2, 4 at 512^2) in "
+            f"{time.perf_counter() - t:.2f} s")
+        def concurrent_round(n, what):
+            """``n`` requests released together; launches counted around them,
+            one conv9 and one flash a batch; each S = its single request's."""
+            before = len(sizes)
+            gate = threading.Barrier(n)
+
+            def one(i):
+                gate.wait()
+                return enhance(srv, bodies[i][0], bodies[i][1], "?encoding=f32")[1:]
+
+            zero_counts(conv9, attention)
+            with cf.ThreadPoolExecutor(n) as pool:
+                outs = list(pool.map(one, range(n)))
+            torch.cuda.synchronize()
+            counts = read_counts(conv9, attention)
+            tally_shapes(conv9, attention)
+            batch = sizes[before:]
+            log(f"serving (b) {what}: batches {batch}, launches {counts}")
+            runs = len(batch)
+            check_launches("serve micro-batched round", counts, "float32", {
+                "conv9": (runs, runs), "flash_attention": (runs, runs), "conv9_wgrad": (0, 0)})
+            for k, by in counts.items():
+                total[k]["float32"] += by["float32"]
+            for i, (rh, data) in enumerate(outs):
+                check_close(f"micro-batched S {i} vs the single request's, raw scale",
+                            torch.from_numpy(s_of(rh, data)), torch.from_numpy(singles[i]), tol)
+            return batch
+
+        for attempt in range(3):
+            if max(concurrent_round(4, f"round {attempt + 1} of 4 requests")) >= 2:
+                break
+        stats = msvc.stats()
+        log(f"serving (b): stats {stats}")
+        if stats["max_batch_seen"] < 2:
+            raise AssertionError(f"no micro-batch coalesced in 3 rounds: batches {sizes}")
+        concurrent_round(2, "a round of 2 requests")
+        before = len(sizes)
+        load_batched = sustained("serve float32 512^2, micro-batched, sustained", srv,
+                                 *u16_body, "?encoding=u16", batch_sizes=sizes)
+        window = sizes[before:]
+        load_batches = {b: window.count(b) for b in sorted(set(window))}
+    finally:
+        srv.shutdown()
+
+    log(f"serving (b): done, {time.perf_counter() - t0:.2f} s into path 6b")
+    # ---- (c) bfloat16 ----
+    ccfg = load_config(None, {**serve_kw, "model_name": bcfg.model_name, "precision": "bfloat16",
+                              "serve_warmup": f"{SIZE}x{SIZE}"})
+    srv = serve.build_server_from_config(ccfg).start()
+    try:
+        blob, hd = f32_body(cubes[0])
+        rh, data = counted("serve bfloat16 512^2", "bfloat16",
+                           lambda: enhance(srv, blob, hd, "?encoding=f32")[1:])
+        sb = s_of(rh, data)
+        if sb.shape != s1.shape or not np.isfinite(sb).all():
+            raise AssertionError(f"bf16 S {sb.shape}")
+        log(f"serving bf16 S vs the f32 S: max|d| {float(np.abs(sb - s1).max()) / span:.3e}, "
+            f"mean|d| {float(np.abs(sb - s1).mean()) / span:.3e} (normalised scale)")
+        blob, hd = serve.encode_cube(big, "u16")
+        counted("serve bfloat16 1000^2 (flash at S = 16384)", "bfloat16",
+                lambda: enhance(srv, blob, hd, "?encoding=u16"))
+        t512_bf16 = seconds(lambda: srv.service.enhance(cubes[0], wire="u16_wire"))
+    finally:
+        srv.shutdown()
+
+    log(f"serving (c): done, {time.perf_counter() - t0:.2f} s into path 6b")
+    # ---- (d) quantized serving ----
+    x_small = normalize_like_load(cubes[0][:64, :64].copy(), cfg.normalization, GLOBAL_MAX, GLOBAL_MIN)
+    psnr = {}
+    t512_int8 = None
+    for fmt in ("int8", "fp8", "int4"):
+        qcfg = load_config(None, {**serve_kw, "model_name": cfg.model_name, "serve_quantize": fmt,
+                                  "serve_warmup": f"{SIZE}x{SIZE}"})
+        srv = serve.build_server_from_config(qcfg).start()
+        qsvc = srv.service
+        try:
+            blob, hd = f32_body(cubes[0])
+            rh, data = counted(f"serve {fmt} 512^2", "float32",
+                               lambda: enhance(srv, blob, hd, "?encoding=f32")[1:])
+            sq = s_of(rh, data)
+            psnr[fmt] = float(metrics.psnr(torch.from_numpy((sq - GLOBAL_MIN) / span),
+                                           torch.from_numpy((s1 - GLOBAL_MIN) / span), 1.0))
+            if not math.isfinite(psnr[fmt]):
+                raise AssertionError(f"{fmt}: PSNR {psnr[fmt]}")
+            on_card = qsvc._infer(qsvc.params, x_small)[3].cpu()
+            on_cpu = quant.QuantizedInferencer(qsvc.model, quant.to_device(qsvc.params, "cpu"),
+                                               device=torch.device("cpu"))(None, x_small)[3]
+            check_close(f"{fmt} quantized S 64^2, card vs CPU with the same quantized weights",
+                        on_card, on_cpu, 1e-4)
+            if fmt == "int8":
+                t512_int8 = seconds(lambda: qsvc.enhance(cubes[0], wire="u16_wire"))
+        finally:
+            srv.shutdown()
+    log(f"serving quantized S vs the float32 S at 512^2, PSNR (data range 1): {psnr}")
+    if not psnr["int8"] >= psnr["int4"]:
+        raise AssertionError(f"int8 PSNR below int4's: {psnr}")
+    t = time.perf_counter()
+    model = build_model(cfg, BANDS)
+    interop.load_checkpoint(checkpoints.latest_path(cfg.test_model_dir), model)
+    x512 = normalize_like_load(cubes[0].copy(), cfg.normalization, GLOBAL_MAX, GLOBAL_MIN)
+    x256 = normalize_like_load(np.ascontiguousarray(cubes[1][:SIZE // 2, :SIZE // 2]),
+                               cfg.normalization,
+                               GLOBAL_MAX, GLOBAL_MIN)
+    impact = quant.quantization_impact(model, [x512], "int4", calib_cubes=[x256])
+    log(f"quantization_impact int4 (output calibration on one 256^2 cube, scored at 512^2): "
+        f"{impact} in {time.perf_counter() - t:.2f} s")
+    if impact["calibration"] != "output" or not math.isfinite(impact["psnr_vs_fp32_avg"]):
+        raise AssertionError(f"quantization_impact: {impact}")
+
+    log(f"serving times ({card}): X-Inference-Seconds, median of 5: 512^2 float32 "
+        f"{_median(t512)!r} s (runs {t512}), 512^2 bfloat16 {_median(t512_bf16)!r} s (runs "
+        f"{t512_bf16}), 512^2 int8 {_median(t512_int8)!r} s (runs {t512_int8}), 1024^2 float32 "
+        f"(1000^2 request) {_median(t1024)!r} s (runs {t1024})")
+    log(f"serving times ({card}): 512^2 float32 X-Inference-Seconds with each request on a new "
+        f"thread (as the HTTP server runs them), median of 5: {_median(t512_thread)!r} s (runs "
+        f"{t512_thread})")
+    log(f"serving times ({card}): 512^2 float32 X-Inference-Seconds split, median of 5: upload "
+        f"of the normalised cube (67 MB, pageable) {_median(t_upload)!r} s (runs {t_upload}), "
+        f"forward on the resident cube {_median(t_forward)!r} s (runs {t_forward})")
+    log(f"serving times ({card}): host round trip at 512^2 (encode, POST, response, decode; "
+        f"request and response in one encoding), median of 3: "
+        + ", ".join(f"{k} {_median(v)!r} s" for k, v in trips.items()) + f" (runs {trips})")
+    for enc, split in splits.items():
+        log(f"serving times ({card}): {enc} round trip by stage, median of 3, largest first: "
+            + ", ".join(f"{k} {v!r} s" for k, v in split.items()))
+    load_line("512^2 float32 one at a time, u16 in and out", *load_single)
+    load_line("512^2 float32 micro-batched (max 4, window 50 ms), u16 in and out", *load_batched,
+              extra=f"; batches by size {load_batches}")
+    log(f"main path 6b (serving): {time.perf_counter() - t0:.2f} s; launches {total}")
+    return {"counts": total}
+
+
 def main() -> int:
     import torch
 
@@ -626,6 +1215,7 @@ def main() -> int:
             result = runner.main(c)
             torch.cuda.synchronize()
             counts = read_counts(conv9, attention)
+            tally_shapes(conv9, attention)
             log(f"main path ({what}): {time.perf_counter() - t:.2f} s; launches {counts}; "
                 f"per-cube seconds {result['seconds']}")
             scores = result["scores"]
@@ -645,6 +1235,7 @@ def main() -> int:
             tresult = runner.main(tcfg)
             torch.cuda.synchronize()
             counts = read_counts(conv9, attention)
+            tally_shapes(conv9, attention)
             trainer = tresult["trainer"]
             log(f"main path ({what}): {time.perf_counter() - t:.2f} s; {steps} steps on the "
                 f"{trainer.pipeline} pipeline; launches {counts}; epoch (host s, wall s) "
@@ -672,6 +1263,9 @@ def main() -> int:
 
         # ---- main path 3: the bfloat16 test phase ----
         btest_counts = run_test_phase("bfloat16 test", bcfg, "bfloat16")
+
+        # ---- main path 6b: serving, on the test phases' cubes and checkpoints ----
+        served = run_serving(cfg, bcfg, test_kw, card)
 
         # ---- main path 4: bfloat16 training at b8 on the fused pipeline, 2 steps a dispatch ----
         bt = load_config(None, {**train_kw, "train_data": "./data/low/train256",
@@ -721,11 +1315,6 @@ def main() -> int:
             "--test_timestamp", accum["trainer"].cfg.timestamp],
             "bfloat16", {"conv9": (2, 2), "conv9_wgrad": (0, 0), "flash_attention": (2, 2)})
 
-        def main_path_launches(name, dtype):
-            runs = ((test_counts, train_counts, engine_counts) if dtype == "float32"
-                    else (btest_counts, btrain_counts))
-            return sum(r[name][dtype] for r in runs)
-
         # ---- kernels against their plain versions on the card ----
         cube = load_hsi(os.path.join(cfg.test_data, "cube0.mat"), mat_key=cfg.mat_key,
                         normalization=cfg.normalization, max_val=GLOBAL_MAX, min_val=GLOBAL_MIN)
@@ -766,6 +1355,28 @@ def main() -> int:
             # exp2 with a folded scale against exp, sums in another order: 1e-5 absolute.
             err = check_close(what, attention.flash_attention(q, k, v), attention.sdpa_chunked(q, k, v), 1e-5)
             errs[key] = max(err, errs.get(key, 0.0))
+        # The micro-batched serving shapes: four 512^2 test cubes (flipped), and
+        # attention over them (its own generator, so the draws below stay).
+        g4 = torch.Generator().manual_seed(SEED + 8)
+        cube1 = load_hsi(os.path.join(cfg.test_data, "cube1.mat"), mat_key=cfg.mat_key,
+                         normalization=cfg.normalization, max_val=GLOBAL_MAX, min_val=GLOBAL_MIN)
+        x4 = torch.from_numpy(np.ascontiguousarray(
+            np.stack([cube, cube1, cube[::-1], cube1[:, ::-1]]))).to(dev)
+        qkv4 = [torch.randn(4, 4, 4096, 16, generator=g4).to(dev) for _ in range(3)]
+        errs["conv9_b4"] = check_rel("conv9 (4, 512, 512, 64) k9", conv9.conv9_fwd(x4, w9),
+                                     conv9.conv9_plain(x4, w9), 2e-5)
+        errs["flash_b4"] = check_close("flash (4, 4, 4096, 16)", attention.flash_attention(*qkv4),
+                                       attention.sdpa_chunked(*qkv4), 1e-5)
+        # B = 2 (the micro-batcher's most frequent batch under load), and the
+        # 1024^2 bucket: the test cube mirrored into four quadrants.
+        x2, qkv2 = x4[:2], [t[:2] for t in qkv4]
+        errs["conv9_b2"] = check_rel("conv9 (2, 512, 512, 64) k9", conv9.conv9_fwd(x2, w9),
+                                     conv9.conv9_plain(x2, w9), 2e-5)
+        errs["flash_b2"] = check_close("flash (2, 4, 4096, 16)", attention.flash_attention(*qkv2),
+                                       attention.sdpa_chunked(*qkv2), 1e-5)
+        x1024 = torch.cat([torch.cat([x, x.flip(2)], 2), torch.cat([x.flip(1), x.flip(1, 2)], 2)], 1)
+        errs["conv9_1024"] = check_rel("conv9 (1, 1024, 1024, 64) k9", conv9.conv9_fwd(x1024, w9),
+                                       conv9.conv9_plain(x1024, w9), 2e-5)
 
         # The bfloat16 entries at the bfloat16 main paths' shapes: the test
         # cube, and a b8 batch of the fused pipeline with a gradient's scale.
@@ -779,7 +1390,9 @@ def main() -> int:
         gt8b = (torch.randn(xt8.shape, generator=g) * 1e-3).to(dev).to(bf16)
         wdb = conv9.conv9_dgrad_weights(w9b)
         # Both sum in float32 and round once: one bfloat16 step of the largest output.
+        xb1024 = x1024.to(bf16)
         for key, what, xx, ww in (("conv9_512_bf16", "conv9 bf16 (1, 512, 512, 64) k9", xb, w9b),
+                                  ("conv9_1024_bf16", "conv9 bf16 (1, 1024, 1024, 64) k9", xb1024, w9b),
                                   ("conv9_128_bf16", "conv9 bf16 (8, 128, 128, 64) k9", xt8b, w9b),
                                   ("dgrad_128_bf16", "conv9 bf16 dgrad (8, 128, 128, 64) k9", gt8b, wdb)):
             errs[key] = check_rel(what, conv9.conv9_fwd(xx, ww).float(),
@@ -1160,10 +1773,11 @@ def main() -> int:
             return flash_work(q.shape, q.element_size())
 
         xc, wc = x.permute(0, 3, 1, 2), w9.permute(3, 2, 0, 1).contiguous()
+        x4c, x2c, x1024c = x4.permute(0, 3, 1, 2), x2.permute(0, 3, 1, 2), x1024.permute(0, 3, 1, 2)
         xtc, gtc = xt.permute(0, 3, 1, 2), gt.permute(0, 3, 1, 2)
         wdc = wd.permute(3, 2, 0, 1).contiguous()
         cl = torch.channels_last
-        xcb = xb.permute(0, 3, 1, 2)
+        xcb, xcb1024 = xb.permute(0, 3, 1, 2), xb1024.permute(0, 3, 1, 2)
         wcb = w9b.permute(3, 2, 0, 1).contiguous(memory_format=cl)
         xt8c, gt8c = xt8b.permute(0, 3, 1, 2), gt8b.permute(0, 3, 1, 2)
 
@@ -1171,59 +1785,85 @@ def main() -> int:
         q2, k2, v2 = qkv_1024
         qb, kbb, vb = qkvb
         qb2, kbb2, vb2 = qkvb_1024
-        rows = []
+        rows, row_keys = [], []
         conv9_src, conv9_rep = "sshslie_torch/csrc/conv9.cu", "sshslie_tpu/ops/conv_pallas.py:147"
         wgrad_src, wgrad_rep = "sshslie_torch/csrc/conv9_wgrad.cu", "sshslie_tpu/ops/conv_pallas.py:215"
         flash_src, flash_rep = "sshslie_torch/csrc/flash_attn.cu", "sshslie_tpu/ops/attention.py:169"
-        f32, b16 = "float32", "bfloat16"
         for name, src, replaces, key, count, fn, plain, lib, work_, peak in (
-                ("conv9 (1,512,512,64) forward", conv9_src, conv9_rep, "conv9_512", ("conv9", f32),
+                ("conv9 (1,512,512,64) forward", conv9_src, conv9_rep, "conv9_512", ("conv9", "forward", x),
                  lambda: conv9.conv9_fwd(x, w9), lambda: conv9.conv9_plain(x, w9),
                  lambda: F.conv2d(xc, wc, padding=4), conv_bound(x), PEAK_F32_FLOPS),
-                ("conv9 (2,128,128,64) forward", conv9_src, conv9_rep, "conv9_128", ("conv9", f32),
+                ("conv9 (2,128,128,64) forward", conv9_src, conv9_rep, "conv9_128", ("conv9", "forward", xt),
                  lambda: conv9.conv9_fwd(xt, w9), lambda: conv9.conv9_plain(xt, w9),
                  lambda: F.conv2d(xtc, wc, padding=4), conv_bound(xt), PEAK_F32_FLOPS),
-                ("conv9 (2,128,128,64) dgrad", conv9_src, conv9_rep, "dgrad_128", ("conv9", f32),
+                ("conv9 (2,128,128,64) dgrad", conv9_src, conv9_rep, "dgrad_128", ("conv9", "dgrad", gt),
                  lambda: conv9.conv9_fwd(gt, wd), lambda: conv9.conv9_plain(gt, wd),
                  lambda: torch.nn.grad.conv2d_input(xtc.shape, wc, gtc, padding=4), conv_bound(gt),
                  PEAK_F32_FLOPS),
-                ("conv9_wgrad (2,128,128,64)", wgrad_src, wgrad_rep, "wgrad_128", ("conv9_wgrad", f32),
+                ("conv9_wgrad (2,128,128,64)", wgrad_src, wgrad_rep, "wgrad_128", ("conv9_wgrad", "wgrad", xt),
                  lambda: conv9.conv9_wgrad(xt, gt, 9), lambda: conv9.conv9_wgrad_plain(xt, gt, 9),
                  lambda: torch.nn.grad.conv2d_weight(xtc, wc.shape, gtc, padding=4), conv_bound(xt),
                  PEAK_F32_FLOPS),
-                ("flash_attention (1,4,4096,16)", flash_src, flash_rep, "flash", ("flash_attention", f32),
+                ("flash_attention (1,4,4096,16)", flash_src, flash_rep, "flash", ("flash_attention", "forward", q),
                  lambda: attention.flash_attention(q, k, v), lambda: attention.sdpa_chunked(q, k, v),
                  lambda: F.scaled_dot_product_attention(q, k, v), flash_bound(q), PEAK_F32_FLOPS),
-                # A standalone timing: the main path never gives the kernel S = 16384,
-                # so this row counts no main-path launches.
-                ("flash_attention (1,4,16384,16) standalone", flash_src, flash_rep, "flash_1024", None,
+                # S = 16384 and batches of 4 come only from serving.
+                ("flash_attention (1,4,16384,16), serving at 1024^2", flash_src, flash_rep,
+                 "flash_1024", ("flash_attention", "forward", q2),
                  lambda: attention.flash_attention(q2, k2, v2),
                  lambda: attention.sdpa_chunked(q2, k2, v2),
                  lambda: F.scaled_dot_product_attention(q2, k2, v2), flash_bound(q2), PEAK_F32_FLOPS),
+                ("conv9 (4,512,512,64) forward, micro-batched serving", conv9_src, conv9_rep,
+                 "conv9_b4", ("conv9", "forward", x4), lambda: conv9.conv9_fwd(x4, w9),
+                 lambda: conv9.conv9_plain(x4, w9), lambda: F.conv2d(x4c, wc, padding=4),
+                 conv_bound(x4), PEAK_F32_FLOPS),
+                ("conv9 (1,1024,1024,64) forward, serving at 1024^2", conv9_src, conv9_rep,
+                 "conv9_1024", ("conv9", "forward", x1024), lambda: conv9.conv9_fwd(x1024, w9),
+                 lambda: conv9.conv9_plain(x1024, w9), lambda: F.conv2d(x1024c, wc, padding=4),
+                 conv_bound(x1024), PEAK_F32_FLOPS),
+                ("conv9 (2,512,512,64) forward, micro-batched serving", conv9_src, conv9_rep,
+                 "conv9_b2", ("conv9", "forward", x2), lambda: conv9.conv9_fwd(x2, w9),
+                 lambda: conv9.conv9_plain(x2, w9), lambda: F.conv2d(x2c, wc, padding=4),
+                 conv_bound(x2), PEAK_F32_FLOPS),
+                ("flash_attention (2,4,4096,16), micro-batched serving", flash_src, flash_rep,
+                 "flash_b2", ("flash_attention", "forward", qkv2[0]),
+                 lambda: attention.flash_attention(*qkv2), lambda: attention.sdpa_chunked(*qkv2),
+                 lambda: F.scaled_dot_product_attention(*qkv2), flash_bound(qkv2[0]),
+                 PEAK_F32_FLOPS),
+                ("flash_attention (4,4,4096,16), micro-batched serving", flash_src, flash_rep,
+                 "flash_b4", ("flash_attention", "forward", qkv4[0]), lambda: attention.flash_attention(*qkv4),
+                 lambda: attention.sdpa_chunked(*qkv4),
+                 lambda: F.scaled_dot_product_attention(*qkv4), flash_bound(qkv4[0]),
+                 PEAK_F32_FLOPS),
                 ("conv9 bf16 (1,512,512,64) forward", conv9_src, conv9_rep, "conv9_512_bf16",
-                 ("conv9", b16), lambda: conv9.conv9_fwd(xb, w9b), lambda: conv9.conv9_plain(xb, w9b),
+                 ("conv9", "forward", xb), lambda: conv9.conv9_fwd(xb, w9b), lambda: conv9.conv9_plain(xb, w9b),
                  lambda: F.conv2d(xcb, wcb, padding=4), conv_bound(xb), PEAK_BF16_FLOPS),
+                ("conv9 bf16 (1,1024,1024,64) forward, serving at 1024^2", conv9_src, conv9_rep,
+                 "conv9_1024_bf16", ("conv9", "forward", xb1024),
+                 lambda: conv9.conv9_fwd(xb1024, w9b), lambda: conv9.conv9_plain(xb1024, w9b),
+                 lambda: F.conv2d(xcb1024, wcb, padding=4), conv_bound(xb1024), PEAK_BF16_FLOPS),
                 ("conv9 bf16 (8,128,128,64) forward", conv9_src, conv9_rep, "conv9_128_bf16",
-                 ("conv9", b16), lambda: conv9.conv9_fwd(xt8b, w9b),
+                 ("conv9", "forward", xt8b), lambda: conv9.conv9_fwd(xt8b, w9b),
                  lambda: conv9.conv9_plain(xt8b, w9b),
                  lambda: F.conv2d(xt8c, wcb, padding=4), conv_bound(xt8b), PEAK_BF16_FLOPS),
                 ("conv9 bf16 (8,128,128,64) dgrad", conv9_src, conv9_rep, "dgrad_128_bf16",
-                 ("conv9", b16), lambda: conv9.conv9_fwd(gt8b, wdb),
+                 ("conv9", "dgrad", gt8b), lambda: conv9.conv9_fwd(gt8b, wdb),
                  lambda: conv9.conv9_plain(gt8b, wdb),
                  lambda: torch.nn.grad.conv2d_input(xt8c.shape, wcb, gt8c, padding=4),
                  conv_bound(gt8b), PEAK_BF16_FLOPS),
                 ("conv9_wgrad bf16 (8,128,128,64)", wgrad_src, wgrad_rep, "wgrad_128_bf16",
-                 ("conv9_wgrad", b16), lambda: conv9.conv9_wgrad(xt8b, gt8b, 9),
+                 ("conv9_wgrad", "wgrad", xt8b), lambda: conv9.conv9_wgrad(xt8b, gt8b, 9),
                  lambda: conv9.conv9_wgrad_plain(xt8b, gt8b, 9),
                  lambda: torch.nn.grad.conv2d_weight(xt8c, wcb.shape, gt8c, padding=4),
                  wgrad_bound(xt8b), PEAK_BF16_FLOPS),
                 ("flash_attention bf16 (1,4,4096,16)", flash_src, flash_rep, "flash_bf16",
-                 ("flash_attention", b16), lambda: attention.flash_attention(qb, kbb, vb),
+                 ("flash_attention", "forward", qb), lambda: attention.flash_attention(qb, kbb, vb),
                  lambda: attention.sdpa_chunked(qb, kbb, vb),
                  lambda: F.scaled_dot_product_attention(qb, kbb, vb), flash_bound(qb),
                  PEAK_BF16_FLOPS),
-                ("flash_attention bf16 (1,4,16384,16) standalone", flash_src, flash_rep,
-                 "flash_1024_bf16", None, lambda: attention.flash_attention(qb2, kbb2, vb2),
+                ("flash_attention bf16 (1,4,16384,16), serving at 1024^2", flash_src, flash_rep,
+                 "flash_1024_bf16", ("flash_attention", "forward", qb2),
+                 lambda: attention.flash_attention(qb2, kbb2, vb2),
                  lambda: attention.sdpa_chunked(qb2, kbb2, vb2),
                  lambda: F.scaled_dot_product_attention(qb2, kbb2, vb2), flash_bound(qb2),
                  PEAK_BF16_FLOPS)):
@@ -1232,8 +1872,12 @@ def main() -> int:
             library_ms = time_ms(lib, 20)
             flops, nbytes, exps = work_
             bound, bound_by = bound_ms(work_, peak)
+            kernel_name, role, t_ = count
+            row_key = (kernel_name, role, str(t_.dtype).replace("torch.", ""), tuple(t_.shape))
+            row_keys.append(row_key)
+            launches = MAIN_SHAPES.get(row_key, 0)
             rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                         "launches": main_path_launches(*count) if count else 0,
+                         "launches": launches,
                          "max_abs_err": errs[key], "ms": ms,
                          "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                          "library_ms": library_ms})
@@ -1245,7 +1889,16 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     log(f"launches on the main paths: float32 test {test_counts}, float32 train_and_test "
         f"{train_counts}, float32 engine run {engine_counts}, bfloat16 test {btest_counts}, "
-        f"bfloat16 train_and_test {btrain_counts}")
+        f"bfloat16 train_and_test {btrain_counts}, serving {served['counts']}; by (kernel, pass, "
+        f"dtype, shape) {MAIN_SHAPES}")
+    # Each row's launches are those the wrappers counted at its shape on the
+    # main paths: every row's shape is one the main paths ran, and every shape
+    # the main paths ran has its row (held against the plain version above).
+    unlaunched = [r["name"] for r in rows if r["launches"] == 0]
+    unheld = sorted(set(MAIN_SHAPES) - set(row_keys))
+    if unlaunched or unheld:
+        raise AssertionError(f"kernel rows with no main-path launch at their shape: {unlaunched}; "
+                             f"main-path shapes without a row: {unheld}")
     log(f"chip_smoke total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -23,6 +23,9 @@ the same enum checks and the same derived run directories. It differs in:
   ``train.py``), not JAX's threefry. ``precision: bfloat16`` and ``remat``
   are the JAX semantics (``models/``).
 
+``phase: serve`` and its ``serve_*`` keys are the JAX package's
+(``serve.py``, ``ops/quant.py``).
+
 The engine keys are the JAX package's: ``async_eval`` (the eval on a worker
 thread and a side stream, from a snapshot of the weights), ``checkpoint_best``,
 ``checkpoint_async`` (the background checkpoint writer), ``use_mlflow``
@@ -33,8 +36,8 @@ epoch) and ``eval_metric_source``.
 Every key loads. A value that asks for behaviour the port lacks raises
 ``NotImplementedError`` naming its ROADMAP.md item (:func:`check_ported`);
 keys that only change speed (``prefetch_batches``, ``jit_cache_dir``) or only
-the JAX package's serving and sharded eval are ignored, and training prints
-the speed-only ones.
+the JAX package's sharded eval are ignored, and training prints the
+speed-only ones.
 """
 
 from __future__ import annotations
@@ -143,14 +146,14 @@ class Config:
     async_eval: bool = False              # true: evals on a worker thread and a side stream
     eval_metric_source: str = "memory"    # 'memory' | 'disk': score S in memory or the saved files
     checkpoint_async: bool = True         # write checkpoints on a background thread
-    serve_host: str = "127.0.0.1"         # JAX key; ignored
-    serve_port: int = 8900                # JAX key; ignored
-    serve_pad_multiple: int = 64          # JAX key; ignored
-    serve_warmup: str = ""                # JAX key; ignored
-    serve_max_batch: int = 1              # JAX key; ignored
-    serve_quantize: str = ""              # JAX key; ignored
-    serve_reload_token: str = ""          # JAX key; ignored
-    serve_batch_window_ms: float = 5.0    # JAX key; ignored
+    serve_host: str = "127.0.0.1"         # phase=serve: bind address
+    serve_port: int = 8900                # phase=serve: port (0 = a free one)
+    serve_pad_multiple: int = 64          # phase=serve: shape-bucket granularity
+    serve_warmup: str = ""                # phase=serve: buckets run at start, e.g. '512x512,1024x1024'
+    serve_max_batch: int = 1              # phase=serve: coalesce concurrent same-bucket requests (1 = off)
+    serve_quantize: str = ""              # phase=serve: ''|'int8'|'fp8'|'int4' weight-only quantized serving
+    serve_reload_token: str = ""          # phase=serve: required (X-Reload-Token) to reload a given path
+    serve_batch_window_ms: float = 5.0    # phase=serve: batching window after the first pending request
 
     # --- derived (filled by finalize(); do not set in YAML) ---
     timestamp: str = ""

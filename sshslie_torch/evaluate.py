@@ -5,7 +5,11 @@
   forward and crops the pad back out.
 * :class:`Inferencer` runs the model under ``torch.inference_mode`` on
   stacks of host (H, W, C) cubes; the upload is part of the call, as in the
-  JAX one.
+  JAX one. ``inf(weights, cube)`` (JAX ``Inferencer(params, cube)``) runs
+  one cube with explicit weights, a state dict on the device, through
+  ``torch.func.functional_call``: the serving path's hot reload swaps them
+  without touching the module. :func:`pad_forward_crop` is the one-cube form
+  of :func:`pad_forward_crop_batch`.
 * :func:`test_model` loads ``model_epoch_latest.pth``, runs every test cube
   through the model with per-cube timing (host clock, ending in
   ``torch.cuda.synchronize()`` on the card), and saves the denormalised S,
@@ -60,20 +64,43 @@ def pad_forward_crop_batch(fn: Callable, stack: torch.Tensor, mh: int, mw: int):
     return R, I, Id, S
 
 
-class Inferencer:
-    """(R_low, I_low, I_delta, S) forward over host (H, W, C) cubes."""
+def pad_forward_crop(fn: Callable, cube: torch.Tensor, mh: int, mw: int):
+    """One (H, W, C) cube through :func:`pad_forward_crop_batch`; outputs
+    without the batch dim."""
+    R, I, Id, S = pad_forward_crop_batch(fn, cube[None], mh, mw)
+    return R[0], I[0], Id[0], S[0]
 
-    def __init__(self, model: torch.nn.Module, pad_multiple: int = 1):
+
+class Inferencer:
+    """(R_low, I_low, I_delta, S) forward over host (H, W, C) cubes, with the
+    model's own weights or explicit ones (a state dict on ``device``, the
+    model's device unless given)."""
+
+    def __init__(self, model: torch.nn.Module, pad_multiple: int = 1,
+                 device: Optional[torch.device] = None):
         self.model = model
         self.pad_multiple = max(int(pad_multiple), 1)
-        self.device = next(model.parameters()).device
+        self.device = device or next(model.parameters()).device
 
-    def batched(self, stack: np.ndarray):
+    def _fn(self, weights: Optional[Dict[str, torch.Tensor]]) -> Callable:
+        if weights is None:
+            return self.model
+        return lambda x: torch.func.functional_call(self.model, weights, (x,))
+
+    def batched(self, stack, weights: Optional[Dict[str, torch.Tensor]] = None):
         """(N, H, W, C) stack of same-shape cubes in one forward."""
         m = self.pad_multiple
         with torch.inference_mode():
             x = torch.as_tensor(stack, dtype=torch.float32).to(self.device)
-            return pad_forward_crop_batch(self.model, x, m, m)
+            return pad_forward_crop_batch(self._fn(weights), x, m, m)
+
+    def __call__(self, weights: Optional[Dict[str, torch.Tensor]], cube):
+        """One (H, W, C) cube (host array or tensor) with ``weights`` (None:
+        the model's own)."""
+        m = self.pad_multiple
+        with torch.inference_mode():
+            x = torch.as_tensor(cube, dtype=torch.float32).to(self.device)
+            return pad_forward_crop(self._fn(weights), x, m, m)
 
 
 def _inference_stream(infer: Inferencer, store: CubeStore, eval_batch: int,

@@ -39,32 +39,39 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
     return flat
 
 
+OIHW, IOHW, LINEAR = (3, 2, 0, 1), (2, 3, 0, 1), (1, 0)
+
+
+def jax_layout(params: Dict[str, Any]) -> Dict[str, tuple]:
+    """``{JAX layer path: (port module path, permutation)}`` for every layer of
+    a JAX param tree: the layer's ``<path>.kernel`` becomes the port's
+    ``<module>.weight`` by ``kernel.transpose(permutation)`` and its
+    ``<path>.bias`` the port's ``<module>.bias``."""
+    flat = _flatten(params)
+    d, i = "decomposition_net", "illum_adjust_net"
+    layout = {f"{d}.{name}": (f"{d}.{name}.0", OIHW) for name in _DECOM_CONVS}
+    layout[f"{d}.deconv"] = (f"{d}.deconv.0", IOHW)
+    layout[f"{d}.recon"] = (f"{d}.recon", OIHW)
+    layout.update({f"{i}.{name}": (f"{i}.{name}.0", OIHW) for name in _ILLUM_CONVS})
+    layout[f"{i}.final_conv"] = (f"{i}.final_conv", OIHW)
+    if f"{i}.attn.q_linear.kernel" in flat:
+        names = ("q_linear", "k_linear", "v_linear", "ff_linear1", "ff_linear2")
+    elif f"{i}.attn.fc1.kernel" in flat:
+        names = ("fc1", "fc2")
+    else:
+        names = ()
+    layout.update({f"{i}.attn.{name}": (f"{i}.attn.{name}", LINEAR) for name in names})
+    return layout
+
+
 def jax_params_to_state_dict(params: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The port's state dict from a JAX param tree (nested dicts of arrays)."""
     p = {k: np.asarray(v, dtype=np.float32) for k, v in _flatten(params).items()}
     out: Dict[str, torch.Tensor] = {}
-
-    def put(torch_prefix: str, ours: str, perm) -> None:
+    for ours, (torch_prefix, perm) in jax_layout(params).items():
         out[torch_prefix + ".weight"] = torch.from_numpy(
             np.ascontiguousarray(p[ours + ".kernel"].transpose(perm)))
         out[torch_prefix + ".bias"] = torch.from_numpy(p[ours + ".bias"].copy())
-
-    oihw, iohw, lin = (3, 2, 0, 1), (2, 3, 0, 1), (1, 0)
-    d = "decomposition_net"
-    for name in _DECOM_CONVS:
-        put(f"{d}.{name}.0", f"{d}.{name}", oihw)
-    put(f"{d}.deconv.0", f"{d}.deconv", iohw)
-    put(f"{d}.recon", f"{d}.recon", oihw)
-    i = "illum_adjust_net"
-    for name in _ILLUM_CONVS:
-        put(f"{i}.{name}.0", f"{i}.{name}", oihw)
-    put(f"{i}.final_conv", f"{i}.final_conv", oihw)
-    if f"{i}.attn.q_linear.kernel" in p:
-        for name in ("q_linear", "k_linear", "v_linear", "ff_linear1", "ff_linear2"):
-            put(f"{i}.attn.{name}", f"{i}.attn.{name}", lin)
-    elif f"{i}.attn.fc1.kernel" in p:
-        for name in ("fc1", "fc2"):
-            put(f"{i}.attn.{name}", f"{i}.attn.{name}", lin)
     return out
 
 

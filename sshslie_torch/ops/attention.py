@@ -9,7 +9,8 @@ Counterpart of ``sshslie_tpu/ops/attention.py``:
 * :func:`flash_attention`: the kernel of ``csrc/flash_attn.cu`` behind the
   :class:`FlashAttention` autograd Function (JAX ``_flash_attention_ad``). On
   a CUDA tensor the forward launches the kernel and counts the launch in
-  ``flash_attention.launches`` and ``flash_attention.launches_by_dtype``, or
+  ``flash_attention.launches``, ``flash_attention.launches_by_dtype`` and
+  ``flash_attention.launches_by_shape[("forward", dtype, q.shape)]``, or
   raises; on a CPU tensor it computes :func:`sdpa_chunked`. q, k and v are
   all float32 or all bfloat16 (the bfloat16 entry keeps m, l and the
   accumulator in float32 and returns bfloat16); mixed dtypes raise. The
@@ -112,7 +113,7 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.T
     code = getattr(lib, f"sshslie_flash_attn_{KERNEL_DTYPES[q.dtype]}")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, s, d,
         math.log2(math.e) / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
-    _count(q.dtype)
+    _count(q.dtype, ("forward", q.dtype, tuple(q.shape)))
     _build.check(lib, code, "flash attention kernel launch")
     return o
 
@@ -152,10 +153,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(dtype: torch.dtype) -> None:
+def _count(dtype: torch.dtype, key: tuple = ()) -> None:
     with _COUNT_LOCK:
         flash_attention.launches += 1
         flash_attention.launches_by_dtype[dtype] += 1
+        flash_attention.launches_by_shape[key] = flash_attention.launches_by_shape.get(key, 0) + 1
 
 
 def reset_counts() -> None:
@@ -163,6 +165,7 @@ def reset_counts() -> None:
     with _COUNT_LOCK:
         flash_attention.launches = 0
         flash_attention.launches_by_dtype = dict.fromkeys(KERNEL_DTYPES, 0)
+        flash_attention.launches_by_shape = {}
 
 
 reset_counts()

@@ -15,7 +15,9 @@ Layout as in the JAX package: x is NHWC (B, H, W, 64), w is HWIO
   dispatch by dtype: all-float32 to the float32 entry, all-bfloat16 to the
   bfloat16 one (float32 accumulation; conv9's output in bfloat16, the weight
   gradient in float32). Mixed dtypes raise; nothing is converted. Each
-  launch also counts in ``launches_by_dtype[dtype]``.
+  launch also counts in ``launches_by_dtype[dtype]`` and in
+  ``launches_by_shape[(pass, dtype, x.shape)]``, pass "forward", "dgrad"
+  (conv9_fwd called from :class:`ShallowConv`'s backward) or "wgrad".
 * Neither wrapper is differentiable: called where autograd would record it
   (grad mode on, an input that requires grad) it raises.
   :class:`ShallowConv` is the differentiable conv whose three passes all run
@@ -119,12 +121,16 @@ def _check_cuda_operands(name: str, *tensors: torch.Tensor) -> str:
 # The counts are read-modify-writes from every thread that launches (the
 # training thread and the async-eval worker): one lock keeps them exact.
 _COUNT_LOCK = threading.Lock()
+# The pass a conv9_fwd launch counts under in launches_by_shape, per thread:
+# "dgrad" while ShallowConv.backward runs it, else "forward".
+_PASS = threading.local()
 
 
-def _count(wrapper, dtype: torch.dtype) -> None:
+def _count(wrapper, dtype: torch.dtype, key: tuple = ()) -> None:
     with _COUNT_LOCK:
         wrapper.launches += 1
         wrapper.launches_by_dtype[dtype] += 1
+        wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
 def reset_counts() -> None:
@@ -133,6 +139,7 @@ def reset_counts() -> None:
         for wrapper in (conv9_fwd, conv9_wgrad):
             wrapper.launches = 0
             wrapper.launches_by_dtype = dict.fromkeys(KERNEL_DTYPES, 0)
+            wrapper.launches_by_shape = {}
 
 
 def conv9_wgrad_bf16_taps(k: int) -> int:
@@ -197,7 +204,7 @@ def conv9_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     code = getattr(lib, f"sshslie_conv_c64_{suffix}")(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, k,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _count(conv9_fwd, x.dtype)
+    _count(conv9_fwd, x.dtype, (getattr(_PASS, "name", "forward"), x.dtype, tuple(x.shape)))
     _build.check(lib, code, "conv9 kernel launch")
     return y
 
@@ -233,7 +240,7 @@ def conv9_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     code = getattr(lib, f"sshslie_conv9_wgrad_{suffix}")(
         x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd, k, splits,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _count(conv9_wgrad, x.dtype)
+    _count(conv9_wgrad, x.dtype, ("wgrad", x.dtype, tuple(x.shape)))
     _build.check(lib, code, "conv9_wgrad kernel launch")
     return dw
 
@@ -267,7 +274,11 @@ class ShallowConv(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = db = None
         if ctx.needs_input_grad[0]:
-            dx = conv9_fwd(g, conv9_dgrad_weights(w))
+            _PASS.name = "dgrad"
+            try:
+                dx = conv9_fwd(g, conv9_dgrad_weights(w))
+            finally:
+                _PASS.name = "forward"
         if ctx.needs_input_grad[1]:
             dw = conv9_wgrad(x, g, w.shape[0]).to(w.dtype)
         if ctx.needs_input_grad[2]:

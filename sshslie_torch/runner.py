@@ -1,5 +1,5 @@
 """Run entry of the port: ``python -m sshslie_torch --config … --phase
-train|test|train_and_test``.
+train|test|train_and_test|serve``.
 
 As ``sshslie_tpu/runner.py``: stdout teed to
 ``logs/console_output_<run>.log``, the parameters printed, Python, numpy and
@@ -8,8 +8,10 @@ config leaves it out. ``train`` builds a ``Trainer`` (warm-started from
 ``pretrained_model`` when given; ``freeze_decom_epochs`` applies only then)
 and runs ``run_train``; ``test`` runs ``run_test`` and ``run_eval_metrics``
 on ``model_epoch_latest.pth`` of ``test_timestamp``; ``train_and_test`` does
-both, testing from the checkpoint the run just wrote. Float32 runs in full
-float32 on the card: both TF32 switches are set off and printed.
+both, testing from the checkpoint the run just wrote; ``serve`` serves
+``model_epoch_latest.pth`` of ``test_timestamp`` over HTTP until stopped
+(``serve.serve_from_config``). Float32 runs in full float32 on the card:
+both TF32 switches are set off and printed.
 
 Every run is tracked as in the JAX package (``observability.MLflowShim``,
 ``use_mlflow``): one experiment named after the run, its params and loss
@@ -18,8 +20,7 @@ the data directories, the trainer's params and epoch metrics, the test
 phase's ``PSNR_dB``/``SSIM``/``SAM`` and the console log under
 ``run_logs``; without mlflow, as files under ``runs/<experiment>/``.
 
-The ``serve`` phase is not ported yet and raises, as does any config value
-the port cannot honour (``config.check_ported``).
+A config value the port cannot honour raises (``config.check_ported``).
 """
 
 from __future__ import annotations
@@ -140,10 +141,7 @@ def main(cfg: Config):
     ``all_epoch_losses``, ``eval_metrics``, ``model``) when the phase trains,
     and ``"scores"`` (psnr, ssim, sam) and ``"seconds"`` ({file: seconds})
     when it tests; None when there are no training cubes to take the channel
-    count from."""
-    if cfg.phase == "serve":
-        raise NotImplementedError("phase 'serve' is not ported yet: serving is ROADMAP.md "
-                                  "queue 1, item 8")
+    count from. ``serve`` returns {} once the server stops."""
     check_ported(cfg, training=cfg.phase in _TRAINING)
     device = resolve_device(cfg.device)
     log_filepath = os.path.join("logs", "console_output_" + cfg.full_model_name + ".log")
@@ -197,20 +195,24 @@ def main(cfg: Config):
             _log_source_artifacts(mlflow)
             if trainer is not None:
                 mlflow.log_param("data_train", cfg.train_data)
-            if cfg.phase != "train":
+            if cfg.phase in ("test", "train_and_test"):
                 mlflow.log_param("data_test", cfg.test_data)
             if trainer is not None:
                 run_train(trainer, cfg)
                 result["trainer"] = trainer
                 # cfg.test_model_dir is this run's checkpoint directory.
                 model = trainer.model
-            else:
+            elif cfg.phase == "test":
                 from sshslie_torch.models.enhance import build_model
 
                 model = build_model(cfg, channels, device)
-            if cfg.phase != "train":
+            if cfg.phase in ("test", "train_and_test"):
                 result["seconds"] = run_test(model, cfg)
                 result["scores"] = run_eval_metrics(cfg, device, mlflow)
+            elif cfg.phase == "serve":
+                from sshslie_torch.serve import serve_from_config
+
+                serve_from_config(cfg)
             mlflow.log_artifact(log_filepath, artifact_path="run_logs")
         return result
     except Exception as e:

@@ -8,6 +8,10 @@
   kept, since the published results depend on them.
 * :func:`save_hsi` writes atomically (temp file + rename), v7.3 past scipy's
   2**31-byte limit.
+* :func:`load_hsi_bytes` parses an in-memory ``.mat`` payload (the serving
+  path's request bodies) and :func:`normalize_like_load_torch` is
+  :func:`normalize_like_load` on a tensor, for the serving path's
+  device-side decode.
 
 ENVI ``.hdr`` input is not ported yet.
 """
@@ -19,6 +23,7 @@ from typing import Optional
 
 import numpy as np
 import scipy.io as sio
+import torch
 
 
 def _load_mat_v73(file: str, mat_key: str) -> np.ndarray:
@@ -113,6 +118,90 @@ def normalize_like_load(
         # Reference quirk (utils.py:57): every normalised cube is then divided
         # by its own max.
         x = x / np.max(x)
+    return x
+
+
+# HDF5 file signature (the v7.3 .mat container). h5py.is_hdf5 takes only
+# paths, so in-memory dispatch checks the magic directly.
+_HDF5_MAGIC = b"\x89HDF\r\n\x1a\n"
+
+
+def load_hsi_bytes(body: bytes, mat_key: str = "data") -> np.ndarray:
+    """Parse an in-memory ``.mat`` payload (v7 through scipy, v7.3 through
+    h5py on a BytesIO), without normalisation.
+
+    The bytes come from the wire: every malformed payload raises ValueError
+    (an HTTP 400 in ``serve.py``), never a scipy or h5py exception type. A
+    missing variable stays a KeyError (also a 400), naming the keys there."""
+    import io
+
+    try:
+        mat = sio.loadmat(io.BytesIO(body))
+    except Exception as e:  # scipy raises several types on crafted input
+        if body[: len(_HDF5_MAGIC)] == _HDF5_MAGIC:
+            try:
+                return np.asarray(_load_mat_v73(io.BytesIO(body), mat_key), dtype=np.float32)
+            except KeyError:
+                raise
+            except Exception as e73:  # truncated or crafted HDF5
+                raise ValueError(f"unreadable v7.3 .mat payload ({type(e73).__name__}: {e73})")
+        raise ValueError(f"body is not a readable .mat payload ({type(e).__name__}: {e})")
+    if mat_key not in mat:
+        raise KeyError(
+            f"variable {mat_key!r} not found; available: "
+            f"{[k for k in mat if not k.startswith('__')]}"
+        )
+    try:
+        return np.asarray(mat[mat_key], dtype=np.float32)
+    except (TypeError, ValueError) as e:
+        # MATLAB cell, object and char variables are not numeric cubes.
+        raise ValueError(f"variable {mat_key!r} is not a numeric cube ({type(e).__name__}: {e})")
+
+
+def normalize_like_load_torch(
+    x: torch.Tensor,
+    normalization: Optional[str],
+    max_val: Optional[float] = None,
+    min_val: Optional[float] = None,
+    rescale_by_max: bool = True,
+) -> torch.Tensor:
+    """:func:`normalize_like_load` on a float32 (H, W, C) tensor, on its
+    device: the serving path uploads a request's 2-byte payload as it is and
+    decodes and normalises it on the card. The same float32 operations in
+    the same order, the clamp after global normalisation and the
+    divide-by-own-max quirk included.
+
+    'self', 'global_normalization' and 'per_channel_normalization' give the
+    same result on an edge-padded cube (a replicated value is no new
+    extremum); 'per_channel_standardization' does not (the mean and std
+    move), so a caller that pads first must normalise that mode on the host."""
+    if normalization is None or normalization == "":
+        return x
+    if normalization == "self":
+        x = x / torch.max(x)
+    elif normalization == "global_normalization":
+        if max_val is None:
+            raise ValueError("max value is not provided for global normalization")
+        lo = 0.0 if min_val is None else min_val
+        if lo > max_val:
+            raise ValueError("min value cannot be larger than the max value")
+        x = (x - lo) / (max_val - lo)
+        x = torch.clamp_min(x, 0.0)
+    elif normalization == "per_channel_normalization":
+        min_vals = torch.amin(x, dim=(0, 1), keepdim=True)
+        max_vals = torch.amax(x, dim=(0, 1), keepdim=True)
+        range_vals = torch.where(max_vals > min_vals, max_vals - min_vals, 1.0)
+        x = (x - min_vals) / range_vals
+    elif normalization == "per_channel_standardization":
+        mean_vals = torch.mean(x, dim=(0, 1), keepdim=True)
+        std_vals = torch.std(x, dim=(0, 1), keepdim=True, correction=0)
+        std_vals = torch.where(std_vals > 0, std_vals, 1.0)
+        x = (x - mean_vals) / std_vals
+    else:
+        raise NotImplementedError(f"{normalization} is not implemented")
+    x = x.float()
+    if rescale_by_max:
+        x = x / torch.max(x)
     return x
 
 

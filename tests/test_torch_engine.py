@@ -296,6 +296,7 @@ def test_launch_counts_stay_exact_across_threads(module, wrapper, count):
         assert not any(t.is_alive() for t in threads)
         assert wrapper.launches == 20_000
         assert sum(wrapper.launches_by_dtype.values()) == 20_000
+        assert sum(wrapper.launches_by_shape.values()) == 20_000
         # The count is taken under the module's lock: held here, a counting
         # thread waits for it.
         with module._COUNT_LOCK:

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sshslie_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sshslie_tpu", "ml_dtypes")
 
 
 def _port_sources():
@@ -35,7 +35,8 @@ def _imported_roots(path):
 
 def test_sources_exist():
     names = {os.path.relpath(p, ROOT) for p in _port_sources()}
-    assert {"chip_smoke.py", "sshslie_torch/runner.py", "sshslie_torch/observability.py"} <= names
+    assert {"chip_smoke.py", "sshslie_torch/runner.py", "sshslie_torch/observability.py",
+            "sshslie_torch/serve.py", "sshslie_torch/ops/quant.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -52,7 +53,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
             "import sshslie_torch, sshslie_torch.runner, sshslie_torch.evaluate, "
             "sshslie_torch.interop, sshslie_torch.models.enhance, sshslie_torch.ops.conv9, "
             "sshslie_torch.ops.attention, sshslie_torch.ops.losses, sshslie_torch.train, "
-            "sshslie_torch.observability, sshslie_torch.metrics, sshslie_torch.checkpoints\n"
+            "sshslie_torch.observability, sshslie_torch.metrics, sshslie_torch.checkpoints, "
+            "sshslie_torch.serve, sshslie_torch.ops.quant\n"
             f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "built = list(sshslie_torch.ops._build._libs)\n"
             "print(bad, built); sys.exit(1 if bad or built else 0)")
@@ -82,12 +84,12 @@ def test_entry_point_raises_without_card_unless_cpu_is_asked(tmp_path, monkeypat
 @pytest.mark.parametrize("phase,unported", [
     ("train", {"fused_window": 2}),
     ("train_and_test", {"matmul_precision": "tensorfloat32"}),
-    ("serve", {}),
+    ("serve", {"mesh_shape": "2"}),
 ], ids=["train", "train_and_test", "serve"])
 def test_unported_phases_raise(tmp_path, monkeypatch, phase, unported):
-    """Serving is not ported; the training phases are, and raise for what of
-    them is not (the rotating cube window, matmuls below full float32),
-    before any work."""
+    """Every phase is ported, and raises for what of it is not (the rotating
+    cube window, matmuls below full float32, serving on a mesh), before any
+    work."""
     from sshslie_torch import runner
     from sshslie_torch.config import load_config
 

@@ -163,6 +163,10 @@ def test_shallow_conv_grads_on_card_match_plain_autograd(cuda_device):
     torch.cuda.synchronize()
     # forward + dgrad on the conv9 kernel, dw on the wgrad kernel
     assert (conv9.conv9_fwd.launches, conv9.conv9_wgrad.launches) == (before[0] + 2, before[1] + 1)
+    shape = (torch.float32, (2, 32, 48, 64))
+    assert conv9.conv9_fwd.launches_by_shape[("forward", *shape)] >= 1
+    assert conv9.conv9_fwd.launches_by_shape[("dgrad", *shape)] >= 1
+    assert conv9.conv9_wgrad.launches_by_shape[("wgrad", *shape)] >= 1
     want = grads(lambda xs, ws, bs: conv9.conv9_plain(xs, ws) + bs)
     for name, a, c in zip(("dx", "dw", "db"), got, want):
         _rel_close(a, c, 2e-5, name)
