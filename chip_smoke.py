@@ -3,10 +3,12 @@
 
 Drives ``sshslie_torch`` (and nothing of the JAX package) through its main
 paths at the stock configuration's full width: 64 bands, channel 64, the
-TransformerBlock, random weights from a seed; float32 with TF32 off, and
-``precision: bfloat16``.
+TransformerBlock, random weights from a seed; float32 with TF32 off,
+``matmul_precision: tensorfloat32`` (TF32 on the card), and ``precision:
+bfloat16``.
 
-1. Card: prints the card's name and power limit, sets both TF32 switches off.
+1. Card: prints the card's name and power limit, sets both TF32 switches off
+   (``device.set_matmul_precision``); every float32 path runs with them off.
 2. Kernels: builds every ``sshslie_torch/csrc/*.cu`` with nvcc (in parallel).
 3. Inputs: a synthetic dataset in a temporary directory (raw values
    238..4095, numpy seed): four 512x512x64 training cubes, sixteen
@@ -75,6 +77,17 @@ TransformerBlock, random weights from a seed; float32 with TF32 off, and
    by subtraction); SUSTAIN_CLIENTS closed-loop clients for SUSTAIN_S
    seconds (u16 in and out) on the float32 service and on the
    micro-batched one, launches counted: requests/s, p50/p90/max latency.
+6c. Main path, ``matmul_precision: tensorfloat32``: ``runner.main`` test
+   phase on the float32 test phase's cubes and checkpoint, ``train_and_test``
+   as in 5 (2 epochs of 2 steps, the fused pipeline), and one 512^2 request
+   to a service built with the key (``serve.build_server_from_config``).
+   Launch counts exact by (pass, "tf32", shape), flash in float32, nothing
+   else; both switches on at every whole-model forward of the path (a global
+   forward pre-hook) and after each entry point, off again after the path.
+   S against a float64 forward within TF32_S_REL of max|S| (the float32 S
+   beside it); the TF32 S against the float32 test phase's S reported; the
+   served S equals the TF32 test phase's within 1e-3 of max|S| (TF32's
+   rounding level: the two normalise the input in other ways).
 7. Main path, bfloat16 training at bench.py's "best" shape: b8 x 128^2 x 64,
    ``precision: bfloat16``, ``fused_pipeline: on``, ``steps_per_dispatch:
    2`` on the sixteen 256^2 cubes (one 2-step chunk an epoch), 2 epochs with
@@ -94,32 +107,41 @@ TransformerBlock, random weights from a seed; float32 with TF32 off, and
    serving shapes (4, 512, 512, 64) and (4, 4, 4096, 16); the bfloat16 conv9, its dgrad and conv9_wgrad also at
    (1, 37, 53, 64) for k = 3, 9 and 13; the bfloat16 flash kernel also
    against the Pallas kernel's float32 p, at S = 4096 and 16384);
+   the TF32 entries (``tf32=True``) within 1e-5 of their TF32 plain versions
+   and within (2u + u^2 + n 2^-23) conv(|x|, |w|) of a float64 conv, repeats
+   bit-identical, at the main paths' shapes and (1, 37, 53, 64) for k = 3, 9,
+   13;
    ShallowConv's and FlashAttention's gradients against autograd through
    the plain versions; one whole train step on the kernel
    path against the plain path (``conv_impl: torch``, ``attention_impl:
-   dense``) and a float64 step, in float32 (b2) and in bfloat16 (b8); the
-   whole model at 512^2 on the kernel path against the plain path in both
-   dtypes, and on the card against the CPU on a small cube.
+   dense``) and a float64 step, in float32 (b2), TF32 (b2, the TF32 plain
+   path beside it: terms within TF32_TERMS_REL, gradients within
+   TF32_GRAD_REL of each scale and TF32_GRAD_L2 together) and bfloat16 (b8);
+   the whole model at 512^2 on the kernel path against the plain path in
+   both dtypes, and on the card against the CPU on a small cube.
 9. The pipelines on the card, with ``torch.backends.cudnn.deterministic``: a
    2-step multistep chunk equals two single fused steps bit for bit; one
    fused step equals the same step on the CPU for the same draw table; one
    step with ``remat: true`` equals the step without it, with 2 more conv9
    launches (the recomputed forwards).
 10. Times by CUDA events after warm-up: the warm train step on both paths
-   in float32 (b2) and bfloat16 (b8), its megapixel*bands/s, its device
-   time and host dispatch apart, the real loop's host clock on the host
-   sampler and on the fused pipeline; each kernel at the main paths' shapes
+   in float32 (b2) and bfloat16 (b8), and the TF32 step against the float32
+   one on the kernel path (b2), its megapixel*bands/s, its device time and
+   host dispatch apart (the TF32 and float32 steps also traced by kernel
+   class, with the names of their cuDNN and cuBLAS kernels), the real loop's
+   host clock on the host sampler and on the fused pipeline; each kernel at the main paths' shapes
    in both dtypes (flash attention also at (1, 4, 16384, 16), the S of a
    1024^2 cube, in both dtypes; conv9 and flash at the micro-batched serving
    shapes), its plain version and one library call (cuDNN
    ``F.conv2d``, ``conv2d_input``, ``conv2d_weight``,
-   ``F.scaled_dot_product_attention``, bfloat16 ones for the bfloat16 rows)
-   as a yardstick only; the port never calls those.
+   ``F.scaled_dot_product_attention``, bfloat16 ones for the bfloat16 rows,
+   cuDNN's TF32 for the TF32 rows) as a yardstick only; the port never calls
+   those.
 
 Prints one JSON line of kernels, then the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. A row's "launches" are the launches
-the wrappers counted at its (pass, dtype, shape) over the main paths' reads
-(4, 5, 5b, 6, 6b, 7); a row with none fails the run. Any failure exits non-zero before
+the wrappers counted at its (pass, dtype or "tf32", shape) over the main
+paths' reads (4, 5, 5b, 6, 6b, 6c, 7); a row with none fails the run. Any failure exits non-zero before
 the last line. Needs one CUDA card, nvcc and the repository's files.
 """
 
@@ -145,6 +167,7 @@ GLOBAL_MIN, GLOBAL_MAX = 238.0, 4095.0   # config/config.yml
 SUSTAIN_CLIENTS, SUSTAIN_S = 4, 15.0     # serving's closed-loop load, on each of two services
 PEAK_F32_FLOPS = 67e12                   # H100 SXM, float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12                 # H100 SXM, dense bfloat16 on the tensor cores
+PEAK_TF32_FLOPS = 495e12                 # H100 SXM, dense TF32 on the tensor cores
 PEAK_EXP = 16 * 132 * 1.98e9             # H100 SXM: exponentials, 16 a clock per SM (SFU)
 PEAK_BYTES = 3.35e12                     # H100 SXM HBM3
 BF16_STEP = 2.0 ** -7                    # one bfloat16 step of a value's magnitude, at most
@@ -159,6 +182,18 @@ STOCK_TRAIN = dict(
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def switches() -> tuple:
+    """(cudnn.allow_tf32, cuda.matmul.allow_tf32)."""
+    import torch
+
+    return torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+
+
+def check_switches(what: str, tf32: bool) -> None:
+    if switches() != (tf32, tf32):
+        raise AssertionError(f"{what}: TF32 switches {switches()}, expected both {tf32}")
 
 
 def card_line() -> str:
@@ -285,16 +320,29 @@ def tally_shapes(conv9, attention) -> None:
 
 
 def check_launches(what: str, counts: dict, dtype: str, want: dict) -> None:
-    """Each kernel's launches in ``dtype`` against ``want`` (name -> (min, max)),
-    and none in the other dtype."""
-    other = "float32" if dtype == "bfloat16" else "bfloat16"
-    for name, (lo, hi) in want.items():
-        n = counts[name][dtype]
-        if not lo <= n <= hi:
-            raise AssertionError(f"{what}: {name} launched {n} times in {dtype}, expected "
-                                 f"{lo}..{hi}")
-    if any(c[other] for c in counts.values()):
-        raise AssertionError(f"{what}: launches in {other}: {counts}")
+    """Each kernel's launches under ``dtype`` ("float32", "bfloat16" or "tf32")
+    against ``want`` (name -> (min, max)), and none under any other label.
+    Under "tf32" flash, which keeps its float32 entry, counts in float32."""
+    for name, by in counts.items():
+        label = "float32" if dtype == "tf32" and name == "flash_attention" else dtype
+        if name in want:
+            lo, hi = want[name]
+            n = by.get(label, 0)
+            if not lo <= n <= hi:
+                raise AssertionError(f"{what}: {name} launched {n} times in {label}, expected "
+                                     f"{lo}..{hi}")
+        if any(n for other, n in by.items() if other != label):
+            raise AssertionError(f"{what}: {name} launched outside {label}: {counts}")
+
+
+def check_by_shape(what: str, conv9, attention, want: dict) -> None:
+    """The launches counted since the last zero_counts by (pass, label,
+    shape), all three wrappers together, against ``want``."""
+    got = {**conv9.conv9_fwd.launches_by_shape, **conv9.conv9_wgrad.launches_by_shape,
+           **attention.flash_attention.launches_by_shape}
+    if got != want:
+        raise AssertionError(f"{what}: launches by shape {got}, expected {want}")
+    log(f"{what}: launches by (pass, label, shape) {got}")
 
 
 def check_saved_s(cfg, load_hsi, np) -> None:
@@ -370,6 +418,11 @@ KERNEL_CLASSES = (
 )
 
 
+def kernel_class(name: str) -> str:
+    """The class of a CUDA kernel, by its name (KERNEL_CLASSES)."""
+    return next((c for c, pats in KERNEL_CLASSES if any(p in name for p in pats)), "other")
+
+
 def trace_device_ops(path: str, top: int = 10) -> tuple:
     """The CUDA kernels of a Chrome trace: ([(name, total ms, count)] of the
     ``top`` largest by total time, {class: total ms} over all of them, their
@@ -383,7 +436,7 @@ def trace_device_ops(path: str, top: int = 10) -> tuple:
             totals[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
     classes: dict = {}
     for name, (ms, _) in totals.items():
-        cls = next((c for c, pats in KERNEL_CLASSES if any(p in name for p in pats)), "other")
+        cls = kernel_class(name)
         classes[cls] = classes.get(cls, 0.0) + ms
     rows = sorted(((k, ms, n) for k, (ms, n) in totals.items()), key=lambda r: -r[1])
     return rows[:top], classes, sum(ms for _, ms, _ in rows)
@@ -660,7 +713,7 @@ def run_serving(cfg, bcfg, test_kw: dict, card: str) -> dict:
     token = "chip-smoke-reload-token"
     serve_kw = dict(test_kw, phase="serve", serve_port=0, serve_pad_multiple=64,
                     use_mlflow=False)
-    total = {k: {"float32": 0, "bfloat16": 0} for k in ("conv9", "conv9_wgrad", "flash_attention")}
+    total = {k: {} for k in ("conv9", "conv9_wgrad", "flash_attention")}
 
     def counted(what, dtype, fn, want=1):
         """fn() with the launch counts set to 0 before and read after; conv9
@@ -674,7 +727,7 @@ def run_serving(cfg, bcfg, test_kw: dict, card: str) -> dict:
                                              "conv9_wgrad": (0, 0)})
         for k, by in counts.items():
             for dt, n in by.items():
-                total[k][dt] += n
+                total[k][dt] = total[k].get(dt, 0) + n
         return out
 
     def enhance(srv, body, headers=None, query="", ok=True):
@@ -733,7 +786,7 @@ def run_serving(cfg, bcfg, test_kw: dict, card: str) -> dict:
                                                  "conv9_wgrad": (0, 0)})
         for k, by in counts.items():
             for dt, n in by.items():
-                total[k][dt] += n
+                total[k][dt] = total[k].get(dt, 0) + n
         span = max(end for _, end in lat) - start
         return len(lat), span, sorted(end - t for t, end in lat)
 
@@ -1156,6 +1209,193 @@ def run_serving(cfg, bcfg, test_kw: dict, card: str) -> dict:
     return {"counts": total}
 
 
+# Per-cube seconds of the test phases, by path.
+TEST_SECONDS: dict = {}
+# The TF32 path's tolerances against float64, written before its first chip
+# run: S within 2e-2 of max|S|, each of the step's terms within 1e-2 of its
+# value, each gradient within 5e-2 of its largest magnitude. That run
+# measured 5.6e-2 on the worst gradient (7.3e-2 in its own L2 norm, 1.0e-2
+# for all gradients together; PERF.md, PR 9): TF32's rounding carried
+# through the loss's L1 terms, as float32's is at ~1/8 the size. So the
+# gradients are held at 0.15 of each scale and all together at 5e-2 in L2,
+# and the 5e-2 prediction is reported, not gated.
+TF32_S_REL, TF32_TERMS_REL, TF32_GRAD_PREDICTED = 2e-2, 1e-2, 5e-2
+TF32_GRAD_REL, TF32_GRAD_L2 = 0.15, 5e-2
+
+
+def run_tf32(cfg, test_kw: dict, train_kw: dict) -> dict:
+    """Main path 6c: ``matmul_precision: tensorfloat32`` through ``runner.main``
+    (the float32 test phase's cubes and checkpoint; ``train_and_test`` at the
+    stock values) and ``serve.build_server_from_config`` (one 512^2 request).
+    Launch counts set to 0 before each and read after it, exact by (pass,
+    "tf32", shape); flash in float32. The switches are on in every forward
+    of the path and after it. Returns the launches by kernel and label."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.io as sio
+    import torch
+
+    from sshslie_torch import checkpoints, interop, runner, serve
+    from sshslie_torch.config import load_config
+    from sshslie_torch.device import resolve_device, set_matmul_precision
+    from sshslie_torch.models.enhance import LowLightEnhanceNet, build_model
+    from sshslie_torch.ops import attention, conv9
+    from sshslie_torch.train import LOSS_KEYS
+    from sshslie_torch.utils.io_hsi import load_hsi
+
+    t0 = time.perf_counter()
+    tf32_kw = {"matmul_precision": "tensorfloat32"}
+    # The legacy switches beside torch's fp32_precision settings: set under
+    # warnings-as-errors, and read back through the newer API where it exists.
+    import warnings
+
+    def fp32_precision():
+        return {"cuda.matmul": getattr(torch.backends.cuda.matmul, "fp32_precision", None),
+                "cudnn.conv": getattr(getattr(torch.backends.cudnn, "conv", None),
+                                      "fp32_precision", None),
+                "float32_matmul_precision": torch.get_float32_matmul_precision()}
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        set_matmul_precision(load_config(None, tf32_kw))
+        on = fp32_precision()
+        set_matmul_precision(cfg)
+        off = fp32_precision()
+    log(f"TF32 switches through the newer API: on {on}, off {off}")
+    if on["cuda.matmul"] is not None and (on["cuda.matmul"] != "tf32" or on["cudnn.conv"] != "tf32"
+                                          or "tf32" in (off["cuda.matmul"], off["cudnn.conv"])):
+        raise AssertionError(f"fp32_precision does not follow the switches: on {on}, off {off}")
+    seen = []                                    # the switches at each whole-model forward
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda m, args: seen.append(switches()) if isinstance(m, LowLightEnhanceNet) else None)
+    total: dict = {}
+
+    def read(what, dtype, want, by_shape):
+        torch.cuda.synchronize()
+        counts = read_counts(conv9, attention)
+        tally_shapes(conv9, attention)
+        check_launches(what, counts, dtype, want)
+        check_by_shape(what, conv9, attention, by_shape)
+        for k, by in counts.items():
+            for dt, n in by.items():
+                total.setdefault(k, {})[dt] = total.get(k, {}).get(dt, 0) + n
+
+    cube_shape = (1, SIZE, SIZE, BANDS)
+    attn_shape = (1, 4, (SIZE // 8) ** 2, 16)
+    f32 = torch.float32
+    try:
+        # ---- the test phase on the float32 test phase's cubes and checkpoint ----
+        tcfg = load_config(None, dict(test_kw, model_name=cfg.model_name, **tf32_kw))
+        zero_counts(conv9, attention)
+        t = time.perf_counter()
+        result = runner.main(tcfg)
+        log(f"main path (TF32 test): {time.perf_counter() - t:.2f} s; per-cube seconds "
+            f"{result['seconds']}")
+        read("TF32 test", "tf32", {"conv9": (2, 2), "flash_attention": (2, 2), "conv9_wgrad": (0, 0)},
+             {("forward", "tf32", cube_shape): 2, ("forward", f32, attn_shape): 2})
+        check_switches("after the TF32 test phase", True)
+        TEST_SECONDS["TF32 test"] = result["seconds"]
+        scores = result["scores"]
+        log(f"TF32 test: PSNR {scores[0]!r}  SSIM {scores[1]!r}  SAM {scores[2]!r}")
+        if not all(math.isfinite(v) for v in scores):
+            raise AssertionError(f"TF32 test: scores {scores}")
+        check_saved_s(tcfg, load_hsi, np)
+        s_tf32 = load_hsi(os.path.join(tcfg.test_result_dir, "cube0.mat"), mat_key=cfg.mat_key_prediction)
+        s_f32 = load_hsi(os.path.join(cfg.test_result_dir, "cube0.mat"), mat_key=cfg.mat_key_prediction)
+        gap = float(np.abs(s_tf32.astype(np.float64) - s_f32).max())
+        log(f"TF32 test phase S vs the float32 test phase's S (raw scale, reported, not gated): "
+            f"max|d| {gap:.4e}, {gap / float(np.abs(s_f32).max()):.3e} of max|S|")
+
+        # S against a float64 forward of the same cube and weights.
+        cube = load_hsi(os.path.join(cfg.test_data, "cube0.mat"), mat_key=cfg.mat_key,
+                        normalization=cfg.normalization, max_val=GLOBAL_MAX, min_val=GLOBAL_MIN)
+        x = torch.from_numpy(np.ascontiguousarray(cube))[None].to(resolve_device(cfg.device))
+        ckpt = checkpoints.latest_path(cfg.test_model_dir)
+        outs, n_seen = {}, len(seen)
+        for name, c, dtype in (("tf32", tcfg, f32), ("float32", cfg, f32),
+                               ("float64", dataclasses.replace(cfg, conv_impl="torch",
+                                                               attention_impl="dense"), torch.float64)):
+            m = build_model(c, BANDS).to(dtype)
+            interop.load_checkpoint(ckpt, m)
+            set_matmul_precision(c)
+            with torch.inference_mode():
+                outs[name] = m(x.to(dtype))[3].double()
+            del m
+        del seen[n_seen:]                        # forwards of the comparison, not of the path
+        smax = float(outs["float64"].abs().max())
+        err = {k: float((outs[k] - outs["float64"]).abs().max()) / smax for k in ("tf32", "float32")}
+        log(f"model 512^2 S against float64, max|d| over max|S|: TF32 {err['tf32']:.3e} (tolerance "
+            f"{TF32_S_REL:.0e}), float32 {err['float32']:.3e}; TF32 vs float32 "
+            f"{float((outs['tf32'] - outs['float32']).abs().max()) / smax:.3e}")
+        if not err["tf32"] <= TF32_S_REL:
+            raise AssertionError(f"TF32 S off float64 by {err['tf32']:.3e} of max|S|")
+        del outs, x
+
+        # ---- train_and_test at the stock values, the fused pipeline ----
+        trcfg = load_config(None, {**train_kw, "train_data": "./data/low/train",
+                                   "model_name": "chip_smoke_train_tf32", **tf32_kw})
+        steps = trcfg.epoch * (len(os.listdir(trcfg.train_data)) // trcfg.batch_size)
+        batch_shape = (trcfg.batch_size, trcfg.patch_size, trcfg.patch_size, BANDS)
+        cubes_run = 2 * trcfg.epoch + 2          # eval cubes at each epoch, then the test cubes
+        zero_counts(conv9, attention)
+        t = time.perf_counter()
+        tresult = runner.main(trcfg)
+        trainer = tresult["trainer"]
+        log(f"main path (TF32 train_and_test): {time.perf_counter() - t:.2f} s; {steps} steps on the "
+            f"{trainer.pipeline} pipeline; epoch (host s, wall s) {trainer.epoch_seconds}")
+        read("TF32 train_and_test", "tf32", {"conv9": (3 * steps + cubes_run,) * 2,
+                                             "conv9_wgrad": (2 * steps,) * 2,
+                                             "flash_attention": (cubes_run,) * 2},
+             {("forward", "tf32", batch_shape): 2 * steps, ("dgrad", "tf32", batch_shape): steps,
+              ("forward", "tf32", cube_shape): cubes_run, ("wgrad", "tf32", batch_shape): 2 * steps,
+              ("forward", f32, attn_shape): cubes_run})
+        if trainer.pipeline != "fused":
+            raise AssertionError(f"TF32 train_and_test: {trainer.pipeline} pipeline")
+        check_switches("after the TF32 train_and_test", True)
+        check_training("TF32 train_and_test", trainer, trcfg, tresult, math, np, torch, load_hsi,
+                       LOSS_KEYS)
+
+        # ---- serving: one 512^2 request to a service built with the key ----
+        set_matmul_precision(cfg)
+        scfg = load_config(None, dict(test_kw, phase="serve", serve_port=0, serve_pad_multiple=64,
+                                      use_mlflow=False, model_name=cfg.model_name, **tf32_kw))
+        t = time.perf_counter()
+        srv = serve.build_server_from_config(scfg).start()
+        try:
+            check_switches("TF32 service built", True)
+            with open(os.path.join(cfg.test_data, "cube0.mat"), "rb") as fh:
+                body = fh.read()
+            zero_counts(conv9, attention)
+            status, rh, data = _http(srv, "POST", "/enhance", body)
+            if status != 200:
+                raise AssertionError(f"TF32 serving: HTTP {status}: {data[:300]!r}")
+            read("TF32 serve 512^2 .mat", "tf32", {"conv9": (1, 1), "flash_attention": (1, 1),
+                                                   "conv9_wgrad": (0, 0)},
+                 {("forward", "tf32", cube_shape): 1, ("forward", f32, attn_shape): 1})
+        finally:
+            srv.shutdown()
+        # Serving normalises the body on the host, the test phase while it
+        # loads: inputs an ulp apart here and there, which TF32 rounds to
+        # operands 2^-11 apart. The two S then differ at TF32's rounding level
+        # (the TF32 S is ~2e-4 of max|S| off float64), not at float32's.
+        served = sio.loadmat(io.BytesIO(data))["data"]
+        check_rel("TF32 serving S 512^2 (.mat) vs the TF32 test phase's S, raw scale",
+                  torch.from_numpy(served), torch.from_numpy(s_tf32), 1e-3)
+        log(f"  X-Inference-Seconds {rh['X-Inference-Seconds']}; TF32 service: "
+            f"{time.perf_counter() - t:.2f} s")
+    finally:
+        hook.remove()
+        set_matmul_precision(cfg)
+    if not seen or set(seen) != {(True, True)}:
+        raise AssertionError(f"TF32 path: switches at its forwards {sorted(set(seen))}")
+    check_switches("after the TF32 path (reset for the float32 paths)", False)
+    log(f"TF32 path: both switches on at each of its {len(seen)} whole-model forwards; off again "
+        f"after it")
+    log(f"main path 6c (TF32): {time.perf_counter() - t0:.2f} s; launches {total}")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1180,8 +1420,10 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from sshslie_torch.device import set_matmul_precision
+
+    set_matmul_precision(load_config(None, {}))    # full float32: both TF32 switches off
+    check_switches("start", False)
     dev = torch.device("cuda")
     bf16 = torch.bfloat16
 
@@ -1218,6 +1460,7 @@ def main() -> int:
             tally_shapes(conv9, attention)
             log(f"main path ({what}): {time.perf_counter() - t:.2f} s; launches {counts}; "
                 f"per-cube seconds {result['seconds']}")
+            TEST_SECONDS[what] = result["seconds"]
             scores = result["scores"]
             log(f"{what}: PSNR {scores[0]!r}  SSIM {scores[1]!r}  SAM {scores[2]!r}")
             if not all(math.isfinite(s) for s in scores):
@@ -1266,6 +1509,11 @@ def main() -> int:
 
         # ---- main path 6b: serving, on the test phases' cubes and checkpoints ----
         served = run_serving(cfg, bcfg, test_kw, card)
+
+        # ---- main path 6c: matmul_precision tensorfloat32 (test, train_and_test, serving) ----
+        tf32_counts = run_tf32(cfg, test_kw, train_kw)
+        log(f"test phase per-cube seconds ({card}): float32 {TEST_SECONDS['float32 test']}, TF32 "
+            f"{TEST_SECONDS['TF32 test']} (the second cube is the warm one)")
 
         # ---- main path 4: bfloat16 training at b8 on the fused pipeline, 2 steps a dispatch ----
         bt = load_config(None, {**train_kw, "train_data": "./data/low/train256",
@@ -1416,6 +1664,55 @@ def main() -> int:
             check_rel(f"conv9_wgrad bf16 (1, 37, 53, 64) k{kk}", conv9.conv9_wgrad(x_oddb, dy_oddb, kk),
                       conv9.conv9_wgrad_plain(x_oddb, dy_oddb, kk), 5e-5)
         log(f"bf16 checks at (1, 37, 53, 64), k = 3, 9, 13: {time.perf_counter() - t_odd:.2f} s")
+        # The TF32 entries against their tf32=True plain versions (the same
+        # rounding, exact products, float32 sums in another order) within
+        # 1e-5 of the largest output, repeats bit-identical; and against a
+        # float64 conv of the unrounded operands, elementwise within
+        # (2u + u^2 + n 2^-23) conv(|x|, |w|), u = 2^-11 (each operand's
+        # rounding), n 2^-23 the float32 sums of the n products however they
+        # round. At the main paths' shapes, then ragged at k = 3, 9, 13.
+        check_switches("TF32 kernel checks", False)
+        t_tf32 = time.perf_counter()
+
+        def tf32_check(what, fn, plain, f64, f64_abs, n):
+            got = fn()
+            err = check_rel(what, got, plain(), 1e-5)
+            if not torch.equal(got, fn()):
+                raise AssertionError(f"{what}: repeats differ")
+            bound = (2 * 2.0 ** -11 + 2.0 ** -22 + n * 2.0 ** -23) * f64_abs()
+            excess = float(((got.double() - f64()).abs() - bound).max())
+            if excess > 0:
+                raise AssertionError(f"{what}: over the float64 bound by {excess:.3e}")
+            return err
+
+        def conv_tf32_check(what, xx, ww):
+            return tf32_check(what, lambda: conv9.conv9_fwd(xx, ww, tf32=True),
+                              lambda: conv9.conv9_plain(xx, ww, tf32=True),
+                              lambda: conv9.conv9_plain(xx.double(), ww.double()),
+                              lambda: conv9.conv9_plain(xx.double().abs(), ww.double().abs()),
+                              ww.shape[0] ** 2 * 64)
+
+        def wgrad_tf32_check(what, xx, dy, kk):
+            return tf32_check(what, lambda: conv9.conv9_wgrad(xx, dy, kk, tf32=True),
+                              lambda: conv9.conv9_wgrad_plain(xx, dy, kk, tf32=True),
+                              lambda: conv9.conv9_wgrad_plain(xx.double(), dy.double(), kk),
+                              lambda: conv9.conv9_wgrad_plain(xx.double().abs(), dy.double().abs(), kk),
+                              xx.numel() // 64)
+
+        errs["conv9_512_tf32"] = conv_tf32_check("conv9 tf32 (1, 512, 512, 64) k9", x, w9)
+        errs["conv9_128_tf32"] = conv_tf32_check("conv9 tf32 (2, 128, 128, 64) k9", xt, w9)
+        errs["dgrad_128_tf32"] = conv_tf32_check("conv9 tf32 dgrad (2, 128, 128, 64) k9", gt, wd)
+        errs["wgrad_128_tf32"] = wgrad_tf32_check("conv9_wgrad tf32 (2, 128, 128, 64) k9", xt, gt, 9)
+        g_tf32 = torch.Generator().manual_seed(SEED + 9)
+        dy_odd = torch.randn(x_odd.shape, generator=g_tf32).to(dev)
+        for kk in (3, 9, 13):
+            wk = (torch.randn(kk, kk, 64, 64, generator=g_tf32) * 0.02).to(dev)
+            conv_tf32_check(f"conv9 tf32 (1, 37, 53, 64) k{kk}", x_odd, wk)
+            conv_tf32_check(f"conv9 tf32 dgrad (1, 37, 53, 64) k{kk}", x_odd,
+                            conv9.conv9_dgrad_weights(wk))
+            wgrad_tf32_check(f"conv9_wgrad tf32 (1, 37, 53, 64) k{kk}", x_odd, dy_odd, kk)
+        log(f"TF32 checks (main shapes; (1, 37, 53, 64) at k = 3, 9, 13): "
+            f"{time.perf_counter() - t_tf32:.2f} s")
         # The bfloat16 flash kernel carries p as a bfloat16 hi + lo pair, ~16
         # bits: against sdpa_chunked on the operands widened to float32 (the
         # Pallas kernel's float32 p) within one bfloat16 step of max|o|.
@@ -1521,6 +1818,46 @@ def main() -> int:
             f"|g| > 0.1 of the scale and > 1e-5 (tolerance 1e-4 lr)")
         if not (worst["kernel"] <= 2e-2 and worst["formula"] <= 1e-4 and worst["adam"] <= 1e-4):
             raise AssertionError(f"train step over tolerance: {worst}")
+
+        # The same step with matmul_precision tensorfloat32 (the kernels' TF32
+        # entries, cuDNN and cuBLAS in TF32) against the float64 step, with the
+        # tolerances written before the first chip run (TF32_*_REL).
+        # The TF32 plain path (cuDNN's TF32 for the shallow conv too) beside it,
+        # to tell TF32's own rounding from the kernels'.
+        t32cfg = dataclasses.replace(tcfg, matmul_precision="tensorfloat32")
+        t32_err = {}
+        set_matmul_precision(t32cfg)
+        try:
+            for name, c in (("tf32", t32cfg), ("tf32 plain", dataclasses.replace(
+                    t32cfg, conv_impl="torch", attention_impl="dense"))):
+                m = build_model(c, BANDS, dev, train=True)
+                m.load_state_dict(sd)
+                opt = make_optimizer(m, lr)
+                zero_counts(conv9, attention)
+                t32_terms = train_step(m, opt, xt, coeffs)
+                torch.cuda.synchronize()
+                check_launches(f"{name} train step", read_counts(conv9, attention), "tf32",
+                               {"conv9": (3, 3) if name == "tf32" else (0, 0),
+                                "conv9_wgrad": (2, 2) if name == "tf32" else (0, 0),
+                                "flash_attention": (0, 0)})
+                terms_err = {k: abs(float(t32_terms[k]) / float(paths["float64"][2][k]) - 1)
+                             for k in LOSS_KEYS}
+                t32_err[name] = dict(grad_errors(dict(m.named_parameters()), ref, lr, sd),
+                                     terms=max(terms_err.values()), each_term=terms_err)
+                if name == "tf32":
+                    paths["tf32"] = (m, opt, t32_terms)
+                del m, opt
+        finally:
+            set_matmul_precision(tcfg)
+        ke = t32_err["tf32"]
+        log(f"TF32 train step (b2 x 128^2 x 64) against float64: kernel path {ke}, plain path "
+            f"{t32_err['tf32 plain']} (tolerances: terms {TF32_TERMS_REL:.0e} relative, each "
+            f"gradient {TF32_GRAD_REL} of its scale, all gradients {TF32_GRAD_L2:.0e} in L2, "
+            f"first-step formula 1e-4 lr; predicted before the first run: each gradient within "
+            f"{TF32_GRAD_PREDICTED:.0e}: {'held' if ke['max'] <= TF32_GRAD_PREDICTED else 'failed'})")
+        if not (ke["terms"] <= TF32_TERMS_REL and ke["max"] <= TF32_GRAD_REL
+                and ke["l2_all"] <= TF32_GRAD_L2 and ke["formula"] <= 1e-4):
+            raise AssertionError(f"TF32 train step over tolerance: {ke}")
         paths.pop("float64")
 
         # One bfloat16 train step at b8 on the fused pipeline's batch, both
@@ -1667,10 +2004,14 @@ def main() -> int:
         torch.backends.cudnn.deterministic = False
 
         # ---- times (CUDA events, after warm-up) ----
-        def step_times(what, paths, batch, coeffs, mpb):
-            step_ms = {"kernel": [], "plain": []}
-            for name in ("kernel", "plain", "plain", "kernel"):      # in turns
+        def step_times(what, paths, batch, coeffs, mpb, names=("kernel", "plain"),
+                       setup=lambda name: None):
+            """``setup(name)`` before each of a path's timings (the TF32 switches)."""
+            a, b = names
+            step_ms = {a: [], b: []}
+            for name in (a, b, b, a):      # in turns
                 m, opt, _ = paths[name]
+                setup(name)
                 step_ms[name].append(time_ms(lambda: train_step(m, opt, batch, coeffs), 10, warmup=3))
             for name, times in step_ms.items():
                 ms = sum(times) / len(times)
@@ -1681,9 +2022,10 @@ def main() -> int:
             # behind it. The host clock then reads the dispatch alone (a hidden
             # sync would show as ~100 ms), and the events read the device's
             # work alone.
-            split_ms = {"kernel": [], "plain": []}
-            for name in ("kernel", "plain", "plain", "kernel") * 3:
+            split_ms = {a: [], b: []}
+            for name in (a, b, b, a) * 3:
                 m, opt, _ = paths[name]
+                setup(name)
                 start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 torch.cuda.synchronize()
                 torch.cuda._sleep(200_000_000)
@@ -1703,6 +2045,50 @@ def main() -> int:
 
         mpb = tcfg.batch_size * tcfg.patch_size ** 2 * BANDS / 1e6
         step_times("b2 x 128^2 x 64, float32", paths, xt, coeffs, mpb)
+        # The TF32 step against the float32 step, both on the kernel path, in
+        # turns, the switches set for each; then both traced, by kernel class.
+        step_cfgs = {"tf32": t32cfg, "kernel": tcfg}
+        try:
+            step_times("b2 x 128^2 x 64, matmul_precision tensorfloat32 vs float32", paths, xt,
+                       coeffs, mpb, names=("tf32", "kernel"),
+                       setup=lambda name: set_matmul_precision(step_cfgs[name]))
+            traced = {}
+            for name in ("tf32", "kernel"):
+                m, opt, _ = paths[name]
+                set_matmul_precision(step_cfgs[name])
+                train_step(m, opt, xt, coeffs)
+                torch.cuda.synchronize()
+                acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+                with torch.profiler.profile(activities=acts) as prof:
+                    for _ in range(2):
+                        train_step(m, opt, xt, coeffs)
+                    torch.cuda.synchronize()
+                prof.export_chrome_trace(f"./step_{name}.json")
+                traced[name] = trace_device_ops(f"./step_{name}.json", top=10 ** 6)
+        finally:
+            set_matmul_precision(tcfg)
+        for name, (rows_, classes, total_ms) in traced.items():
+            log(f"train step ({'TF32' if name == 'tf32' else 'float32'}, kernel path) traced, 2 "
+                f"steps: {total_ms / 2:.4f} ms of kernels a step")
+            for cls, ms in sorted(classes.items(), key=lambda r: -r[1]):
+                log(f"  class {ms / 2:9.4f} ms a step {100 * ms / total_ms:5.1f}%  {cls}")
+        cudnn = {name: sorted({r[0] for r in rows_ if kernel_class(r[0]) == "convolutions (cuDNN)"})
+                 for name, (rows_, _, _) in traced.items()}
+        cublas = {name: sorted({r[0] for r in rows_ if kernel_class(r[0]) == "matrix products (cuBLAS)"})
+                  for name, (rows_, _, _) in traced.items()}
+        for name in ("tf32", "kernel"):
+            for what, names_ in (("cuDNN", cudnn[name]), ("cuBLAS", cublas[name])):
+                log(f"  {what} kernels of the {'TF32' if name == 'tf32' else 'float32'} step: "
+                    + "; ".join(n[:110] for n in names_))
+        named = {name: [n for n in cudnn[name] if "tf32" in n.lower()] for name in cudnn}
+        if named["tf32"]:
+            log(f"cuDNN names say TF32: {len(named['tf32'])} of the TF32 step's {len(cudnn['tf32'])} "
+                f"cuDNN kernels, {len(named['kernel'])} of the float32 step's {len(cudnn['kernel'])}")
+            if named["kernel"]:
+                raise AssertionError(f"the float32 step ran TF32 cuDNN kernels: {named['kernel']}")
+        else:
+            log("cuDNN's kernel names do not say whether they run TF32: not asserted")
+        check_switches("after the TF32 step times", False)
         m, opt, _ = paths["kernel"]
         # The real loop (Trainer.fit) on the host sampler: crop and augment on
         # the host, pin, upload without blocking, enqueue the step; the host
@@ -1866,14 +2252,39 @@ def main() -> int:
                  lambda: attention.flash_attention(qb2, kbb2, vb2),
                  lambda: attention.sdpa_chunked(qb2, kbb2, vb2),
                  lambda: F.scaled_dot_product_attention(qb2, kbb2, vb2), flash_bound(qb2),
-                 PEAK_BF16_FLOPS)):
+                 PEAK_BF16_FLOPS),
+                # The TF32 entries; their library calls run with cuDNN's TF32 on.
+                ("conv9 tf32 (1,512,512,64) forward", conv9_src, conv9_rep, "conv9_512_tf32",
+                 ("conv9", "forward", x, "tf32"), lambda: conv9.conv9_fwd(x, w9, tf32=True),
+                 lambda: conv9.conv9_plain(x, w9, tf32=True),
+                 lambda: F.conv2d(xc, wc, padding=4), conv_bound(x), PEAK_TF32_FLOPS),
+                ("conv9 tf32 (2,128,128,64) forward", conv9_src, conv9_rep, "conv9_128_tf32",
+                 ("conv9", "forward", xt, "tf32"), lambda: conv9.conv9_fwd(xt, w9, tf32=True),
+                 lambda: conv9.conv9_plain(xt, w9, tf32=True),
+                 lambda: F.conv2d(xtc, wc, padding=4), conv_bound(xt), PEAK_TF32_FLOPS),
+                ("conv9 tf32 (2,128,128,64) dgrad", conv9_src, conv9_rep, "dgrad_128_tf32",
+                 ("conv9", "dgrad", gt, "tf32"), lambda: conv9.conv9_fwd(gt, wd, tf32=True),
+                 lambda: conv9.conv9_plain(gt, wd, tf32=True),
+                 lambda: torch.nn.grad.conv2d_input(xtc.shape, wc, gtc, padding=4), conv_bound(gt),
+                 PEAK_TF32_FLOPS),
+                ("conv9_wgrad tf32 (2,128,128,64)", wgrad_src, wgrad_rep, "wgrad_128_tf32",
+                 ("conv9_wgrad", "wgrad", xt, "tf32"), lambda: conv9.conv9_wgrad(xt, gt, 9, tf32=True),
+                 lambda: conv9.conv9_wgrad_plain(xt, gt, 9, tf32=True),
+                 lambda: torch.nn.grad.conv2d_weight(xtc, wc.shape, gtc, padding=4),
+                 wgrad_bound(xt), PEAK_TF32_FLOPS)):
             ms = time_ms(fn, 20)
             plain_ms = time_ms(plain, 5)
-            library_ms = time_ms(lib, 20)
+            if peak == PEAK_TF32_FLOPS:
+                set_matmul_precision(t32cfg)
+            try:
+                library_ms = time_ms(lib, 20)
+            finally:
+                set_matmul_precision(tcfg)
             flops, nbytes, exps = work_
             bound, bound_by = bound_ms(work_, peak)
-            kernel_name, role, t_ = count
-            row_key = (kernel_name, role, str(t_.dtype).replace("torch.", ""), tuple(t_.shape))
+            kernel_name, role, t_, *label = count
+            label = label[0] if label else str(t_.dtype).replace("torch.", "")
+            row_key = (kernel_name, role, label, tuple(t_.shape))
             row_keys.append(row_key)
             launches = MAIN_SHAPES.get(row_key, 0)
             rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
@@ -1889,8 +2300,8 @@ def main() -> int:
         shutil.rmtree(work, ignore_errors=True)
     log(f"launches on the main paths: float32 test {test_counts}, float32 train_and_test "
         f"{train_counts}, float32 engine run {engine_counts}, bfloat16 test {btest_counts}, "
-        f"bfloat16 train_and_test {btrain_counts}, serving {served['counts']}; by (kernel, pass, "
-        f"dtype, shape) {MAIN_SHAPES}")
+        f"bfloat16 train_and_test {btrain_counts}, serving {served['counts']}, TF32 "
+        f"{tf32_counts}; by (kernel, pass, dtype, shape) {MAIN_SHAPES}")
     # Each row's launches are those the wrappers counted at its shape on the
     # main paths: every row's shape is one the main paths ran, and every shape
     # the main paths ran has its row (held against the plain version above).

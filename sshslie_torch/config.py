@@ -12,6 +12,13 @@ the same enum checks and the same derived run directories. It differs in:
   dense, ``pallas`` -> kernel.
 * ``device``: '' (the card) | cuda | gpu | cpu. Nothing runs on the CPU unless
   it is asked for.
+* ``matmul_precision``: JAX's meaning of ``jax_default_matmul_precision``
+  on an NVIDIA GPU (:func:`matmul_tf32`): ``default``, ``bfloat16``, ``high``
+  and ``tensorfloat32`` run the float32 convolutions and matrix products in
+  TF32 on the card (cuDNN and cuBLAS by their switches, the conv9 kernels
+  by their TF32 entries), ``float32`` and ``highest`` in full float32. ''
+  is full float32 too, where JAX's '' is the backend's default. On the CPU
+  everything stays float32, as XLA's CPU backend ignores the value.
 * Checkpoints are the reference ``.pth`` files (``checkpoints.py``).
 * PyYAML is imported only when a YAML file is read.
 * Training takes the JAX pipelines: ``fused_pipeline: auto|on`` crops and
@@ -115,7 +122,7 @@ class Config:
     test_timestamp: str = ""              # timestamp of the checkpoint to test
     mat_key_prediction: str = "data"      # key used when reading predictions back for metrics
     precision: str = "float32"            # 'float32' | 'bfloat16': the layers' compute dtype
-    matmul_precision: str = ""            # '' | 'float32' | 'highest': full float32 (TF32 off)
+    matmul_precision: str = ""            # '' | 'float32' | 'highest': full float32; else TF32 on the card
     attention_impl: str = "auto"          # 'auto' | 'dense' | 'chunked' | 'kernel'
     conv_impl: str = "auto"               # 'auto' | 'torch' | 'kernel': the shallow conv's path
     remat: bool = False                   # recompute each sub-network's activations in the backward
@@ -274,14 +281,26 @@ def _validate_enums(cfg: "Config") -> None:
 # ROADMAP.md queue-1 item).
 _NOT_PORTED = (
     (True, lambda c: bool(c.mesh_shape), "mesh_shape (multi-GPU)", "item 7"),
-    (True, lambda c: c.matmul_precision not in ("", "float32", "highest"),
-     "matmul_precision below full float32", "item 12"),
     # JAX acts on fused_window only where it would take the fused pipeline.
     (False, lambda c: (c.fused_window != 0 and c.fused_pipeline != "off"
                        and c.grad_accum_steps <= 1),
      "fused_window (a rotating window of cubes on the device)", "item 9"),
     (False, lambda c: c.sampler == "native", "sampler: native", "item 9"),
 )
+# matmul_precision values that run float32 products in TF32 on the card: the
+# TF32 passes XLA takes for them on an NVIDIA GPU (float32 accumulation).
+TF32_PRECISIONS = ("default", "bfloat16", "high", "tensorfloat32")
+
+
+def matmul_tf32(matmul_precision: str) -> bool:
+    """Does this ``matmul_precision`` run float32 products in TF32 on the
+    card? True for default, bfloat16, high and tensorfloat32; False for
+    float32, highest and '' (the port's full float32)."""
+    if matmul_precision not in _ENUM_FIELDS["matmul_precision"]:
+        raise ValueError(f"matmul_precision: invalid value {matmul_precision!r}")
+    return matmul_precision in TF32_PRECISIONS
+
+
 # Training keys that change only speed; training prints them as ignored.
 SPEED_ONLY_KEYS = ("prefetch_batches", "jit_cache_dir")
 

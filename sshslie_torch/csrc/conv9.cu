@@ -14,7 +14,7 @@
 // float32 entry (sshslie_conv_c64_f32). What bounds it on an H100:
 // arithmetic. One 512x512x64 forward at k = 9 is 2*512^2*81*64*64 = 1.74e11
 // FLOP against ~135 MB in and out, so ~1300 FLOP a byte; float32 outside the
-// tensor cores (TF32 is off for parity) peaks at 67 TFLOP/s, which makes
+// tensor cores (full float32) peaks at 67 TFLOP/s, which makes
 // 2.6 ms the floor, against 0.04 ms for the bytes. Design, an implicit GEMM
 // on the CUDA cores:
 //   * A block of 256 threads owns an 8 x 32 pixel output tile and all 64
@@ -78,6 +78,44 @@
 //     (this form) moved it, so the wgmma shape is not what holds it; the
 //     per-tap barrier and the unoverlapped tile load and epilogue of one
 //     block an SM are what is left to try.
+//
+// TF32 entry (sshslie_conv_c64_tf32): float32 x and w, each operand rounded
+// to TF32 (to nearest, ties away from zero: cvt.rna), products on the
+// tensor cores, float32 sums: conv_pallas.py::conv9_fwd under
+// matmul_precision tensorfloat32 (XLA's TF32 passes on a GPU). What bounds
+// it: the same 1.74e11 FLOP at 512^2 at the dense TF32 rate (495 TFLOP/s)
+// is 0.351 ms, against 0.040 ms for the float32 bytes; 0.0439 ms at the
+// training shape b2 x 128^2. A simple kernel, right first, on mma.sync
+// m16n8k8 .tf32: wgmma takes .tf32 operands K-major only, and the
+// bfloat16 kernel's A (weights by a transposing ldmatrix) does not carry
+// over, as ldmatrix transposes 16-bit elements only. An implicit GEMM with
+// M = output pixels, N = 64 output channels, K = k*k taps x 64 input
+// channels:
+//   * A block of 256 threads owns an 8 x 32 output tile and all 64 output
+//     channels; warp w computes tile row w: 32 pixels (two m16 tiles) x 64
+//     channels. 8 x 32 tiles give 128 blocks at b2 x 128^2, one wave.
+//   * The whole halo'd float32 tile does not fit beside the weights at
+//     k = 13, so the 64 input channels go in two passes of 32: a pixel's 32
+//     channels are one 128-byte row, chunk-swizzled as in the bfloat16
+//     kernel ((8+k-1) x (32+k-1) rows: 80 KB at k = 9, 110 KB at k = 13).
+//     The weights stream one tap (32 ci x 64 co, rows padded to 72 floats)
+//     at a time through a ring of 3 cp.async stages.
+//   * Rounding: the tensor cores ignore the low 13 bits of a .tf32 operand,
+//     so an unrounded float32 would be truncated. cp.async copies bytes:
+//     each thread rounds the 16-byte chunks it copied, in place, once they
+//     have landed and before the barrier that publishes them (the tile once
+//     a pass, the weights once a tap). The fragment loads read TF32 values.
+//   * A (pixels x ci) by ldmatrix.x4 from the swizzled rows: 32-bit values
+//     as pairs of 16-bit ones, so the non-transposing load gives the
+//     row-major A fragment; a tap is another start row. B (ci x co, HWIO as
+//     given: no repacking for the forward or the dgrad weights) by 32-bit
+//     loads, conflict-free on the 72-float rows.
+//   * The tensor cores' float32 sums are not IEEE adds (they truncate),
+//     which would bias a long chain of products by up to ~0.5 ulp a step.
+//     One kernel row's products (k taps x 32 channels: 4k mma) go into
+//     fresh accumulators that are then added to the running sums by float32
+//     adds: no chain runs longer than one kernel row. 128 accumulator
+//     registers a thread, one block an SM.
 #include <type_traits>
 
 #include "common.cuh"
@@ -341,6 +379,164 @@ conv_c64_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
   }
 }
 
+// ---- TF32 entry: tensor cores, mma.sync m16n8k8 ----
+
+constexpr int kTHt = 8;                    // output tile rows per block, one a warp
+constexpr int kTWt = 32;                   // output tile columns per block (two m16 tiles)
+constexpr int kCCt = 32;                   // input channels of a pass: one 128-byte row a pixel
+constexpr int kWStagesT = 3;               // weight taps in shared memory
+constexpr int kWRowT = 72;                 // floats a weight row (64 co + 8): conflict-free B loads
+constexpr int kTapFloatsT = kCCt * kWRowT;
+
+template <int K>
+struct Tf32Tile {
+  static constexpr int kInH = kTHt + K - 1;
+  static constexpr int kInW = kTWt + K - 1;
+  static constexpr int kInPix = kInH * kInW;
+  static constexpr int kInBytes = kInPix * 128;
+  static constexpr int kSmemBytes = kInBytes + kWStagesT * kTapFloatsT * 4;
+};
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 1)
+conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     float* __restrict__ y, int H, int W) {
+  using T = Tf32Tile<K>;
+  constexpr int P = (K - 1) / 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const unsigned xs = smem_u32(smem);                         // [kInPix][32 ci], swizzled
+  float* const wsf = reinterpret_cast<float*>(smem + T::kInBytes);  // [stage][32 ci][kWRowT]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;  // tile row
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int h0 = blockIdx.y * kTHt;
+  const int w0 = blockIdx.x * kTWt;
+  const float* xb = x + static_cast<size_t>(blockIdx.z) * H * W * kC;
+
+  // The halo'd tile of channels ci0 .. ci0+31, zero outside the image; each
+  // thread rounds the chunks it copied once they have landed.
+  auto load_tile = [&](int ci0) {
+    for (int i = tid; i < T::kInPix * 8; i += kThreads) {
+      const int p = i >> 3;
+      const int c = i & 7;
+      const int iy = p / T::kInW;
+      const int gh = h0 - P + iy;
+      const int gw = w0 - P + (p - iy * T::kInW);
+      const bool in = gh >= 0 && gh < H && gw >= 0 && gw < W;
+      const float* src = in ? xb + (static_cast<size_t>(gh) * W + gw) * kC + ci0 + c * 4 : xb;
+      cp_async16(xs + swz128(p, c), src, in ? 16 : 0);
+    }
+  };
+  auto round_tile = [&]() {
+    for (int i = tid; i < T::kInPix * 8; i += kThreads)
+      round16_tf32(reinterpret_cast<float*>(smem + swz128(i >> 3, i & 7)));
+  };
+  // Tap `tap`'s weights for channels ci0 .. ci0+31: 32 rows of 64 co.
+  auto load_tap = [&](int ci0, int tap) {
+    const float* src = w + (static_cast<size_t>(tap) * kC + ci0) * kC;
+    float* dst = wsf + (tap % kWStagesT) * kTapFloatsT;
+    for (int i = tid; i < kCCt * 16; i += kThreads)
+      cp_async16(smem_u32(dst + (i >> 4) * kWRowT + (i & 15) * 4), src + (i >> 4) * kC + (i & 15) * 4,
+                 16);
+  };
+  auto round_tap = [&](int tap) {
+    float* dst = wsf + (tap % kWStagesT) * kTapFloatsT;
+    for (int i = tid; i < kCCt * 16; i += kThreads) round16_tf32(dst + (i >> 4) * kWRowT + (i & 15) * 4);
+  };
+
+  // acc[m][n]: pixels 16 m .. 16 m + 15 of tile row `warp` x output channels 8 n .. 8 n + 7.
+  float acc[2][8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+
+  // A: lane l addresses pixel (l & 7) + 8 ((l >> 3) & 1) of an m16 tile and
+  // the 4-channel chunk 2 ks + (l >> 4) of the k step.
+  const int apix = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int achunk = lane >> 4;
+
+#pragma unroll 1
+  for (int pass = 0; pass < 2; ++pass) {
+    const int ci0 = pass * kCCt;
+    if (pass) __syncthreads();  // every warp is done with the first pass's tile and weights
+    // Group 0: the tile and tap 0; then one group a tap.
+    load_tile(ci0);
+    for (int t = 0; t < kWStagesT - 1; ++t) {
+      load_tap(ci0, t);
+      cp_async_commit();
+    }
+#pragma unroll 1
+    for (int kh = 0; kh < K; ++kh) {
+      // One kernel row's products, summed on the tensor cores.
+      float part[2][8][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) part[m][n][i] = 0.f;
+#pragma unroll 1
+      for (int kw = 0; kw < K; ++kw) {
+        const int tap = kh * K + kw;
+        cp_async_wait<kWStagesT - 2>();  // this tap (and, at tap 0, the tile) landed
+        if (tap == 0) round_tile();
+        round_tap(tap);
+        __syncthreads();  // ... rounded, for all threads; and tap - 1's slot is free again
+        if (tap + kWStagesT - 1 < K * K) load_tap(ci0, tap + kWStagesT - 1);
+        cp_async_commit();  // possibly empty: keeps one group per tap
+        const float* wt = wsf + (tap % kWStagesT) * kTapFloatsT;
+        const int prow = (warp + kh) * T::kInW + kw + apix;
+#pragma unroll
+        for (int ks = 0; ks < kCCt / 8; ++ks) {
+          unsigned b[8][2];
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            b[n][0] = __float_as_uint(wt[(8 * ks + q) * kWRowT + 8 * n + g]);
+            b[n][1] = __float_as_uint(wt[(8 * ks + q + 4) * kWRowT + 8 * n + g]);
+          }
+#pragma unroll
+          for (int m = 0; m < 2; ++m) {
+            unsigned a[4];
+            ldsm_x4(a, xs + swz128(prow + 16 * m, 2 * ks + achunk));
+#pragma unroll
+            for (int n = 0; n < 8; ++n) mma_m16n8k8_tf32(part[m][n], a, b[n][0], b[n][1]);
+          }
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[m][n][i] += part[m][n][i];
+    }
+    cp_async_wait<0>();
+  }
+
+  // Epilogue: d[0], d[1] are pixel g, channels 2q and 2q + 1; d[2], d[3] pixel g + 8.
+  const int oh = h0 + warp;
+  if (oh >= H) return;
+  float* yrow = y + (static_cast<size_t>(blockIdx.z) * H + oh) * W * kC;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ow = w0 + 16 * m + g + 8 * half;
+      if (ow < W) {
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+          *reinterpret_cast<float2*>(yrow + static_cast<size_t>(ow) * kC + 8 * n + 2 * q) =
+              make_float2(acc[m][n][2 * half], acc[m][n][2 * half + 1]);
+      }
+    }
+}
+
 template <int K>
 int launch(const float* x, const float* w, float* y, int B, int H, int W, cudaStream_t stream) {
   constexpr int kSmem = Tile<K>::kSmemBytes;
@@ -361,6 +557,18 @@ int launch(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16* y, int
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((W + kTWb - 1) / kTWb, (H + kTHb - 1) / kTHb, B);
   conv_c64_bf16_kernel<K><<<grid, kThreads, kSmem, stream>>>(x, w, y, H, W);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int K>
+int launch_tf32(const float* x, const float* w, float* y, int B, int H, int W,
+                cudaStream_t stream) {
+  constexpr int kSmem = Tf32Tile<K>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_c64_tf32_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((W + kTWt - 1) / kTWt, (H + kTHt - 1) / kTHt, B);
+  conv_c64_tf32_kernel<K><<<grid, kThreads, kSmem, stream>>>(x, w, y, H, W);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -397,4 +605,24 @@ SSHSLIE_EXPORT int sshslie_conv_c64_bf16(const void* x, const void* w, void* y,
                                          int B, int H, int W, int K,
                                          void* stream) {
   return conv_entry<__nv_bfloat16>(x, w, y, B, H, W, K, stream);
+}
+
+// The same as sshslie_conv_c64_f32 with both operands rounded to TF32 and
+// the products on the tensor cores (float32 sums).
+SSHSLIE_EXPORT int sshslie_conv_c64_tf32(const void* x, const void* w, void* y,
+                                         int B, int H, int W, int K,
+                                         void* stream) {
+  const float* xf = static_cast<const float*>(x);
+  const float* wf = static_cast<const float*>(w);
+  float* yf = static_cast<float*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (K) {
+    case 3: return launch_tf32<3>(xf, wf, yf, B, H, W, s);
+    case 5: return launch_tf32<5>(xf, wf, yf, B, H, W, s);
+    case 7: return launch_tf32<7>(xf, wf, yf, B, H, W, s);
+    case 9: return launch_tf32<9>(xf, wf, yf, B, H, W, s);
+    case 11: return launch_tf32<11>(xf, wf, yf, B, H, W, s);
+    case 13: return launch_tf32<13>(xf, wf, yf, B, H, W, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

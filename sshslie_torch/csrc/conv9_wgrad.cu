@@ -13,7 +13,7 @@
 // float32 entry (sshslie_conv9_wgrad_f32). What bounds it on an H100:
 // arithmetic. At the training shape (2, 128, 128, 64), k = 9, it is
 // 2*32768*81*64*64 = 2.17e10 FLOP against ~18 MB in and out, so ~1200 FLOP a
-// byte; float32 outside the tensor cores (TF32 is off for parity) peaks at 67
+// byte; float32 outside the tensor cores (full float32) peaks at 67
 // TFLOP/s: 0.32 ms, against ~5 us for the bytes.
 //
 // Design, a split-K reduction over the B*H*W pixels on the CUDA cores:
@@ -68,6 +68,40 @@
 //     one wave of resident blocks (sshslie_conv9_wgrad_resident_bf16).
 //   * L2 traffic: every (kh, tap group) reads all of x and dY once, k times
 //     the 33.5 MB of operands at b8 x 128^2 and k = 9: 0.3 GB.
+//
+// TF32 entry (sshslie_conv9_wgrad_tf32): float32 x and dY, each operand
+// rounded to TF32 (cvt.rna), products on the tensor cores, float32 sums,
+// partials and dW (conv_pallas.py::conv9_wgrad under matmul_precision
+// tensorfloat32). What bounds it: the 2.17e10 FLOP at the training shape
+// (2, 128, 128, 64), k = 9, at the dense TF32 rate (495 TFLOP/s): 0.0439
+// ms, against ~0.01 ms for the float32 bytes. A simple kernel, right first,
+// on mma.sync m16n8k8 .tf32: the bfloat16 kernel reads X as an MN-major
+// wgmma B, which .tf32 does not allow, and its transposing ldmatrix moves
+// 16-bit elements only. Per tap a GEMM dW_tap (64 ci x 64 co) = X_tap^T
+// (64 x P) dY (P x 64) over the P = B*H*W pixels, split into slices:
+//   * Block (slice s, kernel row kh, tap group) owns up to 5 taps of row
+//     kh, two warps a tap: warp 2i + j computes tap i's input channels
+//     32 j .. 32 j + 31 x all 64 output channels (two m16 tiles x eight n8
+//     tiles, 64 float32 accumulators a thread); 10 warps at k >= 5.
+//   * Per image row of the slice, 64 pixels at a time, the block stages
+//     the dY segment (64 px x 64 co) and the halo'd input segment (64+k-1
+//     px x 64 ci, zero outside the image by cp.async src-size 0) as float32
+//     rows padded to 72 floats, through a ring of 3 stages: one landing
+//     while the tensor cores read another. One __syncthreads a segment.
+//   * Rounding: each thread rounds the 16-byte chunks it copied, in place,
+//     once they have landed and before the barrier that publishes them.
+//   * A (ci x px: X shifted by the tap) and B (px x co: dY) by 32-bit loads
+//     straight from the [px][channel] rows (the fragments' k index is the
+//     pixel, so no transposed copy is needed), conflict-free on the
+//     72-float rows.
+//   * The tensor cores' sums truncate; each segment's products (8 k steps)
+//     go into fresh accumulators that are added to the running sums by
+//     float32 adds, so no chain runs longer than one segment.
+//   * Rows whose input row lands in the zero padding are skipped, partials
+//     go to the scratch buffer and wgrad_reduce_kernel sums them in slice
+//     order, as in the other entries: repeats are bit-identical. The slice
+//     count fills one wave of resident blocks
+//     (sshslie_conv9_wgrad_splits_tf32).
 #include <type_traits>
 
 #include "common.cuh"
@@ -352,6 +386,170 @@ wgrad_c64_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
   }
 }
 
+// ---- TF32 entry: tensor cores, mma.sync m16n8k8 ----
+
+constexpr int kSegT = 64;      // pixels of a row staged at a time
+constexpr int kStagesT = 3;    // segments in shared memory: one landing, one being read
+constexpr int kRowT = 72;      // floats a staged pixel: 64 channels + 8 (conflict-free loads)
+constexpr int kMaxTapsT = 5;   // taps a block owns, two warps a tap
+
+template <int K>
+struct Tf32WTile {
+  static constexpr int kTaps = K < kMaxTapsT ? K : kMaxTapsT;
+  static constexpr int kGroups = (K + kTaps - 1) / kTaps;
+  static constexpr int kThreads = 64 * kTaps;
+  static constexpr int kInW = kSegT + K - 1;  // X pixels a segment
+  static constexpr int kStageFloats = (kSegT + kInW) * kRowT;
+  static constexpr int kSmemBytes = kStagesT * kStageFloats * 4;
+};
+
+template <int K>
+__global__ void __launch_bounds__(Tf32WTile<K>::kThreads, 1)
+wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                      float* __restrict__ part, int B, int H, int W, int splits) {
+  using T = Tf32WTile<K>;
+  constexpr int P = (K - 1) / 2;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  float* const sf = reinterpret_cast<float*>(smem);  // [stage][dY 64 px, then X kInW px][kRowT]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int q = lane & 3;
+  const int s = blockIdx.x;
+  const int kh = blockIdx.y;
+  const int kw = blockIdx.z * T::kTaps + (warp >> 1);  // this warp's tap
+  const int ci0 = (warp & 1) * 32;                     // ... and its 32 input channels
+  const bool active = kw < K;
+  const long long rows = static_cast<long long>(B) * H;
+  const int r0 = static_cast<int>(rows * s / splits);
+  const int r1 = static_cast<int>(rows * (s + 1) / splits);
+  const int nseg = (W + kSegT - 1) / kSegT;
+
+  // Rows whose input row kh lands in the zero padding add nothing.
+  auto valid = [&](int r) {
+    const int hx = r % H + kh - P;
+    return hx >= 0 && hx < H;
+  };
+  int items = 0;  // (row, segment) pairs of the slice to sum
+  for (int r = r0; r < r1; ++r) items += valid(r);
+  items *= nseg;
+
+  // The load cursor: the next (row, segment) to stage.
+  int lr = r0;
+  while (lr < r1 && !valid(lr)) ++lr;
+  int lseg = 0;
+  // Stage the cursor's segment into slot st (dY, and X zero outside the
+  // image) and advance the cursor; past the slice's end, nothing.
+  auto load_next = [&](int st) {
+    if (lr >= r1) return;
+    const int b = lr / H;
+    const int h = lr - b * H;
+    const int w0 = lseg * kSegT;
+    const float* drow = dy + (static_cast<size_t>(b) * H + h) * W * kC;
+    const float* xrow = x + (static_cast<size_t>(b) * H + h + kh - P) * W * kC;
+    float* stage = sf + st * T::kStageFloats;
+    for (int i = tid; i < (kSegT + T::kInW) * 16; i += T::kThreads) {
+      const int p = i >> 4;
+      const int c = i & 15;
+      const unsigned dst = smem_u32(stage + p * kRowT + c * 4);
+      if (p < kSegT) {
+        const bool in = w0 + p < W;
+        cp_async16(dst, in ? drow + static_cast<size_t>(w0 + p) * kC + c * 4 : dy, in ? 16 : 0);
+      } else {
+        const int gw = w0 - P + (p - kSegT);
+        const bool in = gw >= 0 && gw < W;
+        cp_async16(dst, in ? xrow + static_cast<size_t>(gw) * kC + c * 4 : x, in ? 16 : 0);
+      }
+    }
+    if (++lseg == nseg) {
+      lseg = 0;
+      do ++lr; while (lr < r1 && !valid(lr));
+    }
+  };
+  // Round, in place, the chunks this thread copied into slot st.
+  auto round_stage = [&](int st) {
+    float* stage = sf + st * T::kStageFloats;
+    for (int i = tid; i < (kSegT + T::kInW) * 16; i += T::kThreads)
+      round16_tf32(stage + (i >> 4) * kRowT + (i & 15) * 4);
+  };
+
+  // acc[m][n]: input channels ci0 + 16 m .. + 15 (M) x output channels 8 n .. 8 n + 7 (N).
+  float acc[2][8][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+
+  for (int st = 0; st < kStagesT - 1; ++st) {
+    load_next(st);
+    cp_async_commit();  // possibly empty: keeps one group per segment
+  }
+#pragma unroll 1
+  for (int it = 0; it < items; ++it) {
+    cp_async_wait<kStagesT - 2>();  // segment it landed
+    round_stage(it % kStagesT);
+    __syncthreads();  // ... rounded, for all threads; and every warp is done with it - 1
+    load_next((it + kStagesT - 1) % kStagesT);
+    cp_async_commit();
+    if (!active) continue;
+    const float* ds = sf + (it % kStagesT) * T::kStageFloats;  // dY rows [px][co]
+    const float* xs = ds + (kSegT + kw) * kRowT + ci0;         // X rows shifted by the tap
+    float sum[2][8][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sum[m][n][i] = 0.f;
+#pragma unroll 2
+    for (int ks = 0; ks < kSegT / 8; ++ks) {
+      const int p0 = (8 * ks + q) * kRowT;
+      const int p1 = p0 + 4 * kRowT;
+      unsigned b[8][2];
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        b[n][0] = __float_as_uint(ds[p0 + 8 * n + g]);
+        b[n][1] = __float_as_uint(ds[p1 + 8 * n + g]);
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const unsigned a[4] = {__float_as_uint(xs[p0 + 16 * m + g]),
+                               __float_as_uint(xs[p0 + 16 * m + g + 8]),
+                               __float_as_uint(xs[p1 + 16 * m + g]),
+                               __float_as_uint(xs[p1 + 16 * m + g + 8])};
+#pragma unroll
+        for (int n = 0; n < 8; ++n) mma_m16n8k8_tf32(sum[m][n], a, b[n][0], b[n][1]);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[m][n][i] += sum[m][n][i];
+  }
+  cp_async_wait<0>();
+  if (!active) return;
+
+  // Partial of slice s: part[s][kh][kw][ci][co]; d[0], d[1] are input
+  // channel g, output channels 2q and 2q + 1; d[2], d[3] input channel g + 8.
+  float* out = part + ((static_cast<size_t>(s) * K + kh) * K + kw) * kC * kC;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int ci = ci0 + 16 * m + g;
+      *reinterpret_cast<float2*>(out + ci * kC + 8 * n + 2 * q) =
+          make_float2(acc[m][n][0], acc[m][n][1]);
+      *reinterpret_cast<float2*>(out + (ci + 8) * kC + 8 * n + 2 * q) =
+          make_float2(acc[m][n][2], acc[m][n][3]);
+    }
+}
+
 template <int K>
 int splits_for(int B, int H) {
   int dev = 0, sms = 0, per_sm = 0;
@@ -385,6 +583,28 @@ int resident_bf16() {
   return sms * (per_sm > 0 ? per_sm : 1);
 }
 
+// Slices of the TF32 kernel: one wave of its resident blocks, K * kGroups
+// blocks a slice; at least 1, at most one image row a slice.
+template <int K>
+int splits_tf32(int B, int H) {
+  using T = Tf32WTile<K>;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(wgrad_c64_tf32_kernel<K>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         T::kSmemBytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wgrad_c64_tf32_kernel<K>,
+                                                        T::kThreads, T::kSmemBytes);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  const long long capacity = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
+  long long splits = capacity / (K * T::kGroups);
+  const long long rows = static_cast<long long>(B) * H;
+  if (splits > rows) splits = rows;
+  return static_cast<int>(splits < 1 ? 1 : splits);
+}
+
 int reduce(const float* part, float* dw, int K, int splits, cudaStream_t stream) {
   const int n4 = K * K * kC * kC / 4;
   const int blocks = (n4 + 255) / 256;
@@ -412,6 +632,21 @@ int launch(const __nv_bfloat16* x, const __nv_bfloat16* dy, float* part, float* 
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(splits, K, T::kGroups);
   wgrad_c64_bf16_kernel<K><<<grid, T::kThreads, T::kSmemBytes, stream>>>(x, dy, part, B, H, W,
+                                                                         splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return reduce(part, dw, K, splits, stream);
+}
+
+template <int K>
+int launch_tf32(const float* x, const float* dy, float* part, float* dw, int B, int H, int W,
+                int splits, cudaStream_t stream) {
+  using T = Tf32WTile<K>;
+  cudaError_t err = cudaFuncSetAttribute(
+      wgrad_c64_tf32_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(splits, K, T::kGroups);
+  wgrad_c64_tf32_kernel<K><<<grid, T::kThreads, T::kSmemBytes, stream>>>(x, dy, part, B, H, W,
                                                                          splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -487,4 +722,42 @@ SSHSLIE_EXPORT int sshslie_conv9_wgrad_bf16(const void* x, const void* dy, void*
                                             int B, int H, int W, int K, int splits,
                                             void* stream) {
   return wgrad_entry<__nv_bfloat16>(x, dy, part, dw, B, H, W, K, splits, stream);
+}
+
+// How many pixel-row slices sshslie_conv9_wgrad_tf32 splits the reduction
+// into, for this card (one wave of its resident blocks). Negative CUDA
+// error code on failure (-1 for a K the kernel does not take).
+SSHSLIE_EXPORT int sshslie_conv9_wgrad_splits_tf32(int B, int H, int K) {
+  switch (K) {
+    case 3: return splits_tf32<3>(B, H);
+    case 5: return splits_tf32<5>(B, H);
+    case 7: return splits_tf32<7>(B, H);
+    case 9: return splits_tf32<9>(B, H);
+    case 11: return splits_tf32<11>(B, H);
+    case 13: return splits_tf32<13>(B, H);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The same as sshslie_conv9_wgrad_f32 with x and dy rounded to TF32 and the
+// products on the tensor cores (float32 sums, partials and dw). splits from
+// sshslie_conv9_wgrad_splits_tf32, at most B*H.
+SSHSLIE_EXPORT int sshslie_conv9_wgrad_tf32(const void* x, const void* dy, void* part, void* dw,
+                                            int B, int H, int W, int K, int splits,
+                                            void* stream) {
+  const float* xf = static_cast<const float*>(x);
+  const float* df = static_cast<const float*>(dy);
+  float* pf = static_cast<float*>(part);
+  float* wf = static_cast<float*>(dw);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (K) {
+    case 3: return launch_tf32<3>(xf, df, pf, wf, B, H, W, splits, st);
+    case 5: return launch_tf32<5>(xf, df, pf, wf, B, H, W, splits, st);
+    case 7: return launch_tf32<7>(xf, df, pf, wf, B, H, W, splits, st);
+    case 9: return launch_tf32<9>(xf, df, pf, wf, B, H, W, splits, st);
+    case 11: return launch_tf32<11>(xf, df, pf, wf, B, H, W, splits, st);
+    case 13: return launch_tf32<13>(xf, df, pf, wf, B, H, W, splits, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

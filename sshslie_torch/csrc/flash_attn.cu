@@ -12,7 +12,7 @@
 //
 // What bounds it: at (1, 4, 4096, 16) the two products are 4*B*H*S^2*D =
 // 4.3e9 FLOP, 64 us at the 67 TFLOP/s of float32 FMA outside the tensor cores
-// (TF32 is off for parity); the 6.7e7 exponentials take 16 us on the SFU's own
+// (full float32, also under TF32); the 6.7e7 exponentials take 16 us on the SFU's own
 // pipe, and the 4.2 MB of q, k, v and o 1.3 us. So the FMA pipes set the
 // floor. Next to them, shared memory: a warp's LDS.128 hands 512 bytes to its
 // registers, 4 clocks of an SM's 128 bytes a clock whatever the broadcast, so

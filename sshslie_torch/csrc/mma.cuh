@@ -1,8 +1,10 @@
-// Tensor-core building blocks of the bfloat16 kernels (conv9.cu,
+// Tensor-core building blocks of the bfloat16 and TF32 kernels (conv9.cu,
 // conv9_wgrad.cu, flash_attn.cu): cp.async copies into shared memory,
-// ldmatrix loads of fragments, mma.sync m16n8k16 (flash attention), and
-// wgmma (m64nNk16, bfloat16 operands, float32 accumulators) with B read
-// from shared memory through a descriptor (the conv kernels).
+// ldmatrix loads of fragments, mma.sync m16n8k16 (flash attention), wgmma
+// (m64nNk16, bfloat16 operands, float32 accumulators) with B read from
+// shared memory through a descriptor (the bfloat16 conv kernels), and
+// mma.sync m16n8k8 on TF32 operands with the rounding that feeds it (the
+// TF32 conv kernels).
 //
 // Shared-memory layout the conv kernels assume: rows of 128 bytes (64 bfloat16, one
 // pixel's channels or one input channel's 64 output channels), each row
@@ -136,4 +138,41 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const unsigned (
       "{%32, %33, %34, %35}, %36, 1, 1, 1, %37;\n"
       : SSHSLIE_ACC16(d), SSHSLIE_ACC16(e)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(kMnMajor));
+}
+
+// ---- TF32: float32 operands rounded to TF32, mma.sync m16n8k8 (one warp) ----
+//
+// The tensor cores read a .tf32 operand from a 32-bit register and ignore
+// its low 13 bits: an unrounded float32 would be truncated. The TF32 kernels
+// therefore round every operand first, to nearest with ties away from zero
+// (cvt.rna, ops/conv9.py::round_to_tf32), in shared memory after it lands.
+
+// v rounded to TF32: the bits of a float32 whose low 13 bits are zero.
+__device__ __forceinline__ float tf32_rna(float v) {
+  unsigned r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// The four float32 at p (16-byte aligned, shared memory) rounded to TF32 in place.
+__device__ __forceinline__ void round16_tf32(float* p) {
+  float4 v = *reinterpret_cast<float4*>(p);
+  v = make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+// d (16 x 8, float32) += a (16 x 8 tf32) * b (8 x 8 tf32). With g = lane / 4
+// and t = lane % 4: a[0] holds row g, column t; a[1] row g+8, column t; a[2]
+// row g, column t+4; a[3] row g+8, column t+4. b0 holds row (k) t of column
+// (n) g, b1 row t+4. d as in mma_m16n8k16: d[0], d[1] row g, columns 2t and
+// 2t+1; d[2], d[3] row g+8. An ldmatrix.x4 (b16) of 8 x 4 float32 blocks
+// gives lane l the float (l % 4) of row l / 4 of each block: the A fragment
+// of a row-major A, from the blocks (rows 0-7, k 0-3), (8-15, 0-3), (0-7,
+// 4-7), (8-15, 4-7).
+__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const unsigned (&a)[4],
+                                                 unsigned b0, unsigned b1) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+               "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }

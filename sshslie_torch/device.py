@@ -1,10 +1,13 @@
-"""Where the port runs: the CUDA card, or the CPU only when asked for."""
+"""Where the port runs (the CUDA card, or the CPU only when asked for), and
+the card's float32 product precision."""
 
 from __future__ import annotations
 
 from typing import Optional, Union
 
 import torch
+
+from sshslie_torch.config import Config, matmul_tf32
 
 
 def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
@@ -27,3 +30,16 @@ def resolve_device(device: Union[None, str, torch.device] = None) -> torch.devic
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def set_matmul_precision(cfg: Config) -> bool:
+    """Set ``torch.backends.cudnn.allow_tf32`` and
+    ``torch.backends.cuda.matmul.allow_tf32`` from ``cfg.matmul_precision``
+    (``config.matmul_tf32``) and return what was set: True runs cuDNN's and
+    cuBLAS's float32 convolutions and products in TF32 on the card. The
+    only place in the package that writes the two switches; they act on the
+    card only (the CPU stays float32)."""
+    tf32 = matmul_tf32(cfg.matmul_precision)
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    return tf32

@@ -14,7 +14,9 @@ of the three sub-network applications of a training forward (decom(low),
 illum, decom(S)) in ``torch.utils.checkpoint`` (JAX ``nn.remat`` of each
 sub-network, ``enhance.py:33-57``): their activations are recomputed in the
 backward instead of kept. It changes neither the result nor the state-dict
-keys.
+keys. ``tf32`` (``matmul_precision`` below float32) sets every Conv2d's
+``tf32`` flag, as ``dtype`` sets their compute dtype: the shallow conv's
+kernels then take their TF32 entries for float32 operands on the card.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from sshslie_torch.config import matmul_tf32
 from sshslie_torch.device import resolve_device
 from sshslie_torch.models.decomposition import DecompositionNet
 from sshslie_torch.models.illum_adjust import IllumAdjustmentNet
@@ -40,7 +43,7 @@ class LowLightEnhanceNet(nn.Module):
                  use_attention: bool = False, use_transformer: bool = True,
                  attention_impl: str = "auto", conv_impl: str = "auto",
                  remat: bool = False, dtype: Optional[torch.dtype] = None,
-                 generator: Optional[torch.Generator] = None):
+                 tf32: bool = False, generator: Optional[torch.Generator] = None):
         super().__init__()
         self.input_channels = input_channels
         self.remat = remat
@@ -53,6 +56,8 @@ class LowLightEnhanceNet(nn.Module):
         for m in self.modules():
             if isinstance(m, (Conv2d, ConvTranspose2d, Dense)):
                 m.compute_dtype = dtype
+            if isinstance(m, Conv2d):
+                m.tf32 = tf32
 
     def _apply_net(self, net: nn.Module, *args: torch.Tensor):
         """One sub-network application, checkpointed under ``remat`` when
@@ -80,14 +85,15 @@ class LowLightEnhanceNet(nn.Module):
 def build_model(cfg, channels: int, device: Union[None, str, torch.device] = None,
                 generator: Optional[torch.Generator] = None,
                 train: bool = False) -> LowLightEnhanceNet:
-    """The configured model (``precision``, ``remat``, the kernel switches) on
-    ``device`` (default: ``cfg.device``, which means the CUDA card unless it
-    says 'cpu'), in eval mode, or in train mode with ``train``. The net has no dropout and no batch norm, so the two modes
+    """The configured model (``precision``, ``matmul_precision``, ``remat``,
+    the kernel switches) on ``device`` (default: ``cfg.device``, which means
+    the CUDA card unless it says 'cpu'), in eval mode, or in train mode with
+    ``train``. The net has no dropout and no batch norm, so the two modes
     compute the same function; the flag keeps ``model.training`` honest."""
     dev = resolve_device(cfg.device if device is None else device)
     model = LowLightEnhanceNet(
         input_channels=channels, use_attention=cfg.use_attention,
         use_transformer=cfg.use_transformer, attention_impl=cfg.attention_impl,
         conv_impl=cfg.conv_impl, remat=cfg.remat, dtype=PRECISIONS[cfg.precision],
-        generator=generator)
+        tf32=matmul_tf32(cfg.matmul_precision), generator=generator)
     return model.to(dev).train(train)

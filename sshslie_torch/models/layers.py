@@ -10,7 +10,11 @@ keep torch's own layouts and names (Conv2d OIHW, ConvTranspose2d IOHW, Linear
   padding, which at stride 2 is the JAX package's explicit pad pair. Shapes
   that ``ops/conv9.py::conv9_supported`` takes go to the CUDA kernel when the
   impl asks for it ('kernel', or 'auto' on CUDA); everything else goes to
-  ``F.conv2d``, as the JAX package sends them to ``lax.conv``.
+  ``F.conv2d``, as the JAX package sends them to ``lax.conv``. Its ``tf32``
+  flag (``matmul_precision`` below float32) takes the kernels' TF32 entries
+  for float32 operands on CUDA; ``F.conv2d``, ``ConvTranspose2d`` and
+  ``Dense`` follow cuDNN's and cuBLAS's own TF32 switches
+  (``device.set_matmul_precision``), and the CPU stays float32.
 * :class:`ConvTranspose2d`: ``nn.ConvTranspose2d(k3, s2, p1, op1)``; the JAX
   package's flipped, input-dilated conv is this op.
 * :class:`Dense`: ``nn.Linear``.
@@ -52,6 +56,7 @@ class Conv2d(nn.Module):
     """k x k conv, padding (k-1)//2, OIHW weight, with the shallow-conv dispatch."""
 
     compute_dtype: Optional[torch.dtype] = None
+    tf32: bool = False
 
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1,
                  impl: str = "torch", generator: Optional[torch.Generator] = None):
@@ -74,7 +79,8 @@ class Conv2d(nn.Module):
         x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
         if self._use_kernel(x):
             y = conv9.shallow_conv(x.permute(0, 2, 3, 1).contiguous(),
-                                   w.permute(2, 3, 1, 0).contiguous(), b)
+                                   w.permute(2, 3, 1, 0).contiguous(), b,
+                                   self.tf32 and x.is_cuda and x.dtype == torch.float32)
             return y.permute(0, 3, 1, 2)
         p = (self.k - 1) // 2
         if self.compute_dtype is None:

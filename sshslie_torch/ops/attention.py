@@ -21,6 +21,13 @@ Counterpart of ``sshslie_tpu/ops/attention.py``:
   dispatch takes the Pallas kernel on a TPU and the chunked form elsewhere.
 
 The softmax scale is 1/sqrt(D), as the reference's scaled dot product.
+
+``matmul_precision`` below float32 (TF32 on the card): the dense and chunked
+forms are ``torch.einsum`` and matrix products, which cuBLAS then runs in
+TF32 by its switch, as XLA runs its dots in JAX. The flash kernel keeps its
+float32 entry: full float32 is within what TF32 precision permits, and the
+kernel is a small share of a forward (``PERF.md`` §5). A TF32 entry is
+queued in ``ROADMAP.md`` queue 2.
 """
 
 from __future__ import annotations

@@ -14,9 +14,13 @@ Layout as in the JAX package: x is NHWC (B, H, W, 64), w is HWIO
 * Both take float32 or bfloat16 operands, as the Pallas kernels do, and
   dispatch by dtype: all-float32 to the float32 entry, all-bfloat16 to the
   bfloat16 one (float32 accumulation; conv9's output in bfloat16, the weight
-  gradient in float32). Mixed dtypes raise; nothing is converted. Each
-  launch also counts in ``launches_by_dtype[dtype]`` and in
-  ``launches_by_shape[(pass, dtype, x.shape)]``, pass "forward", "dgrad"
+  gradient in float32). Mixed dtypes raise; nothing is converted. With
+  ``tf32=True`` (``matmul_precision`` tensorfloat32 and its kin on the
+  card) float32 operands go to the TF32 entry instead: both operands
+  rounded to TF32 (:func:`round_to_tf32`), products on the tensor cores,
+  float32 sums; other dtypes raise. Each launch also counts in
+  ``launches_by_dtype[label]`` and in ``launches_by_shape[(pass, label,
+  x.shape)]``, label the dtype or "tf32", pass "forward", "dgrad"
   (conv9_fwd called from :class:`ShallowConv`'s backward) or "wgrad".
 * Neither wrapper is differentiable: called where autograd would record it
   (grad mode on, an input that requires grad) it raises.
@@ -28,7 +32,8 @@ Layout as in the JAX package: x is NHWC (B, H, W, 64), w is HWIO
   the kernels sum them: k*k matrix products over the B*H*W pixels, summed in
   float32 at least whatever the operands' dtype (the TPU kernels accumulate
   in float32); the conv's result is cast to x's dtype, the weight gradient
-  stays float32.
+  stays float32. With ``tf32=True`` they round both operands to TF32 first
+  (the products of two TF32 values are exact in float32).
 * :func:`conv9_supported` is the gate ``models/layers.py::Conv2d`` uses:
   stride 1, odd k from 3 to 13, 64 channels in and out. It is the JAX gate
   without its TPU tile rules (W % 128), plus the kernels' own k limit.
@@ -50,6 +55,8 @@ CHANNELS = 64
 KERNEL_SIZES = (3, 5, 7, 9, 11, 13)
 # The dtypes the kernels take, and the suffix of each one's C entry.
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# The label and C-entry suffix of the TF32 entries (float32 operands).
+TF32 = "tf32"
 
 
 def conv9_supported(shape: Tuple[int, ...], k: int, ci: int, co: int, stride: int = 1) -> bool:
@@ -58,14 +65,34 @@ def conv9_supported(shape: Tuple[int, ...], k: int, ci: int, co: int, stride: in
             and len(shape) == 4 and shape[-1] == CHANNELS)
 
 
-def conv9_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def round_to_tf32(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32 (10 explicit mantissa bits) to nearest,
+    ties away from zero, as PTX ``cvt.rna.tf32.f32``: on the int32 bits, the
+    magnitude plus 0x1000 with the low 13 bits then cleared. Inf and NaN
+    stay as they are; a magnitude that rounds past the largest finite value
+    becomes inf. Returns a new float32 tensor."""
+    if t.dtype != torch.float32:
+        raise ValueError(f"round_to_tf32 takes float32, got {t.dtype}")
+    bits = t.contiguous().view(torch.int32)
+    mag = bits & 0x7FFFFFFF
+    rounded = ((mag + 0x1000) & -0x2000) | (bits & -0x80000000)
+    return torch.where(mag >= 0x7F800000, bits, rounded).view(torch.float32)
+
+
+def _operand(t: torch.Tensor, tf32: bool) -> torch.Tensor:
+    t = at_least_float32(t)
+    return round_to_tf32(t) if tf32 else t
+
+
+def conv9_plain(x: torch.Tensor, w: torch.Tensor, tf32: bool = False) -> torch.Tensor:
     """Stride-1 SAME conv, NHWC x HWIO -> NHWC, as a sum of per-tap products
-    in float32 at least, cast to x's dtype."""
+    in float32 at least, cast to x's dtype; ``tf32``: both operands rounded
+    to TF32 first."""
     b, h, wd, _ = x.shape
     k = w.shape[0]
     p = (k - 1) // 2
-    xp = F.pad(at_least_float32(x), (0, 0, p, p, p, p))
-    wf = at_least_float32(w)
+    xp = F.pad(_operand(x, tf32), (0, 0, p, p, p, p))
+    wf = _operand(w, tf32)
     y = xp.new_zeros((b, h, wd, w.shape[-1]))
     for kh in range(k):
         for kw in range(k):
@@ -73,13 +100,14 @@ def conv9_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return y.to(x.dtype)
 
 
-def conv9_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+def conv9_wgrad_plain(x: torch.Tensor, dy: torch.Tensor, k: int, tf32: bool = False) -> torch.Tensor:
     """dw[kh,kw,ci,co] = sum_{b,h,w} xpad[b,h+kh,w+kw,ci] dy[b,h,w,co] -> (k,k,64,64),
-    summed and returned in float32 at least."""
+    summed and returned in float32 at least; ``tf32``: x and dy rounded to
+    TF32 first."""
     b, h, wd, ci = x.shape
     p = (k - 1) // 2
-    xp = F.pad(at_least_float32(x), (0, 0, p, p, p, p))
-    dyf = at_least_float32(dy).reshape(-1, dy.shape[-1])
+    xp = F.pad(_operand(x, tf32), (0, 0, p, p, p, p))
+    dyf = _operand(dy, tf32).reshape(-1, dy.shape[-1])
     dw = xp.new_empty((k, k, ci, dy.shape[-1]))
     for kh in range(k):
         for kw in range(k):
@@ -100,9 +128,9 @@ def _not_differentiable(name: str, *tensors: torch.Tensor) -> None:
             "Call ops.conv9.shallow_conv (the ShallowConv autograd Function) instead")
 
 
-def _check_cuda_operands(name: str, *tensors: torch.Tensor) -> str:
+def _check_cuda_operands(name: str, *tensors: torch.Tensor, tf32: bool = False) -> str:
     """Raise unless the operands suit a kernel entry; return the entry's
-    dtype suffix ('f32' or 'bf16')."""
+    suffix ('f32', 'bf16', or 'tf32' for float32 operands with ``tf32``)."""
     dev = tensors[0].device
     if not tensors[0].is_cuda or any(t.device != dev for t in tensors):
         raise ValueError(f"{name}: operands on {[str(t.device) for t in tensors]}; "
@@ -115,6 +143,10 @@ def _check_cuda_operands(name: str, *tensors: torch.Tensor) -> str:
         raise ValueError(f"{name}: operands must be contiguous")
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError(f"{name}: operands must be 16-byte aligned")
+    if tf32:
+        if tensors[0].dtype != torch.float32:
+            raise ValueError(f"{name}: tf32 takes float32 operands, got {tensors[0].dtype}")
+        return TF32
     return KERNEL_DTYPES[tensors[0].dtype]
 
 
@@ -126,10 +158,11 @@ _COUNT_LOCK = threading.Lock()
 _PASS = threading.local()
 
 
-def _count(wrapper, dtype: torch.dtype, key: tuple = ()) -> None:
+def _count(wrapper, label, key: tuple = ()) -> None:
+    """One launch, under ``label``: the operands' dtype, or TF32."""
     with _COUNT_LOCK:
         wrapper.launches += 1
-        wrapper.launches_by_dtype[dtype] += 1
+        wrapper.launches_by_dtype[label] += 1
         wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
@@ -138,7 +171,7 @@ def reset_counts() -> None:
     with _COUNT_LOCK:
         for wrapper in (conv9_fwd, conv9_wgrad):
             wrapper.launches = 0
-            wrapper.launches_by_dtype = dict.fromkeys(KERNEL_DTYPES, 0)
+            wrapper.launches_by_dtype = dict.fromkeys((*KERNEL_DTYPES, TF32), 0)
             wrapper.launches_by_shape = {}
 
 
@@ -161,7 +194,7 @@ def conv9_wgrad_bf16_splits(rows: int, k: int, resident: int) -> int:
 
 def _library() -> ctypes.CDLL:
     lib = _build.library("conv9")
-    for suffix in KERNEL_DTYPES.values():
+    for suffix in (*KERNEL_DTYPES.values(), TF32):
         fn = getattr(lib, f"sshslie_conv_c64_{suffix}")
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -174,16 +207,19 @@ def _wgrad_library() -> ctypes.CDLL:
     lib.sshslie_conv9_wgrad_splits.restype = ctypes.c_int
     lib.sshslie_conv9_wgrad_resident_bf16.argtypes = [ctypes.c_int]
     lib.sshslie_conv9_wgrad_resident_bf16.restype = ctypes.c_int
-    for suffix in KERNEL_DTYPES.values():
+    lib.sshslie_conv9_wgrad_splits_tf32.argtypes = [ctypes.c_int] * 3
+    lib.sshslie_conv9_wgrad_splits_tf32.restype = ctypes.c_int
+    for suffix in (*KERNEL_DTYPES.values(), TF32):
         fn = getattr(lib, f"sshslie_conv9_wgrad_{suffix}")
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
 
-def conv9_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def conv9_fwd(x: torch.Tensor, w: torch.Tensor, tf32: bool = False) -> torch.Tensor:
     """Stride-1 SAME k x k conv, NHWC (B, H, W, 64) x HWIO (k, k, 64, 64) -> NHWC
-    in x's dtype (float32 or bfloat16, float32 accumulation).
+    in x's dtype (float32 or bfloat16, float32 accumulation); ``tf32``:
+    float32 operands rounded to TF32, products on the tensor cores.
 
     CPU tensors take :func:`conv9_plain`. CUDA tensors take the kernel; a
     shape, type or layout the kernel does not take raises. Not
@@ -191,8 +227,8 @@ def conv9_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """
     _not_differentiable("conv9_fwd", x, w)
     if x.device.type == "cpu":
-        return conv9_plain(x, w)
-    suffix = _check_cuda_operands("conv9_fwd", x, w)
+        return conv9_plain(x, w, tf32)
+    suffix = _check_cuda_operands("conv9_fwd", x, w, tf32=tf32)
     k = w.shape[0]
     if tuple(w.shape) != (k, k, CHANNELS, CHANNELS) or not conv9_supported(x.shape, k, CHANNELS, CHANNELS):
         raise ValueError(f"conv9_fwd: unsupported shapes x {tuple(x.shape)}, w {tuple(w.shape)}")
@@ -204,14 +240,16 @@ def conv9_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     code = getattr(lib, f"sshslie_conv_c64_{suffix}")(
         x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, k,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _count(conv9_fwd, x.dtype, (getattr(_PASS, "name", "forward"), x.dtype, tuple(x.shape)))
+    label = TF32 if tf32 else x.dtype
+    _count(conv9_fwd, label, (getattr(_PASS, "name", "forward"), label, tuple(x.shape)))
     _build.check(lib, code, "conv9 kernel launch")
     return y
 
 
-def conv9_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
+def conv9_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int, tf32: bool = False) -> torch.Tensor:
     """Weight gradient of the stride-1 SAME k x k 64 -> 64 conv -> (k, k, 64, 64)
-    in float32, from float32 or bfloat16 x and dy.
+    in float32, from float32 or bfloat16 x and dy; ``tf32``: float32 x and
+    dy rounded to TF32, products on the tensor cores.
 
     CPU tensors take :func:`conv9_wgrad_plain`. CUDA tensors take the kernel
     (a split reduction over pixel rows into scratch, then a fixed-order sum
@@ -219,8 +257,8 @@ def conv9_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     """
     _not_differentiable("conv9_wgrad", x, dy)
     if x.device.type == "cpu":
-        return conv9_wgrad_plain(x, dy, k)
-    suffix = _check_cuda_operands("conv9_wgrad", x, dy)
+        return conv9_wgrad_plain(x, dy, k, tf32)
+    suffix = _check_cuda_operands("conv9_wgrad", x, dy, tf32=tf32)
     if x.shape != dy.shape or not conv9_supported(x.shape, k, CHANNELS, CHANNELS):
         raise ValueError(f"conv9_wgrad: unsupported shapes x {tuple(x.shape)}, "
                          f"dy {tuple(dy.shape)}, k {k}")
@@ -228,19 +266,24 @@ def conv9_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int) -> torch.Tensor:
     if x.numel() == 0:
         return x.new_zeros((k, k, CHANNELS, CHANNELS), dtype=torch.float32)
     lib = _wgrad_library()
-    # float32: the kernel's slice count; bfloat16: its resident blocks, from
-    # which conv9_wgrad_bf16_splits derives the slice count.
-    query = (lib.sshslie_conv9_wgrad_splits(b, h, k) if suffix == "f32"
-             else lib.sshslie_conv9_wgrad_resident_bf16(k))
+    # float32 and TF32: the kernel's slice count; bfloat16: its resident
+    # blocks, from which conv9_wgrad_bf16_splits derives the slice count.
+    if suffix == "bf16":
+        query = lib.sshslie_conv9_wgrad_resident_bf16(k)
+    elif suffix == TF32:
+        query = lib.sshslie_conv9_wgrad_splits_tf32(b, h, k)
+    else:
+        query = lib.sshslie_conv9_wgrad_splits(b, h, k)
     if query < 0:
         _build.check(lib, -query, "conv9_wgrad occupancy query")
-    splits = query if suffix == "f32" else conv9_wgrad_bf16_splits(b * h, k, query)
+    splits = conv9_wgrad_bf16_splits(b * h, k, query) if suffix == "bf16" else query
     part = torch.empty((splits, k, k, CHANNELS, CHANNELS), dtype=torch.float32, device=x.device)
     dw = torch.empty((k, k, CHANNELS, CHANNELS), dtype=torch.float32, device=x.device)
     code = getattr(lib, f"sshslie_conv9_wgrad_{suffix}")(
         x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd, k, splits,
         torch.cuda.current_stream(x.device).cuda_stream)
-    _count(conv9_wgrad, x.dtype, ("wgrad", x.dtype, tuple(x.shape)))
+    label = TF32 if tf32 else x.dtype
+    _count(conv9_wgrad, label, ("wgrad", label, tuple(x.shape)))
     _build.check(lib, code, "conv9_wgrad kernel launch")
     return dw
 
@@ -256,14 +299,17 @@ class ShallowConv(torch.autograd.Function):
     x NHWC (B, H, W, 64), w HWIO (k, k, 64, 64), b (64,), all of one dtype,
     float32 or bfloat16. The gradients come back in that dtype, as in
     ``_psc_bwd``: dx from the conv9 kernel, dw from the float32 weight
-    gradient rounded to w's dtype, db a float32 sum cast to it. On CPU
+    gradient rounded to w's dtype, db a float32 sum cast to it. ``tf32``
+    (float32 only) takes the TF32 entries in all three kernel passes. On CPU
     tensors the same passes run on the plain versions.
     """
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                tf32: bool = False) -> torch.Tensor:
         ctx.save_for_backward(x, w)
-        return conv9_fwd(x, w) + b
+        ctx.tf32 = tf32
+        return conv9_fwd(x, w, tf32) + b
 
     @staticmethod
     @once_differentiable
@@ -276,16 +322,18 @@ class ShallowConv(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             _PASS.name = "dgrad"
             try:
-                dx = conv9_fwd(g, conv9_dgrad_weights(w))
+                dx = conv9_fwd(g, conv9_dgrad_weights(w), ctx.tf32)
             finally:
                 _PASS.name = "forward"
         if ctx.needs_input_grad[1]:
-            dw = conv9_wgrad(x, g, w.shape[0]).to(w.dtype)
+            dw = conv9_wgrad(x, g, w.shape[0], ctx.tf32).to(w.dtype)
         if ctx.needs_input_grad[2]:
             db = at_least_float32(g).sum(dim=(0, 1, 2)).to(w.dtype)
-        return dx, dw, db
+        return dx, dw, db, None
 
 
-def shallow_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Bias-included, differentiable shallow conv (NHWC, HWIO) on the kernels."""
-    return ShallowConv.apply(x, w, b)
+def shallow_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tf32: bool = False) -> torch.Tensor:
+    """Bias-included, differentiable shallow conv (NHWC, HWIO) on the kernels;
+    ``tf32``: float32 operands rounded to TF32 in every pass."""
+    return ShallowConv.apply(x, w, b, tf32)

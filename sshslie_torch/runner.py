@@ -10,8 +10,9 @@ and runs ``run_train``; ``test`` runs ``run_test`` and ``run_eval_metrics``
 on ``model_epoch_latest.pth`` of ``test_timestamp``; ``train_and_test`` does
 both, testing from the checkpoint the run just wrote; ``serve`` serves
 ``model_epoch_latest.pth`` of ``test_timestamp`` over HTTP until stopped
-(``serve.serve_from_config``). Float32 runs in full float32 on the card:
-both TF32 switches are set off and printed.
+(``serve.serve_from_config``). The two TF32 switches of cuDNN and cuBLAS are
+set from ``matmul_precision`` (``device.set_matmul_precision``: off for
+'', float32 and highest) on every call, and printed.
 
 Every run is tracked as in the JAX package (``observability.MLflowShim``,
 ``use_mlflow``): one experiment named after the run, its params and loss
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from sshslie_torch.config import Config, check_ported, parse_args
-from sshslie_torch.device import resolve_device
+from sshslie_torch.device import resolve_device, set_matmul_precision
 from sshslie_torch.observability import Logger, MLflowShim, RunObserver
 
 _TRAINING = ("train", "train_and_test")
@@ -158,8 +159,7 @@ def main(cfg: Config):
         random.seed(cfg.seed_value)
         np.random.seed(cfg.seed_value)
         torch.manual_seed(cfg.seed_value)
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        set_matmul_precision(cfg)
         print(f"Using device: {device}"
               + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
         print(f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}, "

@@ -62,7 +62,7 @@ import torch
 
 from sshslie_torch import checkpoints, interop
 from sshslie_torch.config import Config, check_ported
-from sshslie_torch.device import resolve_device
+from sshslie_torch.device import resolve_device, set_matmul_precision
 from sshslie_torch.utils import io_hsi
 
 WIRE_ENCODINGS = ("mat", "f32", "bf16", "u16")
@@ -910,16 +910,15 @@ def parse_warmup(spec: str) -> list:
 def build_server_from_config(cfg: Config) -> EnhanceServer:
     """The construction half of ``--phase serve``: resolve the checkpoint
     (``model_epoch_latest.pth`` of ``test_timestamp``), build the service,
-    warm its buckets, bind the server (not yet serving). Float32 runs in full
-    float32: both TF32 switches are set off, as the runner sets them."""
+    warm its buckets, bind the server (not yet serving). The two TF32
+    switches are set from ``matmul_precision``, as the runner sets them."""
     if cfg.channels is None:
         raise ValueError("phase=serve requires an explicit 'channels' config")
     check_ported(cfg, training=False)
     ckpt = checkpoints.latest_path(cfg.test_model_dir)
     if not os.path.exists(ckpt):
         raise FileNotFoundError(f"no checkpoint at {ckpt}; train first or set test_timestamp")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_matmul_precision(cfg)
     service = EnhanceService(cfg, cfg.channels, checkpoint_path=ckpt)
     if cfg.serve_warmup:
         service.warmup(parse_warmup(cfg.serve_warmup))

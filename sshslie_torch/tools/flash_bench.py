@@ -35,9 +35,11 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("flash_bench: no CUDA card")
         return 1
+    from sshslie_torch.config import Config
+    from sshslie_torch.device import set_matmul_precision
     from sshslie_torch.ops import attention
 
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_matmul_precision(Config())  # full float32: TF32 off
     g = torch.Generator().manual_seed(0)
     for spec in args.shapes:
         shape = tuple(int(x) for x in spec.split(","))

@@ -137,7 +137,8 @@ def test_dgrad_weights_equal_jax(k):
 def test_no_input_grad_skips_the_dgrad_pass(monkeypatch):
     calls = []
     real = conv9.conv9_fwd
-    monkeypatch.setattr(conv9, "conv9_fwd", lambda x, w: calls.append(x.shape) or real(x, w))
+    monkeypatch.setattr(conv9, "conv9_fwd",
+                        lambda x, w, *tf32: calls.append(x.shape) or real(x, w, *tf32))
     x, w = _inputs(26, (1, 6, 10, 64), 9)
     x = torch.from_numpy(x)                     # a batch: no gradient wanted
     w = torch.from_numpy(w).requires_grad_()

@@ -28,6 +28,18 @@ float32 p to ~2^-17), within one bfloat16 step of the largest |o| of
 plus 2^-9 of the largest |v| of the plain ``sdpa_chunked`` on the bfloat16
 operands, which rounds p to bfloat16 before P V (measured 9.8e-4 and 4.9e-4).
 Mixed dtypes raise; repeats are bit-identical.
+
+The TF32 entries (``tf32=True``: float32 operands rounded to TF32, products
+on the tensor cores), at the main path's shapes and at ragged shapes for
+k = 3, 9 and 13, against the plain versions with ``tf32=True`` (the same
+rounding, exact products, float32 sums in another order): conv9, its dgrad
+and conv9_wgrad within 1e-5 of the largest output (a kernel that truncated
+its operands instead of rounding them would be off by ~2^-11 of the sum of
+|terms|); and against a float64 conv of the unrounded operands, elementwise
+within (2u + u^2 + n 2^-23) conv(|x|, |w|), u = 2^-11 the TF32 rounding of
+each operand and n 2^-23 the float32 sums of the n = k*k*64 products (of
+the B*H*W pixels for the weight gradient), however they round. Repeats are
+bit-identical; the launches count under "tf32".
 """
 
 import numpy as np
@@ -313,3 +325,92 @@ def test_shallow_conv_bf16_grads_on_card_match_plain_passes(cuda_device):
     got, want = grads(cuda_device), grads("cpu")     # the CPU takes the plain passes
     for name, a, c in zip(("dx", "dw", "db"), got, want):
         _rel_close(a, c, BF16_STEP, name)
+
+
+# The TF32 entries: the main path's shapes at k = 9 (the test phase's 512^2
+# cube, the training batch), ragged tiles (H, W not multiples of the 8 x 32
+# output tile or the 64-pixel segment) at k = 3, 9 and 13, an image smaller
+# than the k = 13 halo, and B*H = 2 rows.
+CONV_TF32_CASES = [((1, 512, 512, 64), 9), ((2, 128, 128, 64), 9), ((1, 37, 53, 64), 3),
+                   ((1, 37, 53, 64), 9), ((1, 37, 53, 64), 13), ((3, 19, 70, 64), 3),
+                   ((3, 19, 70, 64), 13), ((2, 5, 9, 64), 13), ((1, 2, 40, 64), 9)]
+TF32_U = 2.0 ** -11
+
+
+def _f32(seed, shape, scale=1.0):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+
+def _within_float64_bound(got, want64, abs_sum64, n, what):
+    """|got - want64| <= (2u + u^2 + n 2^-23) * abs_sum64, elementwise."""
+    bound = (2 * TF32_U + TF32_U ** 2 + n * 2.0 ** -23) * abs_sum64
+    excess = float(((got.double() - want64).abs() - bound).max())
+    assert excess <= 0, f"{what}: over the float64 bound by {excess:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", CONV_TF32_CASES)
+def test_conv9_tf32_kernel_matches_plain_on_card(cuda_device, shape, k):
+    x, w = _f32(51, shape).to(cuda_device), _f32(52, (k, k, 64, 64), 0.05).to(cuda_device)
+    wd = conv9.conv9_dgrad_weights(w)
+    conv9.reset_counts()
+    for what, ww in (("forward", w), ("dgrad", wd)):
+        got = conv9.conv9_fwd(x, ww, tf32=True)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        _rel_close(got, conv9.conv9_plain(x, ww, tf32=True), 1e-5, f"conv9 tf32 {what} {shape} k{k}")
+        want64 = conv9.conv9_plain(x.double(), ww.double())
+        _within_float64_bound(got, want64, conv9.conv9_plain(x.double().abs(), ww.double().abs()),
+                              k * k * 64, f"conv9 tf32 {what} {shape} k{k} vs float64")
+        assert torch.equal(got, conv9.conv9_fwd(x, ww, tf32=True))
+    assert conv9.conv9_fwd.launches_by_dtype == {torch.float32: 0, torch.bfloat16: 0, "tf32": 4}
+    assert conv9.conv9_fwd.launches_by_shape == {("forward", "tf32", shape): 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", CONV_TF32_CASES)
+def test_conv9_wgrad_tf32_kernel_matches_plain_on_card(cuda_device, shape, k):
+    x, dy = _f32(53, shape).to(cuda_device), _f32(54, shape).to(cuda_device)
+    conv9.reset_counts()
+    got = conv9.conv9_wgrad(x, dy, k, tf32=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (k, k, 64, 64)
+    _rel_close(got, conv9.conv9_wgrad_plain(x, dy, k, tf32=True), 1e-5, f"wgrad tf32 {shape} k{k}")
+    _within_float64_bound(got, conv9.conv9_wgrad_plain(x.double(), dy.double(), k),
+                          conv9.conv9_wgrad_plain(x.double().abs(), dy.double().abs(), k),
+                          x.numel() // 64, f"wgrad tf32 {shape} k{k} vs float64")
+    assert torch.equal(got, conv9.conv9_wgrad(x, dy, k, tf32=True))
+    assert conv9.conv9_wgrad.launches_by_shape == {("wgrad", "tf32", shape): 2}
+
+
+@pytest.mark.cuda
+def test_shallow_conv_tf32_grads_on_card_match_plain_passes(cuda_device):
+    """All three kernel passes take the TF32 entries: against the plain
+    passes with the same rounding (the CPU's ShallowConv with tf32)."""
+    x, w, g = _f32(55, (2, 40, 72, 64)), _f32(56, (9, 9, 64, 64), 0.05), _f32(57, (2, 40, 72, 64))
+    b = _f32(58, (64,), 0.1)
+
+    def grads(dev):
+        ts = [t.to(dev).requires_grad_() for t in (x, w, b)]
+        y = conv9.shallow_conv(*ts, tf32=True)
+        return [y.detach().cpu()] + [t.cpu() for t in torch.autograd.grad(y, ts, g.to(dev))]
+
+    conv9.reset_counts()
+    got = grads(cuda_device)
+    counts = {**conv9.conv9_fwd.launches_by_shape, **conv9.conv9_wgrad.launches_by_shape}
+    want = grads("cpu")
+    assert counts == {("forward", "tf32", x.shape): 1, ("dgrad", "tf32", x.shape): 1,
+                      ("wgrad", "tf32", x.shape): 1}
+    for name, a, c in zip(("y", "dx", "dw", "db"), got, want):
+        _rel_close(a, c, 1e-5, name)
+
+
+@pytest.mark.cuda
+def test_tf32_takes_float32_operands_only(cuda_device):
+    x = torch.zeros(1, 8, 8, 64, device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros(9, 9, 64, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="tf32 takes float32"):
+        conv9.conv9_fwd(x, w, tf32=True)
+    with pytest.raises(ValueError, match="tf32 takes float32"):
+        conv9.conv9_wgrad(x, x, 9, tf32=True)

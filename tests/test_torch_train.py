@@ -244,8 +244,7 @@ def test_runner_train_and_test_on_cpu(tmp_path, monkeypatch, rng):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("fused_window", 2), ("fused_window", "auto"), ("matmul_precision", "tensorfloat32"),
-    ("matmul_precision", "bfloat16"), ("mesh_shape", "4"), ("sampler", "native"),
+    ("fused_window", 2), ("fused_window", "auto"), ("mesh_shape", "4"), ("sampler", "native"),
     ("fused_window", 3),
 ])
 def test_values_the_port_cannot_honour_raise(tmp_path, monkeypatch, key, value):
@@ -259,10 +258,12 @@ def test_values_the_port_cannot_honour_raise(tmp_path, monkeypatch, key, value):
 
 @pytest.mark.parametrize("key,value", [
     ("fused_pipeline", "on"), ("grad_accum_steps", 2), ("steps_per_dispatch", 2),
-    ("remat", True), ("precision", "bfloat16"),
+    ("remat", True), ("precision", "bfloat16"), ("matmul_precision", "tensorfloat32"),
+    ("matmul_precision", "bfloat16"),
 ])
 def test_pipeline_precision_and_remat_values_build_a_trainer(key, value):
-    """The on-device pipelines, accumulation, remat and bfloat16 no longer raise."""
+    """The on-device pipelines, accumulation, remat, bfloat16 and matmuls below
+    full float32 (TF32 on the card) no longer raise."""
     cfg = load_config(None, {"phase": "train", "device": "cpu", "channels": 6, key: value})
     trainer = Trainer(cfg, 6)
     assert getattr(trainer.cfg, key) == value
