@@ -133,10 +133,10 @@ class Config:
     space_axis: str = ""                  # JAX key; ignored
     prefetch_batches: int = 2             # JAX key; speed only, ignored (no prefetch thread)
     data_pattern: str = "*.mat"           # dataset glob per split dir
-    lazy_loading: bool = False            # JAX key; the port loads every cube to RAM
+    lazy_loading: bool = False            # JAX key; true raises (the disk-backed store, item 9)
     cube_cache_size: int = 8              # JAX key; ignored
     fused_pipeline: str = "auto"          # 'auto' | 'on' | 'off': on-device crop + augment
-    sampler: str = "auto"                 # 'auto'/'python': PatchSampler; 'native' raises
+    sampler: str = "auto"                 # 'auto': native if it loads; 'native'; 'python': PatchSampler
     steps_per_dispatch: int = 1           # fused steps a host call
     fused_window: Any = 0                 # JAX key; non-zero or 'auto' raises on the fused pipeline
     grad_accum_steps: int = 1             # micro-batches a step (host pipeline)
@@ -285,7 +285,7 @@ _NOT_PORTED = (
     (False, lambda c: (c.fused_window != 0 and c.fused_pipeline != "off"
                        and c.grad_accum_steps <= 1),
      "fused_window (a rotating window of cubes on the device)", "item 9"),
-    (False, lambda c: c.sampler == "native", "sampler: native", "item 9"),
+    (False, lambda c: c.lazy_loading, "lazy_loading (the disk-backed store)", "item 9"),
 )
 # matmul_precision values that run float32 products in TF32 on the card: the
 # TF32 passes XLA takes for them on an NVIDIA GPU (float32 accumulation).

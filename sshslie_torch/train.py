@@ -32,8 +32,11 @@
   moments and step counts advance as the JAX package's do; Adam is recreated
   at the unfreeze epoch (reference model.py:273-288).
 * :class:`Trainer` is ``Trainer.fit``: pipeline selection as JAX (fused on
-  same-shape cubes for ``fused_pipeline: auto|on``, else the host
-  ``PatchSampler`` stream, numpy PCG64, one upload a step), per-epoch
+  same-shape cubes for ``fused_pipeline: auto|on``, else the host sampler
+  of ``data/native_sampler.py::make_sampler`` for the ``sampler`` key: the
+  native xoshiro256** sampler for ``auto`` when its library loads and for
+  ``native``, ``PatchSampler``'s numpy PCG64 stream for ``python``; one
+  upload a step), per-epoch
   averages of the 7 terms with one device-to-host sync an epoch, eval and
   checkpoint on the ``eval_every_epoch`` cadence, the final-tail checkpoint
   (PARITY #22), resume from ``model_epoch_latest.pth`` with the optimizer
@@ -51,8 +54,9 @@
   the snapshot is released only after every read of it. On the CPU the same
   code runs without streams.
 
-Not ported (ROADMAP.md queue 1): meshes (item 7); ``fused_window`` (item 9);
-a CUDA graph of a multistep chunk (item 11).
+Not ported (ROADMAP.md queue 1): meshes (item 7); ``fused_window`` and the
+disk-backed store of ``lazy_loading`` (item 9); a CUDA graph of a multistep
+chunk (item 11).
 """
 
 from __future__ import annotations
@@ -71,7 +75,8 @@ import torch
 from sshslie_torch import checkpoints, interop
 from sshslie_torch.observability import Profiler
 from sshslie_torch.config import SPEED_ONLY_KEYS, Config, check_ported
-from sshslie_torch.data.datasets import CubeStore, PatchSampler
+from sshslie_torch.data.datasets import CubeStore
+from sshslie_torch.data.native_sampler import NativePatchSampler, make_sampler
 from sshslie_torch.device import resolve_device
 from sshslie_torch.models.enhance import LowLightEnhanceNet, build_model
 from sshslie_torch.ops.losses import total_loss
@@ -372,13 +377,15 @@ class Trainer:
                   "table of each epoch's draws from SeedSequence([seed_value, epoch]); "
                   "not the JAX threefry stream)")
         else:
-            sampler = PatchSampler(train_store, cfg.batch_size, cfg.patch_size,
-                                   seed=cfg.seed_value)
+            sampler = make_sampler(train_store, cfg.batch_size, cfg.patch_size,
+                                   seed=cfg.seed_value, mode=cfg.sampler)
             if start_epoch > 0:
                 sampler.skip_epochs(start_epoch)
-            print(f"Patch sampler: PatchSampler (sampler={cfg.sampler!r}, "
+            native = isinstance(sampler, NativePatchSampler)
+            print(f"Patch sampler: {type(sampler).__name__} (sampler={cfg.sampler!r}, "
                   f"fused_pipeline={cfg.fused_pipeline!r} -> host pipeline, "
-                  f"grad_accum_steps={accum}, rng=numpy PCG64)")
+                  f"grad_accum_steps={accum}, "
+                  f"rng={'xoshiro256**' if native else 'numpy PCG64'})")
         print("Ignored (speed only): "
               + ", ".join(f"{k}={getattr(cfg, k)!r}" for k in SPEED_ONLY_KEYS))
         num_batches = len(train_store) // cfg.batch_size
@@ -676,9 +683,10 @@ class Trainer:
                     print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{ids[-1]+1}/{num_batches}] "
                           f"Loss: {float(terms['total_loss']) / len(ids):.6f}")
         else:
+            batches = sampler.epoch()
             for batch_id in range(num_batches):
                 t = time.perf_counter()
-                batch = self._upload(sampler.sample_batch(batch_id))
+                batch = self._upload(next(batches))
                 host_s += time.perf_counter() - t
                 if accum > 1:
                     terms = accum_train_step(self.model, self.optimizer, batch, self.coeffs,

@@ -83,12 +83,12 @@ def test_entry_point_raises_without_card_unless_cpu_is_asked(tmp_path, monkeypat
 
 @pytest.mark.parametrize("phase,unported", [
     ("train", {"fused_window": 2}),
-    ("train_and_test", {"sampler": "native"}),
+    ("train_and_test", {"lazy_loading": True}),
     ("serve", {"mesh_shape": "2"}),
 ], ids=["train", "train_and_test", "serve"])
 def test_unported_phases_raise(tmp_path, monkeypatch, phase, unported):
     """Every phase is ported, and raises for what of it is not (the rotating
-    cube window, the native sampler, serving on a mesh), before any work."""
+    cube window, the disk-backed store, serving on a mesh), before any work."""
     from sshslie_torch import runner
     from sshslie_torch.config import load_config
 

@@ -244,7 +244,7 @@ def test_runner_train_and_test_on_cpu(tmp_path, monkeypatch, rng):
 
 
 @pytest.mark.parametrize("key,value", [
-    ("fused_window", 2), ("fused_window", "auto"), ("mesh_shape", "4"), ("sampler", "native"),
+    ("fused_window", 2), ("fused_window", "auto"), ("mesh_shape", "4"), ("lazy_loading", True),
     ("fused_window", 3),
 ])
 def test_values_the_port_cannot_honour_raise(tmp_path, monkeypatch, key, value):
