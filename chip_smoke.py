@@ -98,7 +98,9 @@ bfloat16``.
    Then the CLI's parser (``config.parse_args``, the flags of ``python -m
    sshslie_torch``) with the stock values as flags: ``--precision bfloat16
    --grad_accum_steps 2 --fused_pipeline off`` (host pipeline, 2
-   micro-batches: 6 conv9 and 4 conv9_wgrad launches a step), ``--remat
+   micro-batches: 6 conv9 and 4 conv9_wgrad launches a step; its console
+   log's "Patch sampler:" line must name NativePatchSampler: ``sampler:
+   auto`` takes the native sampler, as in JAX), ``--remat
    true --fused_pipeline on --steps_per_dispatch 2`` (5 conv9 launches a
    step: 2 recomputed forwards), and ``--phase test --precision bfloat16``
    from the first one's checkpoint.
@@ -129,7 +131,9 @@ bfloat16``.
    one on the kernel path (b2), its megapixel*bands/s, its device time and
    host dispatch apart (the TF32 and float32 steps also traced by kernel
    class, with the names of their cuDNN and cuBLAS kernels), the real loop's
-   host clock on the host sampler and on the fused pipeline; each kernel at the main paths' shapes
+   host clock on the host pipeline (PatchSampler's numpy stream and the
+   native sampler, crop and augment split out) and on the fused pipeline;
+   each kernel at the main paths' shapes
    in both dtypes (flash attention also at (1, 4, 16384, 16), the S of a
    1024^2 cube, in both dtypes; conv9 and flash at the micro-batched serving
    shapes), its plain version and one library call (cuDNN
@@ -1409,6 +1413,7 @@ def main() -> int:
     from sshslie_torch import checkpoints, interop, runner
     from sshslie_torch.config import load_config, parse_args
     from sshslie_torch.data.datasets import CubeStore, PatchSampler
+    from sshslie_torch.data.native_sampler import NativePatchSampler
     from sshslie_torch.models.enhance import LowLightEnhanceNet, build_model
     from sshslie_torch.ops import _build, attention, conv9
     from sshslie_torch.train import (LOSS_KEYS, fused_draws, fused_train_step, loss_coeffs,
@@ -1523,7 +1528,7 @@ def main() -> int:
         btrain_counts = run_training("bfloat16 train_and_test", bt, "bfloat16")
 
         # ---- the CLI's parser, as a user runs it: the other training variants ----
-        def cli_run(what, argv, dtype, want, pipeline=None):
+        def cli_run(what, argv, dtype, want, pipeline=None, sampler=None):
             zero_counts(conv9, attention)
             t = time.perf_counter()
             result = runner.main(parse_args(argv))
@@ -1540,6 +1545,15 @@ def main() -> int:
                                      f"{trainer.all_epoch_losses}")
             if not all(math.isfinite(v) for v in result["scores"]):
                 raise AssertionError(f"CLI {what}: scores {result['scores']}")
+            if sampler:
+                # The run's console log (the runner tees stdout to it) names
+                # the host sampler that the sampler key resolved to.
+                path = os.path.join("logs", f"console_output_{trainer.cfg.full_model_name}.log")
+                with open(path) as fh:
+                    lines = [ln.strip() for ln in fh if ln.startswith("Patch sampler:")]
+                log(f"CLI {what}: {lines}")
+                if len(lines) != 1 or not lines[0].startswith(f"Patch sampler: {sampler} "):
+                    raise AssertionError(f"CLI {what}: sampler lines {lines}, expected {sampler}")
             return result
 
         # The stock training values as flags (no YAML reader needed), 1 epoch
@@ -1552,7 +1566,8 @@ def main() -> int:
                         cli + ["--precision", "bfloat16", "--grad_accum_steps", "2",
                                "--fused_pipeline", "off", "--model_name", "cli_accum"],
                         "bfloat16", {"conv9": (16, 16), "conv9_wgrad": (8, 8),
-                                     "flash_attention": (1, 4)}, pipeline="host")
+                                     "flash_attention": (1, 4)}, pipeline="host",
+                        sampler="NativePatchSampler (sampler='auto',")
         cli_run("--remat true --fused_pipeline on --steps_per_dispatch 2",
                 cli + ["--remat", "true", "--fused_pipeline", "on", "--steps_per_dispatch", "2",
                        "--model_name", "cli_remat"],
@@ -2090,31 +2105,35 @@ def main() -> int:
             log("cuDNN's kernel names do not say whether they run TF32: not asserted")
         check_switches("after the TF32 step times", False)
         m, opt, _ = paths["kernel"]
-        # The real loop (Trainer.fit) on the host sampler: crop and augment on
+        # The real loop (Trainer.fit) on the host pipeline: crop and augment on
         # the host, pin, upload without blocking, enqueue the step; the host
-        # clock splits it.
-        n_steps = 20
-        host = {"crop": 0.0, "pin": 0.0, "enqueue": 0.0}
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        for i in range(n_steps):
-            t0 = time.perf_counter()
-            host_batch = sampler.sample_batch(i % sampler.num_batches)
-            t1 = time.perf_counter()
-            batch = torch.from_numpy(host_batch).pin_memory()
-            t2 = time.perf_counter()
-            train_step(m, opt, batch.to(dev, non_blocking=True), coeffs)
-            t3 = time.perf_counter()
-            host["crop"] += t1 - t0
-            host["pin"] += t2 - t1
-            host["enqueue"] += t3 - t2
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) / n_steps * 1e3
-        split = {k: v / n_steps * 1e3 for k, v in host.items()}
-        log(f"train step with the host sampler: {wall_ms:.4f} ms a step on the host clock; host "
-            f"crop+augment {split['crop']:.4f} ms ({100 * split['crop'] / wall_ms:.1f}%), pin "
-            f"{split['pin']:.4f} ms ({100 * split['pin'] / wall_ms:.1f}%), upload and step "
-            f"enqueue {split['enqueue']:.4f} ms ({100 * split['enqueue'] / wall_ms:.1f}%)")
+        # clock splits it. PatchSampler's numpy stream (sampler: python) and
+        # the native sampler (sampler: auto and native) on the same cubes.
+        native_sampler = NativePatchSampler(store, tcfg.batch_size, tcfg.patch_size, seed=SEED)
+        for host_sampler in (sampler, native_sampler):
+            n_steps = 20
+            host = {"crop": 0.0, "pin": 0.0, "enqueue": 0.0}
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for i in range(n_steps):
+                t0 = time.perf_counter()
+                host_batch = host_sampler.sample_batch(i % host_sampler.num_batches)
+                t1 = time.perf_counter()
+                batch = torch.from_numpy(host_batch).pin_memory()
+                t2 = time.perf_counter()
+                train_step(m, opt, batch.to(dev, non_blocking=True), coeffs)
+                t3 = time.perf_counter()
+                host["crop"] += t1 - t0
+                host["pin"] += t2 - t1
+                host["enqueue"] += t3 - t2
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - start) / n_steps * 1e3
+            split = {k: v / n_steps * 1e3 for k, v in host.items()}
+            log(f"train step with the host sampler {type(host_sampler).__name__}: {wall_ms:.4f} ms "
+                f"a step on the host clock; host crop+augment {split['crop']:.4f} ms "
+                f"({100 * split['crop'] / wall_ms:.1f}%), pin {split['pin']:.4f} ms "
+                f"({100 * split['pin'] / wall_ms:.1f}%), upload and step enqueue "
+                f"{split['enqueue']:.4f} ms ({100 * split['enqueue'] / wall_ms:.1f}%)")
 
         def fused_loop_ms(m, opt, cubes, c, coeffs, k_steps, n_steps=20):
             """The real loop (Trainer.fit) on the fused pipeline, host clock a step."""

@@ -85,37 +85,58 @@
 // matmul_precision tensorfloat32 (XLA's TF32 passes on a GPU). What bounds
 // it: the same 1.74e11 FLOP at 512^2 at the dense TF32 rate (495 TFLOP/s)
 // is 0.351 ms, against 0.040 ms for the float32 bytes; 0.0439 ms at the
-// training shape b2 x 128^2. A simple kernel, right first, on mma.sync
-// m16n8k8 .tf32: wgmma takes .tf32 operands K-major only, and the
-// bfloat16 kernel's A (weights by a transposing ldmatrix) does not carry
-// over, as ldmatrix transposes 16-bit elements only. An implicit GEMM with
-// M = output pixels, N = 64 output channels, K = k*k taps x 64 input
-// channels:
-//   * A block of 256 threads owns an 8 x 32 output tile and all 64 output
-//     channels; warp w computes tile row w: 32 pixels (two m16 tiles) x 64
-//     channels. 8 x 32 tiles give 128 blocks at b2 x 128^2, one wave.
-//   * The whole halo'd float32 tile does not fit beside the weights at
-//     k = 13, so the 64 input channels go in two passes of 32: a pixel's 32
-//     channels are one 128-byte row, chunk-swizzled as in the bfloat16
-//     kernel ((8+k-1) x (32+k-1) rows: 80 KB at k = 9, 110 KB at k = 13).
-//     The weights stream one tap (32 ci x 64 co, rows padded to 72 floats)
-//     at a time through a ring of 3 cp.async stages.
+// training shape b2 x 128^2. The bfloat16 kernel's turned-round GEMM on
+// wgmma m64n64k8 .tf32 (M = 64 output channels, N = 64 output pixels of a
+// tile row, K = k*k taps x 64 input channels):
+//   * .tf32 wgmma reads B K-major only. B is the pixels: a pixel's input
+//     channels are contiguous in NHWC, so the halo tile's rows are K-major
+//     as they lie. A is the tap's weights as co x ci, from registers, so
+//     it needs no transposing load.
+//   * A block of 256 threads (2 warpgroups) owns a 4 x 64 output tile and
+//     all 64 output channels; warpgroup g computes tile rows 2g and 2g+1.
+//     4 x 64 tiles give 128 blocks at b2 x 128^2, one wave. N = 64: with
+//     two warpgroups an SM and 4 accumulator tiles each, m64n32k8 .tf32 ran
+//     at 247 TFLOP/s and m64n64k8 at 401 (tools/tc_probe, PERF.md).
+//   * The float32 halo tile with all 64 channels does not fit beside the
+//     weights at k = 13, so the input channels go in two passes of 32: a
+//     pixel's 32 channels are one 128-byte row, in wgmma's 128-byte swizzle
+//     ((4+k-1) x (64+k-1) rows: 108 KB at k = 9, 152 KB at k = 13). A k8
+//     step of TF32 is 32 bytes of the row: the descriptor's start moves by
+//     32 bytes a k step, and a tap (kh, kw) is another start row.
+//   * The weights stream one tap (32 ci x 64 co, [ci][co] rows padded to
+//     72 floats) at a time through a ring of 8 cp.async stages, copied two
+//     taps at a time after one __syncthreads every two taps (7% faster than
+//     a barrier a tap; a deeper ring alone, L2 cache hints, a barrier every
+//     4 taps, and bulk copies with mbarriers were not). Warp w of a
+//     warpgroup loads its A fragments (co
+//     16w .. 16w+15) by 32-bit loads, conflict-free on the 72-float rows
+//     (bank 8t + g + 16w), double-buffered across taps as in the bfloat16
+//     kernel: the tensor cores run tap t while the threads wait for tap
+//     t+1's weights and load its fragments.
 //   * Rounding: the tensor cores ignore the low 13 bits of a .tf32 operand,
-//     so an unrounded float32 would be truncated. cp.async copies bytes:
-//     each thread rounds the 16-byte chunks it copied, in place, once they
-//     have landed and before the barrier that publishes them (the tile once
-//     a pass, the weights once a tap). The fragment loads read TF32 values.
-//   * A (pixels x ci) by ldmatrix.x4 from the swizzled rows: 32-bit values
-//     as pairs of 16-bit ones, so the non-transposing load gives the
-//     row-major A fragment; a tap is another start row. B (ci x co, HWIO as
-//     given: no repacking for the forward or the dgrad weights) by 32-bit
-//     loads, conflict-free on the 72-float rows.
+//     so an unrounded float32 would be truncated. The weights are rounded
+//     in registers as their fragments are loaded (cvt.rna, 16 a thread a
+//     tap): no pass over shared memory and no barrier waits for it. cp.async
+//     copies bytes, so the input tile is rounded in shared memory once a
+//     pass: each thread rounds the chunks it copied, after they land and
+//     before the fence and barrier that publish them to wgmma.
 //   * The tensor cores' float32 sums are not IEEE adds (they truncate),
 //     which would bias a long chain of products by up to ~0.5 ulp a step.
-//     One kernel row's products (k taps x 32 channels: 4k mma) go into
-//     fresh accumulators that are then added to the running sums by float32
-//     adds: no chain runs longer than one kernel row. 128 accumulator
-//     registers a thread, one block an SM.
+//     One kernel row's products (k taps x 32 channels) go into fresh
+//     accumulators that are then added to the running sums by float32
+//     adds: no chain runs longer than one kernel row. 2 rows x 32 running
+//     and 2 x 32 fresh accumulators a thread, one block an SM. The flush at
+//     a row's end waits for the row's products after the next tap's
+//     fragments are loaded. Measured on an H100: uncut chains are 1.5e-5 of
+//     the largest output off the TF32 plain version at k = 9 and 2.9e-5 at
+//     k = 13, against 1.1e-6 / 1.4e-6 with the cut (the tolerance is 1e-5).
+//   * Measured (PERF.md, PR 11): 45% of the bound at 512^2, ahead of
+//     cuDNN's TF32 call. Variants that each left out one piece (wrong
+//     results, times only) at 512^2: without the weight stream 0.84 ->
+//     0.65 ms and without the barriers too 0.59 (barrier-a-tap form), one
+//     tile load a block instead of two -0.035 ms, no A-fragment reloads
+//     0.78 -> 0.65 (this form); the tensor cores alone (tools/tc_probe, 2
+//     warpgroups x 2 accumulators) would take 0.37.
 #include <type_traits>
 
 #include "common.cuh"
@@ -379,13 +400,14 @@ conv_c64_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* _
   }
 }
 
-// ---- TF32 entry: tensor cores, mma.sync m16n8k8 ----
+// ---- TF32 entry: tensor cores, wgmma m64n64k8 ----
 
-constexpr int kTHt = 8;                    // output tile rows per block, one a warp
-constexpr int kTWt = 32;                   // output tile columns per block (two m16 tiles)
+constexpr int kTHt = 4;                    // output tile rows per block (2 warpgroups x 2)
+constexpr int kTWt = 64;                   // output tile columns per block: wgmma's N
+constexpr int kWgRowsT = kTHt / 2;         // tile rows a warpgroup computes
 constexpr int kCCt = 32;                   // input channels of a pass: one 128-byte row a pixel
-constexpr int kWStagesT = 3;               // weight taps in shared memory
-constexpr int kWRowT = 72;                 // floats a weight row (64 co + 8): conflict-free B loads
+constexpr int kWStagesT = 8;               // weight taps in shared memory
+constexpr int kWRowT = 72;                 // floats a weight row (64 co + 8): conflict-free A loads
 constexpr int kTapFloatsT = kCCt * kWRowT;
 
 template <int K>
@@ -394,7 +416,8 @@ struct Tf32Tile {
   static constexpr int kInW = kTWt + K - 1;
   static constexpr int kInPix = kInH * kInW;
   static constexpr int kInBytes = kInPix * 128;
-  static constexpr int kSmemBytes = kInBytes + kWStagesT * kTapFloatsT * 4;
+  // 1024 bytes of slack: the tile's base is rounded up to the swizzle's period.
+  static constexpr int kSmemBytes = 1024 + kInBytes + kWStagesT * kTapFloatsT * 4;
 };
 
 template <int K>
@@ -404,20 +427,22 @@ conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   using T = Tf32Tile<K>;
   constexpr int P = (K - 1) / 2;
   extern __shared__ __align__(1024) unsigned char smem[];
-  const unsigned xs = smem_u32(smem);                         // [kInPix][32 ci], swizzled
-  float* const wsf = reinterpret_cast<float*>(smem + T::kInBytes);  // [stage][32 ci][kWRowT]
+  const unsigned xs = (smem_u32(smem) + 1023) & ~1023u;  // [kInPix][32 ci], swizzled
+  unsigned char* const xsp = smem + (xs - smem_u32(smem));
+  const float* const wsf = reinterpret_cast<const float*>(xsp + T::kInBytes);  // [stage][32 ci][kWRowT]
+  const unsigned ws = xs + T::kInBytes;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;  // tile row
+  const int wg = tid >> 7;         // warpgroup: tile rows kWgRowsT wg .. kWgRowsT (wg + 1) - 1
+  const int wq = (tid >> 5) & 3;   // warp of the warpgroup: output channels 16 wq .. 16 wq + 15
   const int g = lane >> 2;
   const int q = lane & 3;
   const int h0 = blockIdx.y * kTHt;
   const int w0 = blockIdx.x * kTWt;
   const float* xb = x + static_cast<size_t>(blockIdx.z) * H * W * kC;
 
-  // The halo'd tile of channels ci0 .. ci0+31, zero outside the image; each
-  // thread rounds the chunks it copied once they have landed.
+  // The halo'd tile of channels ci0 .. ci0+31, zero outside the image.
   auto load_tile = [&](int ci0) {
     for (int i = tid; i < T::kInPix * 8; i += kThreads) {
       const int p = i >> 3;
@@ -430,111 +455,129 @@ conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       cp_async16(xs + swz128(p, c), src, in ? 16 : 0);
     }
   };
+  // Each thread rounds the chunks it copied (load_tile's index pattern).
   auto round_tile = [&]() {
     for (int i = tid; i < T::kInPix * 8; i += kThreads)
-      round16_tf32(reinterpret_cast<float*>(smem + swz128(i >> 3, i & 7)));
+      round16_tf32(reinterpret_cast<float*>(xsp + swz128(i >> 3, i & 7)));
   };
   // Tap `tap`'s weights for channels ci0 .. ci0+31: 32 rows of 64 co.
   auto load_tap = [&](int ci0, int tap) {
     const float* src = w + (static_cast<size_t>(tap) * kC + ci0) * kC;
-    float* dst = wsf + (tap % kWStagesT) * kTapFloatsT;
+    const unsigned dst = ws + (tap % kWStagesT) * kTapFloatsT * 4;
     for (int i = tid; i < kCCt * 16; i += kThreads)
-      cp_async16(smem_u32(dst + (i >> 4) * kWRowT + (i & 15) * 4), src + (i >> 4) * kC + (i & 15) * 4,
-                 16);
-  };
-  auto round_tap = [&](int tap) {
-    float* dst = wsf + (tap % kWStagesT) * kTapFloatsT;
-    for (int i = tid; i < kCCt * 16; i += kThreads) round16_tf32(dst + (i >> 4) * kWRowT + (i & 15) * 4);
+      cp_async16(dst + ((i >> 4) * kWRowT + (i & 15) * 4) * 4, src + (i >> 4) * kC + (i & 15) * 4, 16);
   };
 
-  // acc[m][n]: pixels 16 m .. 16 m + 15 of tile row `warp` x output channels 8 n .. 8 n + 7.
-  float acc[2][8][4];
+  // acc[j]: the running sums, output channels (M) x the 64 pixels of tile
+  // row kWgRowsT wg + j (N); part[j]: the current kernel row's products.
+  float acc[kWgRowsT][32];
+  float part[kWgRowsT][32];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int j = 0; j < kWgRowsT; ++j)
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[j][i] = part[j][i] = 0.f;
 
-  // A: lane l addresses pixel (l & 7) + 8 ((l >> 3) & 1) of an m16 tile and
-  // the 4-channel chunk 2 ks + (l >> 4) of the k step.
-  const int apix = (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int achunk = lane >> 4;
+  // B, the pixels of tile row kWgRowsT wg + j shifted by the tap, read by
+  // wgmma from the tile.
+  const unsigned long long desc0 = wgmma_desc(xs + (kWgRowsT * wg) * T::kInW * 128);
+  // A fragments of two taps (one being read by wgmma, one being loaded):
+  // [k step][register], rounded to TF32.
+  unsigned a[2][kCCt / 8][4];
+  const int arow = q * kWRowT + 16 * wq + g;  // ci row q, co 16 wq + g of a k step
+
+  // Wait for tap `tap`'s weights (at tap 0 also the tile, rounded and
+  // published), refill the ring, and load the tap's A fragments into a[par]
+  // once tap - 2's products are done.
+  auto prepare = [&](int ci0, int tap, auto par_tag) {
+    constexpr int par = decltype(par_tag)::value;
+    if ((tap & 1) == 0) {  // a barrier every two taps
+      cp_async_wait<kWStagesT / 2 - 2>();  // taps tap, tap + 1 (and, at tap 0, the tile) landed
+      if (tap == 0) {
+        round_tile();
+        fence_proxy_async();  // the tile, written by cp.async and rounded, is read by wgmma
+      }
+      __syncthreads();  // ... for all threads; and taps tap - 2, tap - 1's slots are free again
+      for (int t2 = tap + kWStagesT - 2; t2 < tap + kWStagesT && t2 < K * K; ++t2) load_tap(ci0, t2);
+      cp_async_commit();  // possibly empty: keeps one group per two taps
+    }
+    wgmma_wait<1>();    // tap - 2's products are done: a[par] is free
+    const float* wt = wsf + (tap % kWStagesT) * kTapFloatsT + arow;
+#pragma unroll
+    for (int ks = 0; ks < kCCt / 8; ++ks) {
+      const float* r = wt + 8 * ks * kWRowT;
+      a[par][ks][0] = __float_as_uint(tf32_rna(r[0]));
+      a[par][ks][1] = __float_as_uint(tf32_rna(r[8]));
+      a[par][ks][2] = __float_as_uint(tf32_rna(r[4 * kWRowT]));
+      a[par][ks][3] = __float_as_uint(tf32_rna(r[4 * kWRowT + 8]));
+    }
+  };
+  // The kernel row's products into the running sums (after wgmma_wait<0>).
+  auto flush = [&]() {
+#pragma unroll
+    for (int j = 0; j < kWgRowsT; ++j)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        acc[j][i] += part[j][i];
+        part[j][i] = 0.f;
+      }
+  };
+  // One tap: 4 k steps x kWgRowsT rows of wgmma, committed as one group.
+  auto issue = [&](int tap, auto par_tag) {
+    constexpr int par = decltype(par_tag)::value;
+    wgmma_fence();
+    const int kh = tap / K;
+    const int kw = tap - kh * K;
+    const unsigned long long dtap = desc0 + (((kh * T::kInW + kw) * 128) >> 4);
+#pragma unroll
+    for (int ks = 0; ks < kCCt / 8; ++ks)
+#pragma unroll
+      for (int j = 0; j < kWgRowsT; ++j)
+        wgmma_m64n64k8_tf32(part[j], a[par][ks], dtap + ((j * T::kInW * 128 + ks * 32) >> 4));
+    wgmma_commit();
+  };
+  auto step = [&](int ci0, int tap, auto par_tag) {
+    prepare(ci0, tap, par_tag);
+    if (tap > 0 && tap % K == 0) {  // a kernel row ended with tap - 1
+      wgmma_wait<0>();
+      flush();
+    }
+    issue(tap, par_tag);
+  };
 
 #pragma unroll 1
   for (int pass = 0; pass < 2; ++pass) {
     const int ci0 = pass * kCCt;
-    if (pass) __syncthreads();  // every warp is done with the first pass's tile and weights
-    // Group 0: the tile and tap 0; then one group a tap.
+    if (pass) __syncthreads();  // every warpgroup is done with the first pass's tile and weights
+    // Group 0: the tile and taps 0, 1; then one group a pair of taps.
     load_tile(ci0);
-    for (int t = 0; t < kWStagesT - 1; ++t) {
+    for (int t = 0; t < kWStagesT - 2; t += 2) {
       load_tap(ci0, t);
+      load_tap(ci0, t + 1);
       cp_async_commit();
     }
 #pragma unroll 1
-    for (int kh = 0; kh < K; ++kh) {
-      // One kernel row's products, summed on the tensor cores.
-      float part[2][8][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) part[m][n][i] = 0.f;
-#pragma unroll 1
-      for (int kw = 0; kw < K; ++kw) {
-        const int tap = kh * K + kw;
-        cp_async_wait<kWStagesT - 2>();  // this tap (and, at tap 0, the tile) landed
-        if (tap == 0) round_tile();
-        round_tap(tap);
-        __syncthreads();  // ... rounded, for all threads; and tap - 1's slot is free again
-        if (tap + kWStagesT - 1 < K * K) load_tap(ci0, tap + kWStagesT - 1);
-        cp_async_commit();  // possibly empty: keeps one group per tap
-        const float* wt = wsf + (tap % kWStagesT) * kTapFloatsT;
-        const int prow = (warp + kh) * T::kInW + kw + apix;
-#pragma unroll
-        for (int ks = 0; ks < kCCt / 8; ++ks) {
-          unsigned b[8][2];
-#pragma unroll
-          for (int n = 0; n < 8; ++n) {
-            b[n][0] = __float_as_uint(wt[(8 * ks + q) * kWRowT + 8 * n + g]);
-            b[n][1] = __float_as_uint(wt[(8 * ks + q + 4) * kWRowT + 8 * n + g]);
-          }
-#pragma unroll
-          for (int m = 0; m < 2; ++m) {
-            unsigned a[4];
-            ldsm_x4(a, xs + swz128(prow + 16 * m, 2 * ks + achunk));
-#pragma unroll
-            for (int n = 0; n < 8; ++n) mma_m16n8k8_tf32(part[m][n], a, b[n][0], b[n][1]);
-          }
-        }
-      }
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[m][n][i] += part[m][n][i];
+    for (int tap = 0; tap < K * K; tap += 2) {
+      step(ci0, tap, std::integral_constant<int, 0>());
+      if (tap + 1 < K * K) step(ci0, tap + 1, std::integral_constant<int, 1>());
     }
+    wgmma_wait<0>();
+    flush();
     cp_async_wait<0>();
   }
 
-  // Epilogue: d[0], d[1] are pixel g, channels 2q and 2q + 1; d[2], d[3] pixel g + 8.
-  const int oh = h0 + warp;
-  if (oh >= H) return;
-  float* yrow = y + (static_cast<size_t>(blockIdx.z) * H + oh) * W * kC;
+  // Epilogue: acc[j][i] is output channel 16 wq + g + 8 ((i >> 1) & 1) of
+  // pixel 8 (i >> 2) + 2 q + (i & 1) of tile row kWgRowsT wg + j.
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int j = 0; j < kWgRowsT; ++j) {
+    const int oh = h0 + kWgRowsT * wg + j;
+    if (oh >= H) break;
+    float* yrow = y + (static_cast<size_t>(blockIdx.z) * H + oh) * W * kC + 16 * wq + g;
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int ow = w0 + 16 * m + g + 8 * half;
-      if (ow < W) {
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-          *reinterpret_cast<float2*>(yrow + static_cast<size_t>(ow) * kC + 8 * n + 2 * q) =
-              make_float2(acc[m][n][2 * half], acc[m][n][2 * half + 1]);
-      }
+    for (int i = 0; i < 32; ++i) {
+      const int ow = w0 + 8 * (i >> 2) + 2 * q + (i & 1);
+      if (ow < W) yrow[static_cast<size_t>(ow) * kC + 8 * ((i >> 1) & 1)] = acc[j][i];
     }
+  }
 }
 
 template <int K>

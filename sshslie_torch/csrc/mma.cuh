@@ -2,9 +2,9 @@
 // conv9_wgrad.cu, flash_attn.cu): cp.async copies into shared memory,
 // ldmatrix loads of fragments, mma.sync m16n8k16 (flash attention), wgmma
 // (m64nNk16, bfloat16 operands, float32 accumulators) with B read from
-// shared memory through a descriptor (the bfloat16 conv kernels), and
-// mma.sync m16n8k8 on TF32 operands with the rounding that feeds it (the
-// TF32 conv kernels).
+// shared memory through a descriptor (the bfloat16 conv kernels), wgmma
+// m64n64k8 on TF32 operands (the TF32 conv9) and mma.sync m16n8k8 on TF32
+// operands (the TF32 conv9_wgrad), with the rounding that feeds them.
 //
 // Shared-memory layout the conv kernels assume: rows of 128 bytes (64 bfloat16, one
 // pixel's channels or one input channel's 64 output channels), each row
@@ -140,12 +140,13 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const unsigned (
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "n"(kMnMajor));
 }
 
-// ---- TF32: float32 operands rounded to TF32, mma.sync m16n8k8 (one warp) ----
+// ---- TF32: float32 operands rounded to TF32 ----
 //
-// The tensor cores read a .tf32 operand from a 32-bit register and ignore
-// its low 13 bits: an unrounded float32 would be truncated. The TF32 kernels
-// therefore round every operand first, to nearest with ties away from zero
-// (cvt.rna, ops/conv9.py::round_to_tf32), in shared memory after it lands.
+// The tensor cores read a .tf32 operand from a 32-bit register or from
+// shared memory and ignore its low 13 bits: an unrounded float32 would be
+// truncated. The TF32 kernels therefore round every operand first, to
+// nearest with ties away from zero (cvt.rna, ops/conv9.py::round_to_tf32):
+// in shared memory after it lands, or in registers as a fragment is loaded.
 
 // v rounded to TF32: the bits of a float32 whose low 13 bits are zero.
 __device__ __forceinline__ float tf32_rna(float v) {
@@ -161,14 +162,29 @@ __device__ __forceinline__ void round16_tf32(float* p) {
   *reinterpret_cast<float4*>(p) = v;
 }
 
+// d (64 x 64, float32) += a (64 x 8 tf32, registers) * B (8 x 64 tf32 in
+// shared memory at desc, K-major: 64 rows of n, 8 k = 32 bytes each, from
+// the descriptor's start row; the next k step is +32 bytes). .tf32 wgmma
+// takes K-major B only and has no transpose operands. A is the mma.sync
+// m16n8k8 A fragment below, warp w of the warpgroup holding rows 16w ..
+// 16w+15; d is wgmma_m64n64k16's accumulator layout.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const unsigned (&a)[4],
+                                                    unsigned long long desc) {
+  float* e = d + 16;
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, 1, 1, 1;\n"
+      : SSHSLIE_ACC16(d), SSHSLIE_ACC16(e)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
 // d (16 x 8, float32) += a (16 x 8 tf32) * b (8 x 8 tf32). With g = lane / 4
 // and t = lane % 4: a[0] holds row g, column t; a[1] row g+8, column t; a[2]
 // row g, column t+4; a[3] row g+8, column t+4. b0 holds row (k) t of column
 // (n) g, b1 row t+4. d as in mma_m16n8k16: d[0], d[1] row g, columns 2t and
-// 2t+1; d[2], d[3] row g+8. An ldmatrix.x4 (b16) of 8 x 4 float32 blocks
-// gives lane l the float (l % 4) of row l / 4 of each block: the A fragment
-// of a row-major A, from the blocks (rows 0-7, k 0-3), (8-15, 0-3), (0-7,
-// 4-7), (8-15, 4-7).
+// 2t+1; d[2], d[3] row g+8.
 __device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const unsigned (&a)[4],
                                                  unsigned b0, unsigned b1) {
   asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "

@@ -1,13 +1,15 @@
-// Probe of the H100's tensor-core forms for the bfloat16 conv kernels
-// (run by tc_probe.py):
-//   * layout checks of the wgmma helper in ../csrc/mma.cuh (m64n64k16): a
-//     K-major B (conv9.cu) and an MN-major B (conv9_wgrad.cu) read through
-//     a descriptor that starts at an arbitrary row of a 128-byte-swizzled
-//     tile, as the conv kernels address a tap's shifted pixel window;
+// Probe of the H100's tensor-core forms for the bfloat16 and TF32 conv
+// kernels (run by tc_probe.py):
+//   * layout checks of the wgmma helpers in ../csrc/mma.cuh: m64n64k16
+//     with a K-major B (conv9.cu) and an MN-major B (conv9_wgrad.cu), and
+//     m64n64k8 .tf32 with a K-major B (conv9.cu's TF32 entry), each read
+//     through a descriptor that starts at an arbitrary row of a
+//     128-byte-swizzled tile, as the conv kernels address a tap's shifted
+//     pixel window, with A from registers;
 //   * throughput of mma.sync m16n8k16 (with and without the ldmatrix loads
 //     of a 64 x 64 warp tile; both helpers from mma.cuh, as flash_attn.cu
-//     uses them) and of wgmma with A from registers, in loops on data
-//     already in shared memory and registers.
+//     uses them) and of wgmma with A from registers (bfloat16 k16 and
+//     TF32 k8), in loops on data already in shared memory and registers.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -40,11 +42,25 @@ __device__ __forceinline__ void a_fragment(unsigned (&a)[4], const __nv_bfloat16
   a[3] = pair(r + 8 * 64 + 8);
 }
 
-// X (R rows of 64 bfloat16) into a swizzled tile at a 1024-byte boundary.
-__device__ unsigned stage_rows(unsigned char* smem, const __nv_bfloat16* X, int R) {
+// d (64 x 32, float32) += a (64 x 8 tf32, registers) * B (8 x 32, K-major
+// in shared memory at desc).
+__device__ __forceinline__ void wgmma_m64n32k8_tf32(float (&d)[16], const unsigned (&a)[4],
+                                                    unsigned long long desc) {
+  asm volatile(
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, 1, 1, 1;\n"
+      : SSHSLIE_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
+}
+
+// X (R rows of 128 bytes: 64 bfloat16 or 32 float32) into a swizzled tile at
+// a 1024-byte boundary.
+__device__ unsigned stage_rows(unsigned char* smem, const void* X, int R) {
   const unsigned xs = (smem_u32(smem) + 1023) & ~1023u;
+  const char* xb = static_cast<const char*>(X);
   for (int i = threadIdx.x; i < R * 8; i += blockDim.x)
-    cp_async16(xs + swz128(i >> 3, i & 7), X + (i >> 3) * 64 + (i & 7) * 8, 16);
+    cp_async16(xs + swz128(i >> 3, i & 7), xb + (i >> 3) * 128 + (i & 7) * 16, 16);
   cp_async_commit();
   cp_async_wait<0>();
   fence_proxy_async();
@@ -88,6 +104,61 @@ __global__ void mnmajor_kernel(const __nv_bfloat16* A, const __nv_bfloat16* X, f
   wgmma_wait<0>();
   for (int i = 0; i < 32; ++i)
     D[(16 * w + (lane >> 2) + 8 * ((i >> 1) & 1)) * 64 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1)] = d[i];
+}
+
+// D (64 x 64) = A (64 x 32 tf32, row-major) X[s .. s+63]^T, X rows of 32
+// float32: K-major B from row s, 4 k8 steps of 32 bytes. A's fragment of
+// warp w, k step ks: rows 16w + g (+8), columns 8ks + t (+4).
+__global__ void tf32_kmajor_kernel(const float* A, const float* X, float* D, int R, int s) {
+  extern __shared__ unsigned char smem[];
+  const unsigned xs = stage_rows(smem, X, R);
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  float d[32] = {};
+  wgmma_fence();
+  for (int ks = 0; ks < 4; ++ks) {
+    const float* r = A + (16 * w + g) * 32 + 8 * ks + t;
+    const unsigned a[4] = {__float_as_uint(r[0]), __float_as_uint(r[8 * 32]),
+                           __float_as_uint(r[4]), __float_as_uint(r[8 * 32 + 4])};
+    wgmma_m64n64k8_tf32(d, a, wgmma_desc(xs + s * 128 + ks * 32));
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  for (int i = 0; i < 32; ++i)
+    D[(16 * w + g + 8 * ((i >> 1) & 1)) * 64 + 8 * (i >> 2) + 2 * t + (i & 1)] = d[i];
+}
+
+// TF32: 2 warpgroups, each NACC accumulator tiles of 64 x N, 4 k8 steps an
+// iteration, B read from start row ROW of a 128-byte-swizzled tile.
+template <int N, int NACC, int ROW>
+__global__ void __launch_bounds__(256, 1) wgmma_tf32_loop(float* out, int iters) {
+  __shared__ __align__(1024) unsigned char smem[16384];
+  for (int i = threadIdx.x; i < 4096; i += 256)
+    reinterpret_cast<float*>(smem)[i] = (i & 1) ? 1.f : 0.f;
+  fence_proxy_async();
+  __syncthreads();
+  const unsigned base = smem_u32(smem) + ROW * 128;
+  const unsigned a[4] = {0x3f800000u, 0x3f800000u, 0u, 0u};
+  float d[NACC][N / 2];
+  for (int m = 0; m < NACC; ++m)
+    for (int i = 0; i < N / 2; ++i) d[m][i] = 0.f;
+  wgmma_fence();
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int m = 0; m < NACC; ++m) {
+        if constexpr (N == 32) wgmma_m64n32k8_tf32(d[m], a, wgmma_desc(base + ks * 32));
+        else wgmma_m64n64k8_tf32(d[m], a, wgmma_desc(base + ks * 32));
+      }
+    wgmma_commit();
+    wgmma_wait<1>();
+  }
+  wgmma_wait<0>();
+  float sum = 0.f;
+  for (int m = 0; m < NACC; ++m)
+    for (int i = 0; i < N / 2; ++i) sum += d[m][i];
+  out[blockIdx.x * 256 + threadIdx.x] = sum;
 }
 
 // 2 warpgroups, each 4 accumulator tiles of 64 x N, 4 k steps an iteration.
@@ -169,8 +240,18 @@ __global__ void __launch_bounds__(256, 1) mma_loop(float* out, int iters) {
 
 }  // namespace
 
+// mn_major: 0 bfloat16 K-major, 1 bfloat16 MN-major (m64n64k16; A 64 x 64,
+// D 64 x 64); 2 TF32 K-major (m64n64k8; A 64 x 32, D 64 x 64).
 SSHSLIE_EXPORT int probe_layout(int mn_major, const void* A, const void* X, void* D, int R, int s) {
   const int smem = R * 128 + 1024;
+  if (mn_major == 2) {
+    cudaError_t err = cudaFuncSetAttribute(tf32_kmajor_kernel,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    tf32_kmajor_kernel<<<1, 128, smem>>>(static_cast<const float*>(A), static_cast<const float*>(X),
+                                         static_cast<float*>(D), R, s);
+    return static_cast<int>(cudaDeviceSynchronize());
+  }
   auto kernel = mn_major ? mnmajor_kernel : kmajor_kernel;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -179,7 +260,9 @@ SSHSLIE_EXPORT int probe_layout(int mn_major, const void* A, const void* X, void
   return static_cast<int>(cudaDeviceSynchronize());
 }
 
-// which: 0 wgmma m64n64k16, 1 wgmma m64n32k16, 2 mma.sync, 3 mma.sync + ldmatrix.
+// which: 0 wgmma m64n64k16, 1 wgmma m64n32k16, 2 mma.sync, 3 mma.sync + ldmatrix,
+// 4 wgmma m64n32k8 .tf32, 5 wgmma m64n64k8 .tf32 (4 accumulators, B from row 0),
+// 6 the same with 2 accumulators, 7 with 4 accumulators and B from row 3.
 SSHSLIE_EXPORT int probe_loop(int which, void* out, int blocks, int iters) {
   float* o = static_cast<float*>(out);
   switch (which) {
@@ -187,6 +270,10 @@ SSHSLIE_EXPORT int probe_loop(int which, void* out, int blocks, int iters) {
     case 1: wgmma_loop<32><<<blocks, 256>>>(o, iters); break;
     case 2: mma_loop<0><<<blocks, 256>>>(o, iters); break;
     case 3: mma_loop<1><<<blocks, 256>>>(o, iters); break;
+    case 4: wgmma_tf32_loop<32, 4, 0><<<blocks, 256>>>(o, iters); break;
+    case 5: wgmma_tf32_loop<64, 4, 0><<<blocks, 256>>>(o, iters); break;
+    case 6: wgmma_tf32_loop<64, 2, 0><<<blocks, 256>>>(o, iters); break;
+    case 7: wgmma_tf32_loop<64, 4, 3><<<blocks, 256>>>(o, iters); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

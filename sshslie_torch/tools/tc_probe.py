@@ -1,4 +1,4 @@
-"""Probe of the H100's tensor-core forms behind the bfloat16 conv kernels.
+"""Probe of the H100's tensor-core forms behind the bfloat16 and TF32 conv kernels.
 
     python -m sshslie_torch.tools.tc_probe
 
@@ -7,10 +7,15 @@ Builds ``tc_probe.cu`` (with the port's ``csrc/mma.cuh``) into
 
 * the wgmma layout checks: a K-major and an MN-major B (m64n64k16) read
   through a descriptor that starts at row s of a 128-byte swizzled tile,
-  against a float32 product (max |err|);
+  against a float32 product (max |err|); and the TF32 form of conv9.cu
+  (m64n64k8 .tf32, A from registers, a K-major B of 32-float rows from row
+  s), against a float64 product of the same TF32 values (max |err| over
+  max |product|);
 * the throughput, TFLOP/s, of mma.sync m16n8k16 (bare, and with the
   ldmatrix loads of a 64 x 64 warp tile) and of wgmma with A from
-  registers, two warpgroups (8 warps) a block, one and two blocks an SM;
+  registers (bfloat16 k16, TF32 k8; TF32 also with 2 accumulator tiles a
+  warpgroup instead of 4, and with B from an unaligned start row), two
+  warpgroups (8 warps) a block, one and two blocks an SM;
 * the card's name, power limit and SM clock.
 
 Needs a CUDA card and nvcc; no part of the port imports it.
@@ -25,10 +30,17 @@ import subprocess
 import torch
 
 from sshslie_torch.ops import _build
+from sshslie_torch.ops.conv9 import round_to_tf32
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-LOOPS = {0: ("wgmma m64n64k16, A in registers", 64), 1: ("wgmma m64n32k16, A in registers", 32),
-         2: ("mma.sync m16n8k16", 64), 3: ("mma.sync m16n8k16 + ldmatrix", 64)}
+# which: (name, N, k of one instruction, accumulator tiles a warpgroup)
+LOOPS = {0: ("wgmma m64n64k16, A in registers", 64, 16, 4),
+         1: ("wgmma m64n32k16, A in registers", 32, 16, 4),
+         2: ("mma.sync m16n8k16", 64, 16, 4), 3: ("mma.sync m16n8k16 + ldmatrix", 64, 16, 4),
+         4: ("wgmma m64n32k8 .tf32, A in registers, 4 accumulators", 32, 8, 4),
+         5: ("wgmma m64n64k8 .tf32, A in registers, 4 accumulators", 64, 8, 4),
+         6: ("wgmma m64n64k8 .tf32, A in registers, 2 accumulators", 64, 8, 2),
+         7: ("wgmma m64n64k8 .tf32, A in registers, 4 accumulators, B from row 3", 64, 8, 4)}
 
 
 def _library() -> ctypes.CDLL:
@@ -62,10 +74,21 @@ def main() -> int:
             want = a.float() @ (xs if mn_major else xs.T)
             print(f"layout {'MN' if mn_major else 'K'}-major B, start row {s}: code {code}, "
                   f"max|err| {float((d - want).abs().max()):.3e}")
+    # TF32: D (64 x 64) = A (64 x 32) X[s .. s+63]^T from rows of 32 floats.
+    at = round_to_tf32(torch.randn(64, 32, generator=g)).to(dev)
+    xt = round_to_tf32(torch.randn(rows, 32, generator=g)).to(dev)
+    for s in (0, 1, 3, 8, 13, 37, 60):
+        d = torch.zeros(64, 64, device=dev)
+        code = lib.probe_layout(2, ctypes.c_void_p(at.data_ptr()), ctypes.c_void_p(xt.data_ptr()),
+                                ctypes.c_void_p(d.data_ptr()), rows, s)
+        want = at.double() @ xt[s:s + 64].double().T
+        err = float((d.double() - want).abs().max() / want.abs().max())
+        print(f"layout TF32 K-major B (m64n64k8), start row {s}: code {code}, "
+              f"max|err| / max|D| {err:.3e}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = torch.zeros(2 * sms * 256, device=dev)
     iters = 2000
-    for which, (name, n) in LOOPS.items():
+    for which, (name, n, k, nacc) in LOOPS.items():
         for per_sm in (1, 2):
             blocks = per_sm * sms
             lib.probe_loop(which, ctypes.c_void_p(out.data_ptr()), blocks, 10)
@@ -76,8 +99,8 @@ def main() -> int:
             end.record()
             torch.cuda.synchronize()
             ms = start.elapsed_time(end)
-            # A block's iteration: 4 k steps x 4 tiles of 64 x n x 16 per warpgroup, 2 warpgroups.
-            flop = 2.0 * blocks * iters * 4 * 4 * 2 * 64 * n * 16
+            # A block's iteration: 4 k steps x nacc tiles of 64 x n x k per warpgroup, 2 warpgroups.
+            flop = 2.0 * blocks * iters * 4 * nacc * 2 * 64 * n * k
             print(f"{name}, {blocks} blocks: code {code}, {ms:.3f} ms, {flop / ms / 1e9:.1f} TFLOP/s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
                           "--format=csv,noheader"], capture_output=True, text=True)

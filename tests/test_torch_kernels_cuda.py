@@ -330,10 +330,12 @@ def test_shallow_conv_bf16_grads_on_card_match_plain_passes(cuda_device):
 # The TF32 entries: the main path's shapes at k = 9 (the test phase's 512^2
 # cube, the training batch), ragged tiles (H, W not multiples of the 8 x 32
 # output tile or the 64-pixel segment) at k = 3, 9 and 13, an image smaller
-# than the k = 13 halo, and B*H = 2 rows.
+# than the k = 13 halo, and B*H = 2 rows; then B*H*W not a multiple of the
+# 8 x 32 tile with H and W both ragged, at k = 5, 7 and 11.
 CONV_TF32_CASES = [((1, 512, 512, 64), 9), ((2, 128, 128, 64), 9), ((1, 37, 53, 64), 3),
                    ((1, 37, 53, 64), 9), ((1, 37, 53, 64), 13), ((3, 19, 70, 64), 3),
-                   ((3, 19, 70, 64), 13), ((2, 5, 9, 64), 13), ((1, 2, 40, 64), 9)]
+                   ((3, 19, 70, 64), 13), ((2, 5, 9, 64), 13), ((1, 2, 40, 64), 9),
+                   ((2, 13, 100, 64), 11), ((1, 9, 33, 64), 7), ((3, 15, 47, 64), 5)]
 TF32_U = 2.0 ** -11
 
 
