@@ -104,22 +104,22 @@
 //     step of TF32 is 32 bytes of the row: the descriptor's start moves by
 //     32 bytes a k step, and a tap (kh, kw) is another start row.
 //   * The weights stream one tap (32 ci x 64 co, [ci][co] rows padded to
-//     72 floats) at a time through a ring of 8 cp.async stages, copied two
-//     taps at a time after one __syncthreads every two taps (7% faster than
-//     a barrier a tap; a deeper ring alone, L2 cache hints, a barrier every
-//     4 taps, and bulk copies with mbarriers were not). Warp w of a
-//     warpgroup loads its A fragments (co
-//     16w .. 16w+15) by 32-bit loads, conflict-free on the 72-float rows
-//     (bank 8t + g + 16w), double-buffered across taps as in the bfloat16
-//     kernel: the tensor cores run tap t while the threads wait for tap
-//     t+1's weights and load its fragments.
+//     72 floats) at a time through a ring of 8 stages in shared memory,
+//     refilled two taps at a time after one __syncthreads every two taps:
+//     each thread fetches its 16-byte chunks of taps t+8, t+9 into
+//     registers (__ldg) at tap t, and at tap t+2 rounds them (cvt.rna) and
+//     stores them into the stages that taps t, t+1 freed. Warp w of a
+//     warpgroup loads its A fragments (co 16w .. 16w+15) by 32-bit loads,
+//     conflict-free on the 72-float rows (bank 8t + g + 16w),
+//     double-buffered across taps as in the bfloat16 kernel: the tensor
+//     cores run tap t while the threads load tap t+1's fragments.
 //   * Rounding: the tensor cores ignore the low 13 bits of a .tf32 operand,
 //     so an unrounded float32 would be truncated. The weights are rounded
-//     in registers as their fragments are loaded (cvt.rna, 16 a thread a
-//     tap): no pass over shared memory and no barrier waits for it. cp.async
-//     copies bytes, so the input tile is rounded in shared memory once a
-//     pass: each thread rounds the chunks it copied, after they land and
-//     before the fence and barrier that publish them to wgmma.
+//     once, on their way into the ring (above), so the fragment loads find
+//     TF32 values. cp.async copies bytes, so the input tile is rounded in
+//     shared memory once a pass: each thread rounds the chunks it copied,
+//     after they land and before the fence and barrier that publish them
+//     to wgmma.
 //   * The tensor cores' float32 sums are not IEEE adds (they truncate),
 //     which would bias a long chain of products by up to ~0.5 ulp a step.
 //     One kernel row's products (k taps x 32 channels) go into fresh
@@ -130,13 +130,20 @@
 //     fragments are loaded. Measured on an H100: uncut chains are 1.5e-5 of
 //     the largest output off the TF32 plain version at k = 9 and 2.9e-5 at
 //     k = 13, against 1.1e-6 / 1.4e-6 with the cut (the tolerance is 1e-5).
-//   * Measured (PERF.md, PR 11): 45% of the bound at 512^2, ahead of
-//     cuDNN's TF32 call. Variants that each left out one piece (wrong
-//     results, times only) at 512^2: without the weight stream 0.84 ->
-//     0.65 ms and without the barriers too 0.59 (barrier-a-tap form), one
-//     tile load a block instead of two -0.035 ms, no A-fragment reloads
-//     0.78 -> 0.65 (this form); the tensor cores alone (tools/tc_probe, 2
-//     warpgroups x 2 accumulators) would take 0.37.
+//   * Measured on an H100 (PERF.md, PR 11): 50% of the bound at 512^2 and
+//     at b2 x 128^2, ahead of cuDNN's TF32 call. The steps there, at 512^2:
+//     m64n32k8 with a barrier and a cp.async refill a tap and the weights
+//     rounded as their fragments loaded, 0.87 ms; m64n64k8 0.84; a barrier
+//     every two taps (8 stages) 0.78; the weights rounded once on their way
+//     in 0.70. Tried and dropped: a deeper ring alone, L2 cache hints, a
+//     barrier every 4 taps, the refill after the fragment loads, a third A
+//     buffer, 8-byte A loads (output channels permuted), bulk copies with
+//     mbarriers (2.4x slower: one copy a 256-byte row), the cut staggered
+//     between the warpgroups, the tile's loads split by rows (more
+//     registers, slower), a pass's first taps by cp.async rounded in place
+//     (0.79), two pairs of taps in flight at a pass's start. The tensor
+//     cores alone (tools/tc_probe, 2 warpgroups x 2 accumulators) would
+//     take 0.37 ms.
 #include <type_traits>
 
 #include "common.cuh"
@@ -429,7 +436,8 @@ conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   extern __shared__ __align__(1024) unsigned char smem[];
   const unsigned xs = (smem_u32(smem) + 1023) & ~1023u;  // [kInPix][32 ci], swizzled
   unsigned char* const xsp = smem + (xs - smem_u32(smem));
-  const float* const wsf = reinterpret_cast<const float*>(xsp + T::kInBytes);  // [stage][32 ci][kWRowT]
+  float* const wst = reinterpret_cast<float*>(xsp + T::kInBytes);  // [stage][32 ci][kWRowT]
+  const float* const wsf = wst;
   const unsigned ws = xs + T::kInBytes;
 
   const int tid = threadIdx.x;
@@ -460,12 +468,32 @@ conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int i = tid; i < T::kInPix * 8; i += kThreads)
       round16_tf32(reinterpret_cast<float*>(xsp + swz128(i >> 3, i & 7)));
   };
-  // Tap `tap`'s weights for channels ci0 .. ci0+31: 32 rows of 64 co.
-  auto load_tap = [&](int ci0, int tap) {
-    const float* src = w + (static_cast<size_t>(tap) * kC + ci0) * kC;
-    const unsigned dst = ws + (tap % kWStagesT) * kTapFloatsT * 4;
-    for (int i = tid; i < kCCt * 16; i += kThreads)
-      cp_async16(dst + ((i >> 4) * kWRowT + (i & 15) * 4) * 4, src + (i >> 4) * kC + (i & 15) * 4, 16);
+  // Taps t0, t0 + 1's weights for channels ci0 .. ci0+31 (32 rows of 64
+  // co each): fetched into registers, then rounded and stored into their
+  // stages two taps later, so the fragment loads find TF32 values.
+  float4 wreg[4];
+  auto fetch_pair = [&](int ci0, int t0) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int tap = t0 + (u >> 1);
+      const int i = tid + (u & 1) * kThreads;
+      if (tap < K * K)
+        wreg[u] = __ldg(reinterpret_cast<const float4*>(
+            w + (static_cast<size_t>(tap) * kC + ci0 + (i >> 4)) * kC + (i & 15) * 4));
+    }
+  };
+  auto store_pair = [&](int t0) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int tap = t0 + (u >> 1);
+      const int i = tid + (u & 1) * kThreads;
+      if (tap < K * K) {
+        const float4 v = wreg[u];
+        *reinterpret_cast<float4*>(wst + (tap % kWStagesT) * kTapFloatsT + (i >> 4) * kWRowT +
+                                   (i & 15) * 4) =
+            make_float4(tf32_rna(v.x), tf32_rna(v.y), tf32_rna(v.z), tf32_rna(v.w));
+      }
+    }
   };
 
   // acc[j]: the running sums, output channels (M) x the 64 pixels of tile
@@ -491,24 +519,26 @@ conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   auto prepare = [&](int ci0, int tap, auto par_tag) {
     constexpr int par = decltype(par_tag)::value;
     if ((tap & 1) == 0) {  // a barrier every two taps
-      cp_async_wait<kWStagesT / 2 - 2>();  // taps tap, tap + 1 (and, at tap 0, the tile) landed
       if (tap == 0) {
+        cp_async_wait<0>();  // the tile landed
         round_tile();
         fence_proxy_async();  // the tile, written by cp.async and rounded, is read by wgmma
       }
-      __syncthreads();  // ... for all threads; and taps tap - 2, tap - 1's slots are free again
-      for (int t2 = tap + kWStagesT - 2; t2 < tap + kWStagesT && t2 < K * K; ++t2) load_tap(ci0, t2);
-      cp_async_commit();  // possibly empty: keeps one group per two taps
+      __syncthreads();  // taps tap, tap + 1 stored; taps tap - 2, tap - 1's slots are free again
+      if (tap > 0) {
+        store_pair(tap + kWStagesT - 2);
+        fetch_pair(ci0, tap + kWStagesT);
+      }
     }
     wgmma_wait<1>();    // tap - 2's products are done: a[par] is free
     const float* wt = wsf + (tap % kWStagesT) * kTapFloatsT + arow;
 #pragma unroll
     for (int ks = 0; ks < kCCt / 8; ++ks) {
       const float* r = wt + 8 * ks * kWRowT;
-      a[par][ks][0] = __float_as_uint(tf32_rna(r[0]));
-      a[par][ks][1] = __float_as_uint(tf32_rna(r[8]));
-      a[par][ks][2] = __float_as_uint(tf32_rna(r[4 * kWRowT]));
-      a[par][ks][3] = __float_as_uint(tf32_rna(r[4 * kWRowT + 8]));
+      a[par][ks][0] = __float_as_uint(r[0]);
+      a[par][ks][1] = __float_as_uint(r[8]);
+      a[par][ks][2] = __float_as_uint(r[4 * kWRowT]);
+      a[par][ks][3] = __float_as_uint(r[4 * kWRowT + 8]);
     }
   };
   // The kernel row's products into the running sums (after wgmma_wait<0>).
@@ -548,13 +578,15 @@ conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int pass = 0; pass < 2; ++pass) {
     const int ci0 = pass * kCCt;
     if (pass) __syncthreads();  // every warpgroup is done with the first pass's tile and weights
-    // Group 0: the tile and taps 0, 1; then one group a pair of taps.
+    // The tile by cp.async; taps 0 .. kWStagesT - 1 rounded into their
+    // stages; the next pair's fetch in flight.
     load_tile(ci0);
-    for (int t = 0; t < kWStagesT - 2; t += 2) {
-      load_tap(ci0, t);
-      load_tap(ci0, t + 1);
-      cp_async_commit();
+    cp_async_commit();
+    for (int t = 0; t < kWStagesT; t += 2) {
+      fetch_pair(ci0, t);
+      store_pair(t);
     }
+    fetch_pair(ci0, kWStagesT);
 #pragma unroll 1
     for (int tap = 0; tap < K * K; tap += 2) {
       step(ci0, tap, std::integral_constant<int, 0>());
