@@ -437,8 +437,6 @@ conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const unsigned xs = (smem_u32(smem) + 1023) & ~1023u;  // [kInPix][32 ci], swizzled
   unsigned char* const xsp = smem + (xs - smem_u32(smem));
   float* const wst = reinterpret_cast<float*>(xsp + T::kInBytes);  // [stage][32 ci][kWRowT]
-  const float* const wsf = wst;
-  const unsigned ws = xs + T::kInBytes;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -469,8 +467,10 @@ conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       round16_tf32(reinterpret_cast<float*>(xsp + swz128(i >> 3, i & 7)));
   };
   // Taps t0, t0 + 1's weights for channels ci0 .. ci0+31 (32 rows of 64
-  // co each): fetched into registers, then rounded and stored into their
-  // stages two taps later, so the fragment loads find TF32 values.
+  // co each, two 16-byte chunks a thread a tap): fetched into registers,
+  // then rounded and stored into their stages two taps later, so the
+  // fragment loads find TF32 values.
+  static_assert(kCCt * 16 == 2 * kThreads, "two weight chunks a thread a tap");
   float4 wreg[4];
   auto fetch_pair = [&](int ci0, int t0) {
 #pragma unroll
@@ -513,8 +513,9 @@ conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
   unsigned a[2][kCCt / 8][4];
   const int arow = q * kWRowT + 16 * wq + g;  // ci row q, co 16 wq + g of a k step
 
-  // Wait for tap `tap`'s weights (at tap 0 also the tile, rounded and
-  // published), refill the ring, and load the tap's A fragments into a[par]
+  // At even taps a barrier publishes the weights stored two taps earlier
+  // (at tap 0 also the tile, rounded) and frees the last two taps' stages,
+  // which take the fetched pair; then tap `tap`'s A fragments into a[par]
   // once tap - 2's products are done.
   auto prepare = [&](int ci0, int tap, auto par_tag) {
     constexpr int par = decltype(par_tag)::value;
@@ -531,7 +532,7 @@ conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
       }
     }
     wgmma_wait<1>();    // tap - 2's products are done: a[par] is free
-    const float* wt = wsf + (tap % kWStagesT) * kTapFloatsT + arow;
+    const float* wt = wst + (tap % kWStagesT) * kTapFloatsT + arow;
 #pragma unroll
     for (int ks = 0; ks < kCCt / 8; ++ks) {
       const float* r = wt + 8 * ks * kWRowT;
@@ -594,7 +595,6 @@ conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
     }
     wgmma_wait<0>();
     flush();
-    cp_async_wait<0>();
   }
 
   // Epilogue: acc[j][i] is output channel 16 wq + g + 8 ((i >> 1) & 1) of

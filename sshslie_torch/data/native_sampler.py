@@ -150,7 +150,7 @@ class NativePatchSampler:
 
 
 def make_sampler(store: CubeStore, batch_size: int, patch_size: int,
-                 seed: int = 41, prefer_native: bool = True, mode: str = "auto"):
+                 seed: int = 41, mode: str = "auto"):
     """The host patch sampler for the ``sampler`` key.
 
     * ``auto``: NativePatchSampler if the library loads, else PatchSampler.
@@ -158,14 +158,12 @@ def make_sampler(store: CubeStore, batch_size: int, patch_size: int,
     * ``native``: NativePatchSampler; raises if the library is missing.
     * ``python``: PatchSampler (the numpy PCG64 stream).
 
-    ``prefer_native=False`` is an alias of ``mode='python'``. Every store of
-    the port is in RAM (the disk-backed one raises), so JAX's lazy-store
-    branch has no counterpart here.
+    Every store of the port is in RAM (the disk-backed one raises), so JAX's
+    lazy-store branch has no counterpart here; nor has its legacy
+    ``prefer_native`` alias of ``mode='python'``, which no caller uses.
     """
     if mode not in ("auto", "native", "python"):
         raise ValueError(f"sampler mode must be auto|native|python, got {mode!r}")
-    if not prefer_native and mode == "auto":
-        mode = "python"
     if mode == "native" or (mode == "auto" and native_available()):
         return NativePatchSampler(store, batch_size, patch_size, seed)
     return PatchSampler(store, batch_size, patch_size, seed)

@@ -103,16 +103,14 @@ def test_native_sampler_batches_equal_jax(cube_dir, batch_size, patch_size, seed
     assert not np.array_equal(first, next(drawn.epoch()))
 
 
-@pytest.mark.parametrize("mode,prefer_native", [("auto", True), ("native", True),
-                                                ("python", True), ("auto", False)])
-def test_make_sampler_resolves_as_jax(cube_dir, mode, prefer_native):
+@pytest.mark.parametrize("mode", ["auto", "native", "python"])
+def test_make_sampler_resolves_as_jax(cube_dir, mode):
     ours = native_sampler.make_sampler(CubeStore(cube_dir, normalization="self"), 2, 16, 5,
-                                       prefer_native=prefer_native, mode=mode)
+                                       mode=mode)
     theirs = jax_native.make_sampler(JaxCubeStore(cube_dir, normalization="self"), 2, 16, 5,
-                                     prefer_native=prefer_native, mode=mode)
+                                     mode=mode)
     assert type(ours).__name__ == type(theirs).__name__
-    want = "PatchSampler" if mode == "python" or not prefer_native else "NativePatchSampler"
-    assert type(ours).__name__ == want
+    assert type(ours).__name__ == ("PatchSampler" if mode == "python" else "NativePatchSampler")
     np.testing.assert_array_equal(next(ours.epoch()), next(theirs.epoch()))
 
 
