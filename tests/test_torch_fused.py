@@ -265,7 +265,11 @@ def test_pipeline_selection(cube_dir, tmp_path, capsys):
     mixed = _cubes_dir(str(tmp_path / "mixed"), [(24, 24, 6), (20, 24, 6)])
     trainer = _fresh(load_config(None, dict(KW, epoch=1)))
     trainer.fit(_store(mixed), ckpt_dir=str(tmp_path / "ck"))
-    assert "Patch sampler: PatchSampler" in capsys.readouterr().out
+    # Mixed shapes take the host pipeline, whose sampler: auto resolves as
+    # JAX's make_sampler does: the native sampler when its library loads.
+    assert trainer.pipeline == "host"
+    assert ("Patch sampler: NativePatchSampler (sampler='auto', fused_pipeline='auto' -> host "
+            "pipeline") in capsys.readouterr().out
     with pytest.raises(ValueError, match="share one shape"):
         _fresh(load_config(None, dict(KW, epoch=1, fused_pipeline="on"))).fit(
             _store(mixed), ckpt_dir=str(tmp_path / "ck2"))
