@@ -74,29 +74,36 @@
 // partials and dW (conv_pallas.py::conv9_wgrad under matmul_precision
 // tensorfloat32). What bounds it: the 2.17e10 FLOP at the training shape
 // (2, 128, 128, 64), k = 9, at the dense TF32 rate (495 TFLOP/s): 0.0439
-// ms, against ~0.01 ms for the float32 bytes. A simple kernel, right first,
-// on mma.sync m16n8k8 .tf32: the bfloat16 kernel reads X as an MN-major
-// wgmma B, which .tf32 does not allow, and its transposing ldmatrix moves
-// 16-bit elements only. Per tap a GEMM dW_tap (64 ci x 64 co) = X_tap^T
-// (64 x P) dY (P x 64) over the P = B*H*W pixels, split into slices:
-//   * Block (slice s, kernel row kh, tap group) owns up to 5 taps of row
-//     kh, two warps a tap: warp 2i + j computes tap i's input channels
-//     32 j .. 32 j + 31 x all 64 output channels (two m16 tiles x eight n8
-//     tiles, 64 float32 accumulators a thread); 10 warps at k >= 5.
-//   * Per image row of the slice, 64 pixels at a time, the block stages
-//     the dY segment (64 px x 64 co) and the halo'd input segment (64+k-1
-//     px x 64 ci, zero outside the image by cp.async src-size 0) as float32
-//     rows padded to 72 floats, through a ring of 3 stages: one landing
-//     while the tensor cores read another. One __syncthreads a segment.
-//   * Rounding: each thread rounds the 16-byte chunks it copied, in place,
-//     once they have landed and before the barrier that publishes them.
-//   * A (ci x px: X shifted by the tap) and B (px x co: dY) by 32-bit loads
-//     straight from the [px][channel] rows (the fragments' k index is the
-//     pixel, so no transposed copy is needed), conflict-free on the
-//     72-float rows.
-//   * The tensor cores' sums truncate; each segment's products (8 k steps)
-//     go into fresh accumulators that are added to the running sums by
-//     float32 adds, so no chain runs longer than one segment.
+// ms, against ~0.01 ms for the float32 bytes. Per tap a GEMM dW_tap (64 ci
+// x 64 co) = X_tap^T (64 x P) dY (P x 64) over the P = B*H*W pixels, split
+// into slices, on wgmma m64n64k8 .tf32:
+//   * .tf32 wgmma reads B K-major only and a descriptor moves in 16-byte
+//     steps, so the tap's one-pixel shift cannot live in B. B is dY, the
+//     same for every tap: transposed to [co][px] rows, two 128-byte-swizzled
+//     atoms a 64-pixel segment (mma.cuh::dyt_offset), read through a
+//     descriptor 32 bytes a k step. A is X shifted by the tap, from
+//     registers: 32-bit loads from the [px][ci] rows (72 floats,
+//     conflict-free), where any tap offset is a plain address offset.
+//   * Block (slice s, kernel row kh, tap group) of two warpgroups owns the
+//     whole kernel row up to k = 9 (half of it above): warpgroup u computes
+//     T = ceil(k / 2) taps (k / 4 above 9), the last one the T that end at
+//     k, so a tap in the middle of the row may be computed twice and is
+//     stored once. One block an SM; at k = 9 the block stages each segment
+//     once for 10 taps, so x and dY are read from L2 9 times, not 18.
+//   * The tensor cores' float32 sums truncate. Each tap's segment (8 k
+//     steps) goes into fresh accumulators, the first wgmma with scale-d
+//     false; then the tap's running sums += them by float32 adds: no chain
+//     runs longer than one 64-pixel segment. 5 x 32 running and 32 fresh
+//     accumulators a thread at k = 9; A in two halves of 4 k steps, one
+//     loading while the other is read.
+//   * Staging, a ring of two: per segment cp.async brings X (the halo'd
+//     pixels the block's taps read, zero outside the image) one segment
+//     ahead and dY as it lies ([px][co], 68-float rows) two ahead; during
+//     the segment before its use each thread rounds its share of dY
+//     (cvt.rna) and stores it transposed (a warp over 32 pixels of one
+//     channel chunk: conflict-free), so the transposing pass is the
+//     rounding pass. X is rounded as its A fragments load. One fence and
+//     __syncthreads a segment.
 //   * Rows whose input row lands in the zero padding are skipped, partials
 //     go to the scratch buffer and wgrad_reduce_kernel sums them in slice
 //     order, as in the other entries: repeats are bit-identical. The slice
@@ -386,42 +393,69 @@ wgrad_c64_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
   }
 }
 
-// ---- TF32 entry: tensor cores, mma.sync m16n8k8 ----
+// ---- TF32 entry: tensor cores, wgmma m64n64k8 ----
 
-constexpr int kSegT = 64;      // pixels of a row staged at a time
-constexpr int kStagesT = 3;    // segments in shared memory: one landing, one being read
-constexpr int kRowT = 72;      // floats a staged pixel: 64 channels + 8 (conflict-free loads)
-constexpr int kMaxTapsT = 5;   // taps a block owns, two warps a tap
+constexpr int kSegT = 64;                // pixels of a row a segment: one chain of products
+constexpr int kWgsT = 2;                 // warpgroups a block
+constexpr int kThreadsT = 128 * kWgsT;
+constexpr int kXRowT = 72;               // floats a staged X pixel: 64 channels + 8 (A loads)
+constexpr int kDyRowT = 68;              // floats a landed dY pixel: 64 channels + 4
 
 template <int K>
 struct Tf32WTile {
-  static constexpr int kTaps = K < kMaxTapsT ? K : kMaxTapsT;
-  static constexpr int kGroups = (K + kTaps - 1) / kTaps;
-  static constexpr int kThreads = 64 * kTaps;
-  static constexpr int kInW = kSegT + K - 1;  // X pixels a segment
-  static constexpr int kStageFloats = (kSegT + kInW) * kRowT;
-  static constexpr int kSmemBytes = kStagesT * kStageFloats * 4;
+  // Blocks a kernel row, and taps a warpgroup computes: the whole row up to
+  // k = 9, half of it above, so that the running sums fit the registers.
+  static constexpr int kGroups = K <= 9 ? 1 : 2;
+  static constexpr int kTapsWg = (K + kWgsT * kGroups - 1) / (kWgsT * kGroups);
+  static constexpr int kXRows = kSegT + kWgsT * kTapsWg - 1;  // X pixels a segment
+  static constexpr int kDtBytes = kSegT * kC * 4;             // dY^T, mma.cuh::dyt_offset
+  static constexpr int kXBytes = kXRows * kXRowT * 4;
+  static constexpr int kDrBytes = kSegT * kDyRowT * 4;
+  // Two buffers of each: one read while the next lands or is transposed;
+  // 1024 bytes of slack to align the dY^T tiles to the swizzle's period.
+  static constexpr int kSmemBytes = 1024 + 2 * (kDtBytes + kXBytes + kDrBytes);
+  static_assert(kDtBytes % 1024 == 0 && kXBytes % 16 == 0, "tile alignment");
 };
 
+// First tap warpgroup u (0 .. 2 kGroups - 1) computes. It owns (stores) taps
+// u T .. min((u + 1) T, K) - 1, T = kTapsWg; the last one computes the T
+// taps that end at K, so no tap is computed past the kernel row.
 template <int K>
-__global__ void __launch_bounds__(Tf32WTile<K>::kThreads, 1)
+__device__ __forceinline__ int tf32_first_tap(int u) {
+  constexpr int T = Tf32WTile<K>::kTapsWg;
+  return min(u * T, K - T);
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreadsT, 1)
 wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                       float* __restrict__ part, int B, int H, int W, int splits) {
   using T = Tf32WTile<K>;
   constexpr int P = (K - 1) / 2;
+  constexpr int kTaps = T::kTapsWg;
   extern __shared__ __align__(1024) unsigned char smem[];
-  float* const sf = reinterpret_cast<float*>(smem);  // [stage][dY 64 px, then X kInW px][kRowT]
+  const unsigned base = (smem_u32(smem) + 1023) & ~1023u;
+  unsigned char* const sp = smem + (base - smem_u32(smem));
+  // [buffer]: dY^T tiles, then X pixel rows, then landed dY pixel rows.
+  auto dt_addr = [&](int buf) { return base + buf * T::kDtBytes; };
+  auto xs_ptr = [&](int buf) {
+    return reinterpret_cast<float*>(sp + 2 * T::kDtBytes + buf * T::kXBytes);
+  };
+  auto dr_ptr = [&](int buf) {
+    return reinterpret_cast<float*>(sp + 2 * (T::kDtBytes + T::kXBytes) + buf * T::kDrBytes);
+  };
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int warp = tid >> 5;
+  const int wg = tid >> 7;         // warpgroup
+  const int wq = (tid >> 5) & 3;   // warp of the warpgroup: input channels 16 wq .. 16 wq + 15
   const int g = lane >> 2;
   const int q = lane & 3;
   const int s = blockIdx.x;
   const int kh = blockIdx.y;
-  const int kw = blockIdx.z * T::kTaps + (warp >> 1);  // this warp's tap
-  const int ci0 = (warp & 1) * 32;                     // ... and its 32 input channels
-  const bool active = kw < K;
+  const int u = blockIdx.z * kWgsT + wg;
+  const int kwb = tf32_first_tap<K>(blockIdx.z * kWgsT);  // the block's first tap: X pixel 0
+  const int kw0 = tf32_first_tap<K>(u);                   // this warpgroup's first tap
   const long long rows = static_cast<long long>(B) * H;
   const int r0 = static_cast<int>(rows * s / splits);
   const int r1 = static_cast<int>(rows * (s + 1) / splits);
@@ -436,118 +470,149 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   for (int r = r0; r < r1; ++r) items += valid(r);
   items *= nseg;
 
-  // The load cursor: the next (row, segment) to stage.
-  int lr = r0;
-  while (lr < r1 && !valid(lr)) ++lr;
-  int lseg = 0;
-  // Stage the cursor's segment into slot st (dY, and X zero outside the
-  // image) and advance the cursor; past the slice's end, nothing.
-  auto load_next = [&](int st) {
-    if (lr >= r1) return;
-    const int b = lr / H;
-    const int h = lr - b * H;
-    const int w0 = lseg * kSegT;
-    const float* drow = dy + (static_cast<size_t>(b) * H + h) * W * kC;
-    const float* xrow = x + (static_cast<size_t>(b) * H + h + kh - P) * W * kC;
-    float* stage = sf + st * T::kStageFloats;
-    for (int i = tid; i < (kSegT + T::kInW) * 16; i += T::kThreads) {
+  // Load cursors over the slice's (row, segment) pairs: X runs one item
+  // ahead of the one being summed, dY two (it lands, then is transposed).
+  struct Cursor {
+    int r, seg;
+  };
+  Cursor cx{r0, 0};
+  while (cx.r < r1 && !valid(cx.r)) ++cx.r;
+  Cursor cd = cx;
+  auto advance = [&](Cursor& c) {
+    if (++c.seg == nseg) {
+      c.seg = 0;
+      do ++c.r; while (c.r < r1 && !valid(c.r));
+    }
+  };
+  // X pixels w0 - P + kwb .. + kXRows - 1 of input row r + kh - P into
+  // buffer buf, zero outside the image; then the cursor moves on.
+  auto load_x = [&](Cursor& c, int buf) {
+    if (c.r >= r1) return;
+    const float* xrow = x + static_cast<size_t>(c.r + kh - P) * W * kC;
+    const int gw0 = c.seg * kSegT - P + kwb;
+    const unsigned dst = smem_u32(xs_ptr(buf));
+    for (int i = tid; i < T::kXRows * 16; i += kThreadsT) {
       const int p = i >> 4;
-      const int c = i & 15;
-      const unsigned dst = smem_u32(stage + p * kRowT + c * 4);
-      if (p < kSegT) {
-        const bool in = w0 + p < W;
-        cp_async16(dst, in ? drow + static_cast<size_t>(w0 + p) * kC + c * 4 : dy, in ? 16 : 0);
-      } else {
-        const int gw = w0 - P + (p - kSegT);
-        const bool in = gw >= 0 && gw < W;
-        cp_async16(dst, in ? xrow + static_cast<size_t>(gw) * kC + c * 4 : x, in ? 16 : 0);
-      }
+      const int ch = i & 15;
+      const int gw = gw0 + p;
+      const bool in = gw >= 0 && gw < W;
+      cp_async16(dst + (p * kXRowT + ch * 4) * 4, in ? xrow + static_cast<size_t>(gw) * kC + ch * 4 : x,
+                 in ? 16 : 0);
     }
-    if (++lseg == nseg) {
-      lseg = 0;
-      do ++lr; while (lr < r1 && !valid(lr));
+    advance(c);
+  };
+  // dY pixels w0 .. w0 + 63 of row r as they lie ([px][co]), zero past W.
+  auto load_dy = [&](Cursor& c, int buf) {
+    if (c.r >= r1) return;
+    const float* drow = dy + static_cast<size_t>(c.r) * W * kC;
+    const int w0 = c.seg * kSegT;
+    const unsigned dst = smem_u32(dr_ptr(buf));
+    for (int i = tid; i < kSegT * 16; i += kThreadsT) {
+      const int p = i >> 4;
+      const int ch = i & 15;
+      const bool in = w0 + p < W;
+      cp_async16(dst + (p * kDyRowT + ch * 4) * 4,
+                 in ? drow + static_cast<size_t>(w0 + p) * kC + ch * 4 : dy, in ? 16 : 0);
+    }
+    advance(c);
+  };
+  // Landed dY of buffer buf, rounded to TF32, into dY^T tile buf. A warp
+  // takes 32 consecutive pixels of one 4-channel chunk: conflict-free
+  // 16-byte reads on the 68-float rows, and each of its 4 stores fills 32
+  // banks of one output channel's row.
+  auto transpose_dy = [&](int buf) {
+    const float* dr = dr_ptr(buf);
+    unsigned char* dt = sp + buf * T::kDtBytes;
+    for (int i = tid; i < kSegT * 16; i += kThreadsT) {
+      const int px = (i & 31) | (((i >> 5) & 1) << 5);
+      const int c4 = (i >> 6) * 4;
+      const float4 v = *reinterpret_cast<const float4*>(dr + px * kDyRowT + c4);
+      *reinterpret_cast<float*>(dt + dyt_offset(px, c4)) = tf32_rna(v.x);
+      *reinterpret_cast<float*>(dt + dyt_offset(px, c4 + 1)) = tf32_rna(v.y);
+      *reinterpret_cast<float*>(dt + dyt_offset(px, c4 + 2)) = tf32_rna(v.z);
+      *reinterpret_cast<float*>(dt + dyt_offset(px, c4 + 3)) = tf32_rna(v.w);
     }
   };
-  // Round, in place, the chunks this thread copied into slot st.
-  auto round_stage = [&](int st) {
-    float* stage = sf + st * T::kStageFloats;
-    for (int i = tid; i < (kSegT + T::kInW) * 16; i += T::kThreads)
-      round16_tf32(stage + (i >> 4) * kRowT + (i & 15) * 4);
-  };
 
-  // acc[m][n]: input channels ci0 + 16 m .. + 15 (M) x output channels 8 n .. 8 n + 7 (N).
-  float acc[2][8][4];
+  // acc[t]: the running sums of tap kw0 + t, input channels (M) x output
+  // channels (N); fresh: the current segment's products of one tap.
+  float acc[kTaps][32];
+  float fresh[32];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int t = 0; t < kTaps; ++t)
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[m][n][i] = 0.f;
+    for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
+  // A fragments of half a tap (4 k steps) each: one read by wgmma while the
+  // other loads.
+  unsigned a0[4][4], a1[4][4];
+  const int xoff = (kw0 - kwb + q) * kXRowT + 16 * wq + g;  // this lane's A, tap offset 0
 
-  for (int st = 0; st < kStagesT - 1; ++st) {
-    load_next(st);
-    cp_async_commit();  // possibly empty: keeps one group per segment
-  }
+  // Prologue: item 0's X and dY, then item 1's dY; item 0's dY transposed.
+  load_x(cx, 0);
+  load_dy(cd, 0);
+  cp_async_commit();
+  load_dy(cd, 1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  transpose_dy(0);
+
 #pragma unroll 1
   for (int it = 0; it < items; ++it) {
-    cp_async_wait<kStagesT - 2>();  // segment it landed
-    round_stage(it % kStagesT);
-    __syncthreads();  // ... rounded, for all threads; and every warp is done with it - 1
-    load_next((it + kStagesT - 1) % kStagesT);
+    const int buf = it & 1;
+    cp_async_wait<0>();   // item it's X and item it + 1's dY landed
+    fence_proxy_async();  // item it's dY^T, stored by this thread, is visible to wgmma
+    __syncthreads();      // ... for all threads; and every warpgroup is done with item it - 1
+    load_x(cx, buf ^ 1);  // item it + 1
+    load_dy(cd, buf);     // item it + 2
     cp_async_commit();
-    if (!active) continue;
-    const float* ds = sf + (it % kStagesT) * T::kStageFloats;  // dY rows [px][co]
-    const float* xs = ds + (kSegT + kw) * kRowT + ci0;         // X rows shifted by the tap
-    float sum[2][8][4];
+    const float* xs = xs_ptr(buf) + xoff;
+    const unsigned dt = dt_addr(buf);
+    // Per tap, 8 k steps of wgmma (two groups of 4) into fresh accumulators;
+    // then the tap's sums += them, so no chain of the tensor cores'
+    // truncating adds runs longer than the segment.
 #pragma unroll
-    for (int m = 0; m < 2; ++m)
+    for (int j = 0; j < 4; ++j) x_fragment_tf32<kXRowT>(a0[j], xs, 8 * j);
 #pragma unroll
-      for (int n = 0; n < 8; ++n)
+    for (int t = 0; t < kTaps; ++t) {
+      wgmma_fence();
+      wgmma_m64n64k8_tf32_first(fresh, a0[0], dyt_desc(dt, 0));
 #pragma unroll
-        for (int i = 0; i < 4; ++i) sum[m][n][i] = 0.f;
-#pragma unroll 2
-    for (int ks = 0; ks < kSegT / 8; ++ks) {
-      const int p0 = (8 * ks + q) * kRowT;
-      const int p1 = p0 + 4 * kRowT;
-      unsigned b[8][2];
+      for (int j = 1; j < 4; ++j) wgmma_m64n64k8_tf32(fresh, a0[j], dyt_desc(dt, j));
+      wgmma_commit();
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        b[n][0] = __float_as_uint(ds[p0 + 8 * n + g]);
-        b[n][1] = __float_as_uint(ds[p1 + 8 * n + g]);
+      for (int j = 0; j < 4; ++j) x_fragment_tf32<kXRowT>(a1[j], xs, 8 * (4 + j) + t);
+      if (t == 0 && it + 1 < items) transpose_dy(buf ^ 1);  // item it + 1's dY
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) wgmma_m64n64k8_tf32(fresh, a1[j], dyt_desc(dt, 4 + j));
+      wgmma_commit();
+      if (t + 1 < kTaps) {
+        wgmma_wait<1>();  // the first half is done: a0 is free
+#pragma unroll
+        for (int j = 0; j < 4; ++j) x_fragment_tf32<kXRowT>(a0[j], xs, 8 * j + t + 1);
       }
+      wgmma_wait<0>();
 #pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const unsigned a[4] = {__float_as_uint(xs[p0 + 16 * m + g]),
-                               __float_as_uint(xs[p0 + 16 * m + g + 8]),
-                               __float_as_uint(xs[p1 + 16 * m + g]),
-                               __float_as_uint(xs[p1 + 16 * m + g + 8])};
-#pragma unroll
-        for (int n = 0; n < 8; ++n) mma_m16n8k8_tf32(sum[m][n], a, b[n][0], b[n][1]);
-      }
+      for (int i = 0; i < 32; ++i) acc[t][i] += fresh[i];
     }
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int n = 0; n < 8; ++n)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[m][n][i] += sum[m][n][i];
   }
   cp_async_wait<0>();
-  if (!active) return;
 
-  // Partial of slice s: part[s][kh][kw][ci][co]; d[0], d[1] are input
-  // channel g, output channels 2q and 2q + 1; d[2], d[3] input channel g + 8.
-  float* out = part + ((static_cast<size_t>(s) * K + kh) * K + kw) * kC * kC;
+  // Partial of slice s: part[s][kh][kw][ci][co]; acc[t][i] is input
+  // channel 16 wq + g + 8 ((i >> 1) & 1), output channel 8 (i >> 2) + 2 q +
+  // (i & 1). Taps below u T are another warpgroup's.
+  float* out = part + ((static_cast<size_t>(s) * K + kh) * K) * kC * kC;
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
+  for (int t = 0; t < kTaps; ++t) {
+    const int kw = kw0 + t;
+    if (kw < u * kTaps) continue;
+    float* o = out + static_cast<size_t>(kw) * kC * kC + (16 * wq + g) * kC + 2 * q;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int ci = ci0 + 16 * m + g;
-      *reinterpret_cast<float2*>(out + ci * kC + 8 * n + 2 * q) =
-          make_float2(acc[m][n][0], acc[m][n][1]);
-      *reinterpret_cast<float2*>(out + (ci + 8) * kC + 8 * n + 2 * q) =
-          make_float2(acc[m][n][2], acc[m][n][3]);
-    }
+    for (int i = 0; i < 32; i += 2)
+      *reinterpret_cast<float2*>(o + 8 * ((i >> 1) & 1) * kC + 8 * (i >> 2)) =
+          make_float2(acc[t][i], acc[t][i + 1]);
+  }
 }
 
 template <int K>
@@ -596,7 +661,7 @@ int splits_tf32(int B, int H) {
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wgrad_c64_tf32_kernel<K>,
-                                                        T::kThreads, T::kSmemBytes);
+                                                        kThreadsT, T::kSmemBytes);
   if (err != cudaSuccess) return -static_cast<int>(err);
   const long long capacity = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
   long long splits = capacity / (K * T::kGroups);
@@ -646,8 +711,8 @@ int launch_tf32(const float* x, const float* dy, float* part, float* dw, int B, 
       wgrad_c64_tf32_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(splits, K, T::kGroups);
-  wgrad_c64_tf32_kernel<K><<<grid, T::kThreads, T::kSmemBytes, stream>>>(x, dy, part, B, H, W,
-                                                                         splits);
+  wgrad_c64_tf32_kernel<K><<<grid, kThreadsT, T::kSmemBytes, stream>>>(x, dy, part, B, H, W,
+                                                                       splits);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return reduce(part, dw, K, splits, stream);

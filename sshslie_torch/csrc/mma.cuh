@@ -2,9 +2,9 @@
 // conv9_wgrad.cu, flash_attn.cu): cp.async copies into shared memory,
 // ldmatrix loads of fragments, mma.sync m16n8k16 (flash attention), wgmma
 // (m64nNk16, bfloat16 operands, float32 accumulators) with B read from
-// shared memory through a descriptor (the bfloat16 conv kernels), wgmma
-// m64n64k8 on TF32 operands (the TF32 conv9) and mma.sync m16n8k8 on TF32
-// operands (the TF32 conv9_wgrad), with the rounding that feeds them.
+// shared memory through a descriptor (the bfloat16 conv kernels), and wgmma
+// m64n64k8 on TF32 operands (the TF32 conv9 and conv9_wgrad), with the
+// rounding that feeds them and the TF32 weight gradient's tile layout.
 //
 // Shared-memory layout the conv kernels assume: rows of 128 bytes (64 bfloat16, one
 // pixel's channels or one input channel's 64 output channels), each row
@@ -166,8 +166,10 @@ __device__ __forceinline__ void round16_tf32(float* p) {
 // shared memory at desc, K-major: 64 rows of n, 8 k = 32 bytes each, from
 // the descriptor's start row; the next k step is +32 bytes). .tf32 wgmma
 // takes K-major B only and has no transpose operands. A is the mma.sync
-// m16n8k8 A fragment below, warp w of the warpgroup holding rows 16w ..
-// 16w+15; d is wgmma_m64n64k16's accumulator layout.
+// m16n8k8 A fragment, warp w of the warpgroup holding rows 16w .. 16w+15:
+// with g = lane / 4 and t = lane % 4, a[0] holds row g, column (k) t; a[1]
+// row g+8, column t; a[2] row g, column t+4; a[3] row g+8, column t+4. d
+// is wgmma_m64n64k16's accumulator layout.
 __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const unsigned (&a)[4],
                                                     unsigned long long desc) {
   float* e = d + 16;
@@ -180,15 +182,54 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const unsign
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc));
 }
 
-// d (16 x 8, float32) += a (16 x 8 tf32) * b (8 x 8 tf32). With g = lane / 4
-// and t = lane % 4: a[0] holds row g, column t; a[1] row g+8, column t; a[2]
-// row g, column t+4; a[3] row g+8, column t+4. b0 holds row (k) t of column
-// (n) g, b1 row t+4. d as in mma_m16n8k16: d[0], d[1] row g, columns 2t and
-// 2t+1; d[2], d[3] row g+8.
-__device__ __forceinline__ void mma_m16n8k8_tf32(float (&d)[4], const unsigned (&a)[4],
-                                                 unsigned b0, unsigned b1) {
-  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-               "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// The same with d = a * B: the accumulators' old values are not read (the
+// first product of a chain; scale-d false).
+__device__ __forceinline__ void wgmma_m64n64k8_tf32_first(float (&d)[32], const unsigned (&a)[4],
+                                                          unsigned long long desc) {
+  float* e = d + 16;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : SSHSLIE_ACC16(d), SSHSLIE_ACC16(e)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(0));
+}
+
+// ---- The TF32 weight gradient's form (conv9_wgrad.cu, tools/tc_probe.cu) ----
+//
+// Per tap, dW_tap (M = 64 input channels x N = 64 output channels) += X_tap^T
+// (64 ci x 64 pixels) dY (64 pixels x 64 co), K the pixels of a segment.
+// .tf32 wgmma reads B K-major only, and a descriptor's start moves in
+// 16-byte steps, so the tap's one-pixel shift cannot live in B: B is dY,
+// the same for every tap, and A is X shifted by the tap, from registers.
+//
+// B, dY^T: two 128-byte-swizzled atoms (pixels 0..31, 32..63) of 64 rows,
+// one output channel a row, 32 pixels (128 bytes) each; 16 KB, 1024-byte
+// aligned. Byte offset of (pixel px, output channel co):
+__device__ __forceinline__ unsigned dyt_offset(int px, int co) {
+  return static_cast<unsigned>((px >> 5) * 8192 + co * 128 +
+                               ((((px & 31) >> 2) ^ (co & 7)) << 4) + (px & 3) * 4);
+}
+
+// Descriptor of k step ks (pixels 8 ks .. 8 ks + 7) of the dY^T tile at
+// base: the atom, then 32 bytes a step within its rows.
+__device__ __forceinline__ unsigned long long dyt_desc(unsigned base, int ks) {
+  return wgmma_desc(base + (ks >> 2) * 8192 + (ks & 3) * 32);
+}
+
+// A, X^T (ci x px) shifted by the tap, from the X pixels staged as rows of
+// kRow floats ([px][ci], unrounded): the m16n8k8 A fragment of a k step,
+// rounded to TF32 as it is loaded. xs points at row 0, channel 16 w + g of
+// warp w's rows (g = lane / 4); px0 = 8 ks + (the tap's offset) + lane % 4.
+// a[0], a[1]: pixel px0, channels g and g + 8; a[2], a[3]: pixel px0 + 4.
+// The 32 lanes hit 32 banks when kRow % 32 == 8.
+template <int kRow>
+__device__ __forceinline__ void x_fragment_tf32(unsigned (&a)[4], const float* xs, int px0) {
+  const float* r = xs + px0 * kRow;
+  a[0] = __float_as_uint(tf32_rna(r[0]));
+  a[1] = __float_as_uint(tf32_rna(r[8]));
+  a[2] = __float_as_uint(tf32_rna(r[4 * kRow]));
+  a[3] = __float_as_uint(tf32_rna(r[4 * kRow + 8]));
 }

@@ -10,12 +10,17 @@ Builds ``tc_probe.cu`` (with the port's ``csrc/mma.cuh``) into
   against a float32 product (max |err|); and the TF32 form of conv9.cu
   (m64n64k8 .tf32, A from registers, a K-major B of 32-float rows from row
   s), against a float64 product of the same TF32 values (max |err| over
-  max |product|);
+  max |product|); and the TF32 form of conv9_wgrad.cu (B dY^T K-major,
+  [co][px] rows in two swizzled atoms; A X^T from [px][ci] rows at tap
+  offsets 0..12, rounded as loaded), against float64 on the rounded
+  operands;
 * the throughput, TFLOP/s, of mma.sync m16n8k16 (bare, and with the
   ldmatrix loads of a 64 x 64 warp tile) and of wgmma with A from
   registers (bfloat16 k16, TF32 k8; TF32 also with 2 accumulator tiles a
   warpgroup instead of 4, and with B from an unaligned start row), two
-  warpgroups (8 warps) a block, one and two blocks an SM;
+  warpgroups (8 warps) a block, one and two blocks an SM; and of TF32
+  chains of 8 dependent k steps waited for at each end (the TF32 wgrad
+  kernel's segments), 2 to 4 warpgroups x 1 to 4 chains, one block an SM;
 * the card's name, power limit and SM clock.
 
 Needs a CUDA card and nvcc; no part of the port imports it.
@@ -41,6 +46,12 @@ LOOPS = {0: ("wgmma m64n64k16, A in registers", 64, 16, 4),
          5: ("wgmma m64n64k8 .tf32, A in registers, 4 accumulators", 64, 8, 4),
          6: ("wgmma m64n64k8 .tf32, A in registers, 2 accumulators", 64, 8, 2),
          7: ("wgmma m64n64k8 .tf32, A in registers, 4 accumulators, B from row 3", 64, 8, 4)}
+# which: (name, warpgroups, accumulators a warpgroup): chains of 8 dependent
+# k steps, waited for each iteration (the TF32 wgrad kernel's segments).
+CHAINS = {8: ("2 warpgroups x 1", 2, 1), 9: ("3 warpgroups x 1", 3, 1),
+          10: ("4 warpgroups x 1", 4, 1), 11: ("2 warpgroups x 2", 2, 2),
+          12: ("3 warpgroups x 2", 3, 2), 13: ("3 warpgroups x 3", 3, 3),
+          14: ("2 warpgroups x 4", 2, 4)}
 
 
 def _library() -> ctypes.CDLL:
@@ -85,6 +96,18 @@ def main() -> int:
         err = float((d.double() - want).abs().max() / want.abs().max())
         print(f"layout TF32 K-major B (m64n64k8), start row {s}: code {code}, "
               f"max|err| / max|D| {err:.3e}")
+    # The TF32 wgrad form: D (64 ci x 64 co) = X[s .. s+63]^T DY, the kernel
+    # rounding both as conv9_wgrad.cu does.
+    xw = torch.randn(76, 64, generator=g).to(dev)
+    dyw = torch.randn(64, 64, generator=g).to(dev)
+    for s in range(13):
+        d = torch.zeros(64, 64, device=dev)
+        code = lib.probe_layout(3, ctypes.c_void_p(xw.data_ptr()), ctypes.c_void_p(dyw.data_ptr()),
+                                ctypes.c_void_p(d.data_ptr()), 76, s)
+        want = round_to_tf32(xw[s:s + 64]).double().T @ round_to_tf32(dyw).double()
+        err = float((d.double() - want).abs().max() / want.abs().max())
+        print(f"layout TF32 wgrad (B dY^T K-major, A X at tap offset {s}): code {code}, "
+              f"max|err| / max|D| {err:.3e}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = torch.zeros(2 * sms * 256, device=dev)
     iters = 2000
@@ -102,6 +125,19 @@ def main() -> int:
             # A block's iteration: 4 k steps x nacc tiles of 64 x n x k per warpgroup, 2 warpgroups.
             flop = 2.0 * blocks * iters * 4 * nacc * 2 * 64 * n * k
             print(f"{name}, {blocks} blocks: code {code}, {ms:.3f} ms, {flop / ms / 1e9:.1f} TFLOP/s")
+    out = torch.zeros(sms * 512, device=dev)
+    for which, (name, nwg, nacc) in CHAINS.items():
+        lib.probe_loop(which, ctypes.c_void_p(out.data_ptr()), sms, 10)
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        code = lib.probe_loop(which, ctypes.c_void_p(out.data_ptr()), sms, iters)
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end)
+        flop = 2.0 * sms * iters * nwg * nacc * 8 * 64 * 64 * 8
+        print(f"wgmma m64n64k8 .tf32 chains of 8 waited, {name} accumulators, {sms} blocks: "
+              f"code {code}, {ms:.3f} ms, {flop / ms / 1e9:.1f} TFLOP/s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())

@@ -336,6 +336,12 @@ CONV_TF32_CASES = [((1, 512, 512, 64), 9), ((2, 128, 128, 64), 9), ((1, 37, 53, 
                    ((1, 37, 53, 64), 9), ((1, 37, 53, 64), 13), ((3, 19, 70, 64), 3),
                    ((3, 19, 70, 64), 13), ((2, 5, 9, 64), 13), ((1, 2, 40, 64), 9),
                    ((2, 13, 100, 64), 11), ((1, 9, 33, 64), 7), ((3, 15, 47, 64), 5)]
+# conv9_wgrad's TF32 entry also at: W < 64, so a segment is mostly padding;
+# B*H below the slice count of one wave; k = 11 and 13, whose kernel row
+# spans two blocks, with a W that leaves a short last segment.
+WGRAD_TF32_CASES = CONV_TF32_CASES + [((2, 9, 40, 64), 9), ((1, 3, 21, 64), 9),
+                                      ((1, 4, 130, 64), 13), ((2, 24, 77, 64), 13),
+                                      ((1, 6, 65, 64), 11)]
 TF32_U = 2.0 ** -11
 
 
@@ -371,7 +377,7 @@ def test_conv9_tf32_kernel_matches_plain_on_card(cuda_device, shape, k):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,k", CONV_TF32_CASES)
+@pytest.mark.parametrize("shape,k", WGRAD_TF32_CASES)
 def test_conv9_wgrad_tf32_kernel_matches_plain_on_card(cuda_device, shape, k):
     x, dy = _f32(53, shape).to(cuda_device), _f32(54, shape).to(cuda_device)
     conv9.reset_counts()
