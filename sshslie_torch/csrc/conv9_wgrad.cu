@@ -398,8 +398,7 @@ wgrad_c64_bf16_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* 
 constexpr int kSegT = 64;                // pixels of a row a segment: one chain of products
 constexpr int kWgsT = 2;                 // warpgroups a block
 constexpr int kThreadsT = 128 * kWgsT;
-constexpr int kXRowT = 72;               // floats a staged X pixel: 64 channels + 8 (A loads)
-constexpr int kDyRowT = 68;              // floats a landed dY pixel: 64 channels + 4
+constexpr int kRowT = 72;                // floats a landed pixel (X or dY): 64 channels + 8
 
 template <int K>
 struct Tf32WTile {
@@ -407,14 +406,16 @@ struct Tf32WTile {
   // k = 9, half of it above, so that the running sums fit the registers.
   static constexpr int kGroups = K <= 9 ? 1 : 2;
   static constexpr int kTapsWg = (K + kWgsT * kGroups - 1) / (kWgsT * kGroups);
-  static constexpr int kXRows = kSegT + kWgsT * kTapsWg - 1;  // X pixels a segment
-  static constexpr int kDtBytes = kSegT * kC * 4;             // dY^T, mma.cuh::dyt_offset
-  static constexpr int kXBytes = kXRows * kXRowT * 4;
-  static constexpr int kDrBytes = kSegT * kDyRowT * 4;
-  // Two buffers of each: one read while the next lands or is transposed;
-  // 1024 bytes of slack to align the dY^T tiles to the swizzle's period.
-  static constexpr int kSmemBytes = 1024 + 2 * (kDtBytes + kXBytes + kDrBytes);
-  static_assert(kDtBytes % 1024 == 0 && kXBytes % 16 == 0, "tile alignment");
+  static constexpr int kTaps = kWgsT * kTapsWg;                 // taps of the block's window
+  static constexpr int kXRows = kSegT + kTaps - 1;              // X pixels a segment
+  static constexpr int kXtPix = kSegT + 4 * ((kTaps - 1) / 4);  // pixels of a phase copy
+  static constexpr int kXtSbo = kXtPix * 32;                    // bytes of 8 channels of a copy
+  static constexpr int kXtBytes = 4 * 8 * kXtSbo;               // the four phase copies of X^T
+  static constexpr int kRawBytes = kXRows * kRowT * 4;
+  static constexpr int kDyBytes = kSegT * kRowT * 4;
+  // Two buffers of each: one read while the next lands or is converted.
+  static constexpr int kSmemBytes = 2 * (kXtBytes + kRawBytes + kDyBytes);
+  static_assert(kTapsWg >= 2, "a tap to issue the loads, another to convert X");
 };
 
 // First tap warpgroup u (0 .. 2 kGroups - 1) computes. It owns (stores) taps
@@ -434,21 +435,18 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   constexpr int P = (K - 1) / 2;
   constexpr int kTaps = T::kTapsWg;
   extern __shared__ __align__(1024) unsigned char smem[];
-  const unsigned base = (smem_u32(smem) + 1023) & ~1023u;
-  unsigned char* const sp = smem + (base - smem_u32(smem));
-  // [buffer]: dY^T tiles, then X pixel rows, then landed dY pixel rows.
-  auto dt_addr = [&](int buf) { return base + buf * T::kDtBytes; };
-  auto xs_ptr = [&](int buf) {
-    return reinterpret_cast<float*>(sp + 2 * T::kDtBytes + buf * T::kXBytes);
+  // [buffer]: X^T phase copies, then landed X pixel rows, then landed dY pixel rows.
+  auto raw_ptr = [&](int buf) {
+    return reinterpret_cast<float*>(smem + 2 * T::kXtBytes + buf * T::kRawBytes);
   };
-  auto dr_ptr = [&](int buf) {
-    return reinterpret_cast<float*>(sp + 2 * (T::kDtBytes + T::kXBytes) + buf * T::kDrBytes);
+  auto dy_ptr = [&](int buf) {
+    return reinterpret_cast<float*>(smem + 2 * (T::kXtBytes + T::kRawBytes) + buf * T::kDyBytes);
   };
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
-  const int wg = tid >> 7;         // warpgroup
-  const int wq = (tid >> 5) & 3;   // warp of the warpgroup: input channels 16 wq .. 16 wq + 15
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);  // warpgroup (warp-uniform)
+  const int wq = (tid >> 5) & 3;   // warp of the warpgroup: output channels 16 wq .. 16 wq + 15
   const int g = lane >> 2;
   const int q = lane & 3;
   const int s = blockIdx.x;
@@ -470,8 +468,8 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   for (int r = r0; r < r1; ++r) items += valid(r);
   items *= nseg;
 
-  // Load cursors over the slice's (row, segment) pairs: X runs one item
-  // ahead of the one being summed, dY two (it lands, then is transposed).
+  // Load cursors over the slice's (row, segment) pairs: X lands two items
+  // ahead of the one being summed (then is converted), dY one.
   struct Cursor {
     int r, seg;
   };
@@ -484,113 +482,115 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       do ++c.r; while (c.r < r1 && !valid(c.r));
     }
   };
-  // X pixels w0 - P + kwb .. + kXRows - 1 of input row r + kh - P into
-  // buffer buf, zero outside the image; then the cursor moves on.
+  // A thread copies the 16-byte chunk ch of pixels p0, p0 + 16, ...
+  const int ch = tid & 15;
+  const int p0 = tid >> 4;
+  // X pixels w0 - P + kwb .. + kXRows - 1 of input row r + kh - P as they
+  // lie, into buffer buf, zero outside the image; then the cursor moves on.
   auto load_x = [&](Cursor& c, int buf) {
     if (c.r >= r1) return;
-    const float* xrow = x + static_cast<size_t>(c.r + kh - P) * W * kC;
-    const int gw0 = c.seg * kSegT - P + kwb;
-    const unsigned dst = smem_u32(xs_ptr(buf));
-    for (int i = tid; i < T::kXRows * 16; i += kThreadsT) {
-      const int p = i >> 4;
-      const int ch = i & 15;
-      const int gw = gw0 + p;
+    const int gw0 = c.seg * kSegT - P + kwb + p0;
+    const float* src = x + (static_cast<long long>(c.r + kh - P) * W + gw0) * kC + ch * 4;
+    const unsigned dst = smem_u32(raw_ptr(buf)) + (p0 * kRowT + ch * 4) * 4;
+#pragma unroll
+    for (int n = 0; n < (T::kXRows + 15) / 16; ++n) {
+      const int gw = gw0 + 16 * n;
       const bool in = gw >= 0 && gw < W;
-      cp_async16(dst + (p * kXRowT + ch * 4) * 4, in ? xrow + static_cast<size_t>(gw) * kC + ch * 4 : x,
-                 in ? 16 : 0);
+      if (16 * n + p0 < T::kXRows)
+        cp_async16(dst + 16 * n * kRowT * 4, in ? src + 16 * n * kC : x, in ? 16 : 0);
     }
     advance(c);
   };
-  // dY pixels w0 .. w0 + 63 of row r as they lie ([px][co]), zero past W.
+  // dY pixels w0 .. w0 + 63 of row r as they lie, zero past W.
   auto load_dy = [&](Cursor& c, int buf) {
     if (c.r >= r1) return;
-    const float* drow = dy + static_cast<size_t>(c.r) * W * kC;
-    const int w0 = c.seg * kSegT;
-    const unsigned dst = smem_u32(dr_ptr(buf));
-    for (int i = tid; i < kSegT * 16; i += kThreadsT) {
-      const int p = i >> 4;
-      const int ch = i & 15;
-      const bool in = w0 + p < W;
-      cp_async16(dst + (p * kDyRowT + ch * 4) * 4,
-                 in ? drow + static_cast<size_t>(w0 + p) * kC + ch * 4 : dy, in ? 16 : 0);
+    const int w = c.seg * kSegT + p0;
+    const float* src = dy + (static_cast<long long>(c.r) * W + w) * kC + ch * 4;
+    const unsigned dst = smem_u32(dy_ptr(buf)) + (p0 * kRowT + ch * 4) * 4;
+#pragma unroll
+    for (int n = 0; n < kSegT / 16; ++n) {
+      const bool in = w + 16 * n < W;
+      cp_async16(dst + 16 * n * kRowT * 4, in ? src + 16 * n * kC : dy, in ? 16 : 0);
     }
     advance(c);
   };
-  // Landed dY of buffer buf, rounded to TF32, into dY^T tile buf. A warp
-  // takes 32 consecutive pixels of one 4-channel chunk: conflict-free
-  // 16-byte reads on the 68-float rows, and each of its 4 stores fills 32
-  // banks of one output channel's row.
-  auto transpose_dy = [&](int buf) {
-    const float* dr = dr_ptr(buf);
-    unsigned char* dt = sp + buf * T::kDtBytes;
-    for (int i = tid; i < kSegT * 16; i += kThreadsT) {
-      const int px = (i & 31) | (((i >> 5) & 1) << 5);
-      const int c4 = (i >> 6) * 4;
-      const float4 v = *reinterpret_cast<const float4*>(dr + px * kDyRowT + c4);
-      *reinterpret_cast<float*>(dt + dyt_offset(px, c4)) = tf32_rna(v.x);
-      *reinterpret_cast<float*>(dt + dyt_offset(px, c4 + 1)) = tf32_rna(v.y);
-      *reinterpret_cast<float*>(dt + dyt_offset(px, c4 + 2)) = tf32_rna(v.z);
-      *reinterpret_cast<float*>(dt + dyt_offset(px, c4 + 3)) = tf32_rna(v.w);
+  // Part `part` of `parts` of buffer buf's landed X into its X^T phase
+  // copies. A warp takes pixels 4 J .. 4 J + 6 of 32 channels, a channel a
+  // lane (conflict-free loads from the 72-float rows), rounds them to TF32
+  // once and stores 4 pixels of its channel into each copy, 16 bytes: pixel
+  // p goes to pixel p - c of copy c, and 8 lanes fill one core matrix.
+  auto convert_x = [&](int buf, int part, int parts) {
+    constexpr int kTasks = T::kXtPix / 4 * 2;  // (core matrix column, 32 channels)
+    const int per = (kTasks + parts - 1) / parts;
+    const int end = min(kTasks, (part + 1) * per);
+    const float* raw = raw_ptr(buf) + lane;
+    unsigned char* xt = smem + buf * T::kXtBytes + (lane & 7) * 16;
+    for (int task = part * per + (tid >> 5); task < end; task += kThreadsT / 32) {
+      const int J = task >> 1;
+      const int ci = (task & 1) * 32;
+      float v[7];
+#pragma unroll
+      for (int e = 0; e < 7; ++e) v[e] = tf32_rna(raw[min(4 * J + e, T::kXRows - 1) * kRowT + ci]);
+      unsigned char* d = xt + ((ci + lane) >> 3) * T::kXtSbo + J * 128;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        *reinterpret_cast<float4*>(d + c * 8 * T::kXtSbo) = make_float4(v[c], v[c + 1], v[c + 2], v[c + 3]);
     }
   };
 
-  // acc[t]: the running sums of tap kw0 + t, input channels (M) x output
-  // channels (N); fresh: the current segment's products of one tap.
+  // acc[t]: the running sums of tap kw0 + t, output channels (M) x input
+  // channels (N); fresh: one tap's products of the current segment.
   float acc[kTaps][32];
   float fresh[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) fresh[i] = 0.f;
 #pragma unroll
   for (int t = 0; t < kTaps; ++t)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
-  // A fragments of half a tap (4 k steps) each: one read by wgmma while the
-  // other loads.
-  unsigned a0[4][4], a1[4][4];
-  const int xoff = (kw0 - kwb + q) * kXRowT + 16 * wq + g;  // this lane's A, tap offset 0
+  unsigned a[kSegT / 8][4];  // A, dY^T of the segment: every tap's
+  const int aoff = q * kRowT + 16 * wq + g;
 
-  // Prologue: item 0's X and dY, then item 1's dY; item 0's dY transposed.
+  // Prologue: items 0 and 1's X and item 0's dY land; item 0's X is converted.
   load_x(cx, 0);
+  load_x(cx, 1);
   load_dy(cd, 0);
   cp_async_commit();
-  load_dy(cd, 1);
-  cp_async_commit();
-  cp_async_wait<1>();
+  cp_async_wait<0>();
   __syncthreads();
-  transpose_dy(0);
+  convert_x(0, 0, 1);
 
 #pragma unroll 1
   for (int it = 0; it < items; ++it) {
     const int buf = it & 1;
-    cp_async_wait<0>();   // item it's X and item it + 1's dY landed
-    fence_proxy_async();  // item it's dY^T, stored by this thread, is visible to wgmma
+    cp_async_wait<0>();   // item it's dY and item it + 1's X landed
+    fence_proxy_async();  // item it's X^T, stored by this thread, is visible to wgmma
     __syncthreads();      // ... for all threads; and every warpgroup is done with item it - 1
-    load_x(cx, buf ^ 1);  // item it + 1
-    load_dy(cd, buf);     // item it + 2
-    cp_async_commit();
-    const float* xs = xs_ptr(buf) + xoff;
-    const unsigned dt = dt_addr(buf);
-    // Per tap, 8 k steps of wgmma (two groups of 4) into fresh accumulators;
-    // then the tap's sums += them, so no chain of the tensor cores'
-    // truncating adds runs longer than the segment.
+    const float* ds = dy_ptr(buf) + aoff;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) x_fragment_tf32<kXRowT>(a0[j], xs, 8 * j);
+    for (int ks = 0; ks < kSegT / 8; ++ks) rows_fragment_tf32<kRowT>(a[ks], ds, 8 * ks);
+    const unsigned xt = smem_u32(smem) + buf * T::kXtBytes;
+    // Per tap, 8 k steps of wgmma into fresh accumulators, the first with
+    // scale-d false; while they run, this thread's share of the loads (tap
+    // 0) or of the next item's X^T; then the tap's sums += them, so no
+    // chain of the tensor cores' truncating adds runs past the segment.
 #pragma unroll
     for (int t = 0; t < kTaps; ++t) {
+      const int r = kw0 - kwb + t;  // the tap's offset in the window: copy r % 4, pixel 4 (r / 4)
+      const unsigned long long desc =
+          xt_desc(xt + (r & 3) * 8 * T::kXtSbo + (r >> 2) * 128, T::kXtSbo);
       wgmma_fence();
-      wgmma_m64n64k8_tf32_first(fresh, a0[0], dyt_desc(dt, 0));
+      wgmma_m64n64k8_tf32_first(fresh, a[0], desc);
 #pragma unroll
-      for (int j = 1; j < 4; ++j) wgmma_m64n64k8_tf32(fresh, a0[j], dyt_desc(dt, j));
+      for (int ks = 1; ks < kSegT / 8; ++ks)
+        wgmma_m64n64k8_tf32(fresh, a[ks], desc + ((ks * 256) >> 4));
       wgmma_commit();
-#pragma unroll
-      for (int j = 0; j < 4; ++j) x_fragment_tf32<kXRowT>(a1[j], xs, 8 * (4 + j) + t);
-      if (t == 0 && it + 1 < items) transpose_dy(buf ^ 1);  // item it + 1's dY
-      wgmma_fence();
-#pragma unroll
-      for (int j = 0; j < 4; ++j) wgmma_m64n64k8_tf32(fresh, a1[j], dyt_desc(dt, 4 + j));
-      wgmma_commit();
-      if (t + 1 < kTaps) {
-        wgmma_wait<1>();  // the first half is done: a0 is free
-#pragma unroll
-        for (int j = 0; j < 4; ++j) x_fragment_tf32<kXRowT>(a0[j], xs, 8 * j + t + 1);
+      if (t == 0) {
+        load_x(cx, buf);       // item it + 2
+        load_dy(cd, buf ^ 1);  // item it + 1
+        cp_async_commit();
+      } else if (it + 1 < items) {
+        convert_x(buf ^ 1, t - 1, kTaps - 1);  // item it + 1
       }
       wgmma_wait<0>();
 #pragma unroll
@@ -599,19 +599,18 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   }
   cp_async_wait<0>();
 
-  // Partial of slice s: part[s][kh][kw][ci][co]; acc[t][i] is input
-  // channel 16 wq + g + 8 ((i >> 1) & 1), output channel 8 (i >> 2) + 2 q +
+  // Partial of slice s: part[s][kh][kw][ci][co]; acc[t][i] is output
+  // channel 16 wq + g + 8 ((i >> 1) & 1), input channel 8 (i >> 2) + 2 q +
   // (i & 1). Taps below u T are another warpgroup's.
   float* out = part + ((static_cast<size_t>(s) * K + kh) * K) * kC * kC;
 #pragma unroll
   for (int t = 0; t < kTaps; ++t) {
     const int kw = kw0 + t;
     if (kw < u * kTaps) continue;
-    float* o = out + static_cast<size_t>(kw) * kC * kC + (16 * wq + g) * kC + 2 * q;
+    float* o = out + static_cast<size_t>(kw) * kC * kC + (2 * q) * kC + 16 * wq + g;
 #pragma unroll
-    for (int i = 0; i < 32; i += 2)
-      *reinterpret_cast<float2*>(o + 8 * ((i >> 1) & 1) * kC + 8 * (i >> 2)) =
-          make_float2(acc[t][i], acc[t][i + 1]);
+    for (int i = 0; i < 32; ++i)
+      o[(8 * (i >> 2) + (i & 1)) * kC + 8 * ((i >> 1) & 1)] = acc[t][i];
   }
 }
 

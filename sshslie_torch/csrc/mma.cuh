@@ -199,35 +199,40 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32_first(float (&d)[32], const 
 
 // ---- The TF32 weight gradient's form (conv9_wgrad.cu, tools/tc_probe.cu) ----
 //
-// Per tap, dW_tap (M = 64 input channels x N = 64 output channels) += X_tap^T
-// (64 ci x 64 pixels) dY (64 pixels x 64 co), K the pixels of a segment.
-// .tf32 wgmma reads B K-major only, and a descriptor's start moves in
-// 16-byte steps, so the tap's one-pixel shift cannot live in B: B is dY,
-// the same for every tap, and A is X shifted by the tap, from registers.
+// Per tap, dW_tap^T (M = 64 output channels x N = 64 input channels) += dY^T
+// (64 co x 64 pixels) X_tap (64 pixels x 64 ci), K the pixels of a segment.
+// A is dY^T from registers, the same for every tap of a segment. B is X^T
+// shifted by the tap: .tf32 wgmma reads B K-major only, so X is stored
+// transposed, and a tap's one-pixel shift lives in the descriptor's start,
+// which moves in 16-byte steps: four phase copies of X^T (copy c holds
+// pixels c, c + 1, ...), tap 4 a + c reading copy c from pixel 4 a.
 //
-// B, dY^T: two 128-byte-swizzled atoms (pixels 0..31, 32..63) of 64 rows,
-// one output channel a row, 32 pixels (128 bytes) each; 16 KB, 1024-byte
-// aligned. Byte offset of (pixel px, output channel co):
-__device__ __forceinline__ unsigned dyt_offset(int px, int co) {
-  return static_cast<unsigned>((px >> 5) * 8192 + co * 128 +
-                               ((((px & 31) >> 2) ^ (co & 7)) << 4) + (px & 3) * 4);
+// The copies are in the K-major layout without swizzle: core matrices of 8
+// channel rows x 4 pixels (16 bytes a row, 128 contiguous bytes), the next
+// 4 pixels 128 bytes on (the leading offset), the next 8 channels sbo bytes
+// on (the stride offset: the copy's width in pixels x 32). Byte offset of
+// (input channel ci, pixel j) in a copy:
+__device__ __forceinline__ unsigned xt_offset(int ci, int j, int sbo) {
+  return static_cast<unsigned>((ci >> 3) * sbo + (j >> 2) * 128 + (ci & 7) * 16 + (j & 3) * 4);
 }
 
-// Descriptor of k step ks (pixels 8 ks .. 8 ks + 7) of the dY^T tile at
-// base: the atom, then 32 bytes a step within its rows.
-__device__ __forceinline__ unsigned long long dyt_desc(unsigned base, int ks) {
-  return wgmma_desc(base + (ks >> 2) * 8192 + (ks & 3) * 32);
+// Descriptor of B at addr (16-byte aligned: a copy's base plus 128 bytes a
+// 4 pixels of the tap's shift; a k step is 256 bytes on), no swizzle.
+__device__ __forceinline__ unsigned long long xt_desc(unsigned addr, int sbo) {
+  return static_cast<unsigned long long>((addr & 0x3FFFF) >> 4) |
+         (static_cast<unsigned long long>(128 >> 4) << 16) |                      // leading offset
+         (static_cast<unsigned long long>(static_cast<unsigned>(sbo) >> 4) << 32);  // stride offset
 }
 
-// A, X^T (ci x px) shifted by the tap, from the X pixels staged as rows of
-// kRow floats ([px][ci], unrounded): the m16n8k8 A fragment of a k step,
-// rounded to TF32 as it is loaded. xs points at row 0, channel 16 w + g of
-// warp w's rows (g = lane / 4); px0 = 8 ks + (the tap's offset) + lane % 4.
-// a[0], a[1]: pixel px0, channels g and g + 8; a[2], a[3]: pixel px0 + 4.
-// The 32 lanes hit 32 banks when kRow % 32 == 8.
+// A (64 channels x 8 pixels) of one k step from pixels staged as rows of
+// kRow floats ([px][channel], unrounded): the m16n8k8 A fragment, rounded
+// to TF32 as it is loaded. rows points at row 0, channel 16 w + g of warp
+// w's rows (g = lane / 4); px0 = 8 ks + lane % 4. a[0], a[1]: pixel px0,
+// channels g and g + 8; a[2], a[3]: pixel px0 + 4. The 32 lanes hit 32
+// banks when kRow % 32 == 8.
 template <int kRow>
-__device__ __forceinline__ void x_fragment_tf32(unsigned (&a)[4], const float* xs, int px0) {
-  const float* r = xs + px0 * kRow;
+__device__ __forceinline__ void rows_fragment_tf32(unsigned (&a)[4], const float* rows, int px0) {
+  const float* r = rows + px0 * kRow;
   a[0] = __float_as_uint(tf32_rna(r[0]));
   a[1] = __float_as_uint(tf32_rna(r[8]));
   a[2] = __float_as_uint(tf32_rna(r[4 * kRow]));

@@ -6,9 +6,10 @@
 //     through a descriptor that starts at an arbitrary row of a
 //     128-byte-swizzled tile, as the conv kernels address a tap's shifted
 //     pixel window, with A from registers; and the TF32 weight gradient's
-//     form (conv9_wgrad.cu): B dY^T K-major, [co][px] rows in two atoms
-//     (k steps 4..7 in the second), A X^T from [px][ci] rows at a tap
-//     offset, rounded as loaded, the first wgmma with scale-d false;
+//     form (conv9_wgrad.cu): A dY^T from [px][co] rows, rounded as loaded;
+//     B X^T K-major without swizzle, one of four phase copies from a start
+//     that moves 128 bytes (4 pixels) a step; the first wgmma with scale-d
+//     false;
 //   * throughput of mma.sync m16n8k16 (with and without the ldmatrix loads
 //     of a 64 x 64 warp tile; both helpers from mma.cuh, as flash_attn.cu
 //     uses them) and of wgmma with A from registers (bfloat16 k16 and
@@ -131,40 +132,42 @@ __global__ void tf32_kmajor_kernel(const float* A, const float* X, float* D, int
     D[(16 * w + g + 8 * ((i >> 1) & 1)) * 64 + 8 * (i >> 2) + 2 * t + (i & 1)] = d[i];
 }
 
-// D (64 ci x 64 co) = X[s .. s+63]^T DY (64 px x 64 co), both rounded to
-// TF32 in the kernel: the TF32 wgrad form of one tap and segment, with
-// X rows and DY as they lie in memory (64 floats a pixel), staged as
-// conv9_wgrad.cu stages them (X in 72-float rows; DY in 68-float rows, then
-// rounded and transposed into the dY^T tile).
+// D (64 co x 64 ci) = DY^T (64 co x 64 px) X[s .. s+63] (64 px x 64 ci),
+// both rounded to TF32 in the kernel: the TF32 wgrad form of one tap and
+// segment, with X rows and DY as they lie in memory (64 floats a pixel),
+// staged as conv9_wgrad.cu stages them (72-float rows; X then rounded into
+// the four phase copies of X^T), B read from copy s % 4 at pixel 4 (s / 4).
 __global__ void tf32_wgrad_kernel(const float* X, const float* DY, float* D, int R, int s) {
-  extern __shared__ unsigned char smem[];
-  const unsigned base = (smem_u32(smem) + 1023) & ~1023u;
-  unsigned char* const sp = smem + (base - smem_u32(smem));
-  float* const xs = reinterpret_cast<float*>(sp + 16384);
-  float* const dr = xs + R * 72;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int pix = R - 3;                 // pixels of a copy (a multiple of 4)
+  const int sbo = pix * 32;
+  float* const xr = reinterpret_cast<float*>(smem + 4 * 8 * sbo);
+  float* const dr = xr + R * 72;
   for (int i = threadIdx.x; i < R * 16; i += 128)
-    cp_async16(smem_u32(xs + (i >> 4) * 72 + (i & 15) * 4), X + i * 4, 16);
+    cp_async16(smem_u32(xr + (i >> 4) * 72 + (i & 15) * 4), X + i * 4, 16);
   for (int i = threadIdx.x; i < 64 * 16; i += 128)
-    cp_async16(smem_u32(dr + (i >> 4) * 68 + (i & 15) * 4), DY + i * 4, 16);
+    cp_async16(smem_u32(dr + (i >> 4) * 72 + (i & 15) * 4), DY + i * 4, 16);
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  for (int i = threadIdx.x; i < 64 * 16; i += 128) {
-    const int px = (i & 31) | (((i >> 5) & 1) << 5);
-    const int c4 = (i >> 6) * 4;
-    for (int e = 0; e < 4; ++e)
-      *reinterpret_cast<float*>(sp + dyt_offset(px, c4 + e)) = tf32_rna(dr[px * 68 + c4 + e]);
+  for (int i = threadIdx.x; i < R * 64; i += 128) {
+    const int p = i >> 6, ci = i & 63;
+    const float v = tf32_rna(xr[p * 72 + ci]);
+    for (int c = 0; c < 4; ++c)
+      if (p - c >= 0 && p - c < pix)
+        *reinterpret_cast<float*>(smem + c * 8 * sbo + xt_offset(ci, p - c, sbo)) = v;
   }
   fence_proxy_async();
   __syncthreads();
   const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   unsigned a[8][4];
-  for (int ks = 0; ks < 8; ++ks) x_fragment_tf32<72>(a[ks], xs + 16 * w + g, 8 * ks + s + t);
+  for (int ks = 0; ks < 8; ++ks) rows_fragment_tf32<72>(a[ks], dr + 16 * w + g, 8 * ks + t);
+  const unsigned long long desc = xt_desc(smem_u32(smem) + (s & 3) * 8 * sbo + (s >> 2) * 128, sbo);
   float d[32];
   wgmma_fence();
-  wgmma_m64n64k8_tf32_first(d, a[0], dyt_desc(base, 0));
-  for (int ks = 1; ks < 8; ++ks) wgmma_m64n64k8_tf32(d, a[ks], dyt_desc(base, ks));
+  wgmma_m64n64k8_tf32_first(d, a[0], desc);
+  for (int ks = 1; ks < 8; ++ks) wgmma_m64n64k8_tf32(d, a[ks], desc + ((ks * 256) >> 4));
   wgmma_commit();
   wgmma_wait<0>();
   for (int i = 0; i < 32; ++i)
@@ -208,7 +211,7 @@ __global__ void __launch_bounds__(256, 1) wgmma_tf32_loop(float* out, int iters)
 // iteration is 8 k steps into each (a chain of 8 dependent wgmma a tile,
 // the tiles' steps interleaved), committed, then waited for to the end,
 // as the TF32 wgrad kernel runs a tap's segment.
-template <int NWG, int NACC>
+template <int NWG, int NACC, int kInterleave = 0>
 __global__ void __launch_bounds__(128 * NWG, 1) wgmma_tf32_chains(float* out, int iters) {
   __shared__ __align__(1024) unsigned char smem[16384];
   for (int i = threadIdx.x; i < 4096; i += 128 * NWG)
@@ -225,7 +228,9 @@ __global__ void __launch_bounds__(128 * NWG, 1) wgmma_tf32_chains(float* out, in
 #pragma unroll
     for (int ks = 0; ks < 8; ++ks)
 #pragma unroll
-      for (int m = 0; m < NACC; ++m) wgmma_m64n64k8_tf32(d[m], a, wgmma_desc(base + (ks & 3) * 32));
+      for (int m = 0; m < NACC; ++m)
+        wgmma_m64n64k8_tf32(d[m], a, kInterleave ? xt_desc(base + (ks & 3) * 256, 2048)
+                                                 : wgmma_desc(base + (ks & 3) * 32));
     wgmma_commit();
     wgmma_wait<0>();
   }
@@ -233,6 +238,55 @@ __global__ void __launch_bounds__(128 * NWG, 1) wgmma_tf32_chains(float* out, in
   for (int m = 0; m < NACC; ++m)
     for (int i = 0; i < 32; ++i) sum += d[m][i];
   out[blockIdx.x * 128 * NWG + threadIdx.x] = sum;
+}
+
+// The TF32 wgrad kernel's tap loop alone: 2 warpgroups, each NTAPS taps an
+// iteration (a segment), a tap a chain of 8 k steps into fresh
+// accumulators (FIRST: the first with scale-d false, else zeroed), waited
+// for, then (FLUSH) added to the tap's running sums in registers.
+template <int NTAPS, int FIRST, int FLUSH>
+__global__ void __launch_bounds__(256, 1) wgmma_tf32_taps(float* out, int iters) {
+  __shared__ __align__(1024) unsigned char smem[16384];
+  for (int i = threadIdx.x; i < 4096; i += 256)
+    reinterpret_cast<float*>(smem)[i] = (i & 1) ? 1.f : 0.f;
+  fence_proxy_async();
+  __syncthreads();
+  const unsigned base = smem_u32(smem);
+  unsigned a[8][4];
+  for (int ks = 0; ks < 8; ++ks) {
+    a[ks][0] = a[ks][1] = 0x3f800000u + ks;
+    a[ks][2] = a[ks][3] = 0u;
+  }
+  float acc[NTAPS][32], fresh[32];
+  for (int i = 0; i < 32; ++i) fresh[i] = 0.f;
+  for (int t = 0; t < NTAPS; ++t)
+    for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int t = 0; t < NTAPS; ++t) {
+      const unsigned long long desc = wgmma_desc(base + ((t + it) & 1) * 1024);
+      if (!FIRST) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fresh[i] = 0.f;
+      }
+      wgmma_fence();
+      if (FIRST) wgmma_m64n64k8_tf32_first(fresh, a[0], desc);
+      else wgmma_m64n64k8_tf32(fresh, a[0], desc);
+#pragma unroll
+      for (int ks = 1; ks < 8; ++ks) wgmma_m64n64k8_tf32(fresh, a[ks], desc + (((ks & 3) * 32) >> 4));
+      wgmma_commit();
+      wgmma_wait<0>();
+      if (FLUSH) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[t][i] += fresh[i];
+      }
+    }
+  }
+  float sum = 0.f;
+  for (int i = 0; i < 32; ++i) sum += fresh[i];
+  for (int t = 0; t < NTAPS; ++t)
+    for (int i = 0; i < 32; ++i) sum += acc[t][i];
+  out[blockIdx.x * 256 + threadIdx.x] = sum;
 }
 
 // 2 warpgroups, each 4 accumulator tiles of 64 x N, 4 k steps an iteration.
@@ -316,10 +370,11 @@ __global__ void __launch_bounds__(256, 1) mma_loop(float* out, int iters) {
 
 // mn_major: 0 bfloat16 K-major, 1 bfloat16 MN-major (m64n64k16; A 64 x 64,
 // D 64 x 64); 2 TF32 K-major (m64n64k8; A 64 x 32, D 64 x 64); 3 the TF32
-// wgrad form (A: X, R rows of 64 float32; X: DY, 64 x 64; D 64 x 64).
+// wgrad form (A: X, R rows of 64 float32, R - 3 a multiple of 4; X: DY,
+// 64 x 64; D 64 co x 64 ci).
 SSHSLIE_EXPORT int probe_layout(int mn_major, const void* A, const void* X, void* D, int R, int s) {
   if (mn_major == 3) {
-    const int smem = 1024 + 16384 + R * 72 * 4 + 64 * 68 * 4;
+    const int smem = 4 * 8 * (R - 3) * 32 + R * 72 * 4 + 64 * 72 * 4;
     cudaError_t err = cudaFuncSetAttribute(tf32_wgrad_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -348,7 +403,9 @@ SSHSLIE_EXPORT int probe_layout(int mn_major, const void* A, const void* X, void
 // 4 wgmma m64n32k8 .tf32, 5 wgmma m64n64k8 .tf32 (4 accumulators, B from row 0),
 // 6 the same with 2 accumulators, 7 with 4 accumulators and B from row 3;
 // 8 .. 14 TF32 chains of 8 k steps waited for each iteration (warpgroups x
-// accumulators a warpgroup: 2 x 1, 3 x 1, 4 x 1, 2 x 2, 3 x 2, 3 x 3, 2 x 4).
+// accumulators a warpgroup: 2 x 1, 3 x 1, 4 x 1, 2 x 2, 3 x 2, 3 x 3, 2 x 4;
+// 15 2 x 1 with B K-major without swizzle); 16 .. 18 the TF32 wgrad tap loop
+// (5 taps: first with scale-d false and flush; no flush; zeroed, flush).
 SSHSLIE_EXPORT int probe_loop(int which, void* out, int blocks, int iters) {
   float* o = static_cast<float*>(out);
   switch (which) {
@@ -367,6 +424,10 @@ SSHSLIE_EXPORT int probe_loop(int which, void* out, int blocks, int iters) {
     case 12: wgmma_tf32_chains<3, 2><<<blocks, 384>>>(o, iters); break;
     case 13: wgmma_tf32_chains<3, 3><<<blocks, 384>>>(o, iters); break;
     case 14: wgmma_tf32_chains<2, 4><<<blocks, 256>>>(o, iters); break;
+    case 15: wgmma_tf32_chains<2, 1, 1><<<blocks, 256>>>(o, iters); break;
+    case 16: wgmma_tf32_taps<5, 1, 1><<<blocks, 256>>>(o, iters); break;
+    case 17: wgmma_tf32_taps<5, 1, 0><<<blocks, 256>>>(o, iters); break;
+    case 18: wgmma_tf32_taps<5, 0, 1><<<blocks, 256>>>(o, iters); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

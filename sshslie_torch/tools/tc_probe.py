@@ -10,10 +10,9 @@ Builds ``tc_probe.cu`` (with the port's ``csrc/mma.cuh``) into
   against a float32 product (max |err|); and the TF32 form of conv9.cu
   (m64n64k8 .tf32, A from registers, a K-major B of 32-float rows from row
   s), against a float64 product of the same TF32 values (max |err| over
-  max |product|); and the TF32 form of conv9_wgrad.cu (B dY^T K-major,
-  [co][px] rows in two swizzled atoms; A X^T from [px][ci] rows at tap
-  offsets 0..12, rounded as loaded), against float64 on the rounded
-  operands;
+  max |product|); and the TF32 form of conv9_wgrad.cu (A dY^T from [px][co]
+  rows, rounded as loaded; B X^T K-major without swizzle, the phase copy
+  and start of tap offsets 0..12), against float64 on the rounded operands;
 * the throughput, TFLOP/s, of mma.sync m16n8k16 (bare, and with the
   ldmatrix loads of a 64 x 64 warp tile) and of wgmma with A from
   registers (bfloat16 k16, TF32 k8; TF32 also with 2 accumulator tiles a
@@ -51,7 +50,11 @@ LOOPS = {0: ("wgmma m64n64k16, A in registers", 64, 16, 4),
 CHAINS = {8: ("2 warpgroups x 1", 2, 1), 9: ("3 warpgroups x 1", 3, 1),
           10: ("4 warpgroups x 1", 4, 1), 11: ("2 warpgroups x 2", 2, 2),
           12: ("3 warpgroups x 2", 3, 2), 13: ("3 warpgroups x 3", 3, 3),
-          14: ("2 warpgroups x 4", 2, 4)}
+          14: ("2 warpgroups x 4", 2, 4),
+          15: ("2 warpgroups x 1, B K-major without swizzle,", 2, 1),
+          16: ("the wgrad tap loop (5 taps, scale-d false, running sums +=), 2 warpgroups x 1", 2, 5),
+          17: ("the wgrad tap loop without the +=, 2 warpgroups x 1", 2, 5),
+          18: ("the wgrad tap loop, zeroed instead of scale-d false, 2 warpgroups x 1", 2, 5)}
 
 
 def _library() -> ctypes.CDLL:
@@ -96,17 +99,17 @@ def main() -> int:
         err = float((d.double() - want).abs().max() / want.abs().max())
         print(f"layout TF32 K-major B (m64n64k8), start row {s}: code {code}, "
               f"max|err| / max|D| {err:.3e}")
-    # The TF32 wgrad form: D (64 ci x 64 co) = X[s .. s+63]^T DY, the kernel
+    # The TF32 wgrad form: D (64 co x 64 ci) = DY^T X[s .. s+63], the kernel
     # rounding both as conv9_wgrad.cu does.
-    xw = torch.randn(76, 64, generator=g).to(dev)
+    xw = torch.randn(79, 64, generator=g).to(dev)
     dyw = torch.randn(64, 64, generator=g).to(dev)
     for s in range(13):
         d = torch.zeros(64, 64, device=dev)
         code = lib.probe_layout(3, ctypes.c_void_p(xw.data_ptr()), ctypes.c_void_p(dyw.data_ptr()),
-                                ctypes.c_void_p(d.data_ptr()), 76, s)
-        want = round_to_tf32(xw[s:s + 64]).double().T @ round_to_tf32(dyw).double()
+                                ctypes.c_void_p(d.data_ptr()), 79, s)
+        want = round_to_tf32(dyw).double().T @ round_to_tf32(xw[s:s + 64]).double()
         err = float((d.double() - want).abs().max() / want.abs().max())
-        print(f"layout TF32 wgrad (B dY^T K-major, A X at tap offset {s}): code {code}, "
+        print(f"layout TF32 wgrad (A dY^T, B X^T phase copy {s % 4} from pixel {s // 4 * 4}): code {code}, "
               f"max|err| / max|D| {err:.3e}")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     out = torch.zeros(2 * sms * 256, device=dev)

@@ -1,21 +1,20 @@
 """A lane-level numpy model of the TF32 conv9_wgrad kernel, against its plain version.
 
 The tensor-core kernel (``sshslie_torch/csrc/conv9_wgrad.cu``,
-``wgrad_c64_tf32_kernel``, with the helpers ``dyt_offset``, ``dyt_desc`` and
-``x_fragment_tf32`` of ``csrc/mma.cuh``) runs only on a card. This model runs
-its index math here, formula for formula:
+``wgrad_c64_tf32_kernel``, with the helpers ``xt_offset``, ``xt_desc`` and
+``rows_fragment_tf32`` of ``csrc/mma.cuh``) runs only on a card. This model
+runs its index math here, formula for formula:
 
 * the slices (one wave of blocks: ``splits_tf32``), the rows of a slice whose
   input row lies in the image, and the (row, segment) items;
-* the staging: X pixels of the block's window into 72-float rows by cp.async
-  chunks (zero outside the image), dY as it lies into 68-float rows, and the
-  pass that rounds dY to TF32 and stores it transposed into the two
-  128-byte-swizzled atoms of the dY^T tile;
-* wgmma's reads of B through the descriptor of each k step (the start
-  address of ``dyt_desc``, 8-row groups 1024 bytes apart, the swizzle on the
-  address bits), across both atoms of a segment;
-* the A fragments of every warp and lane at every tap offset, rounded to TF32
-  as they load, assembled into the m16n8k8 A layout;
+* the staging: X pixels of the block's window and dY pixels into 72-float
+  rows by cp.async chunks (zero outside the image), and the conversion of X,
+  in the parts the taps take, into the four phase copies of X^T (K-major
+  without swizzle: core matrices of 8 channels x 4 pixels);
+* wgmma's reads of B through each tap's descriptor (its phase copy, its start
+  4 pixels a step, 256 bytes a k step, the leading and stride offsets);
+* the A fragments of every warp and lane (dY^T, the same for every tap),
+  rounded to TF32 as they load, assembled into the m16n8k8 A layout;
 * the chain cut (fresh accumulators a tap and segment, added to the running
   sums in float32), the warpgroups' taps and which of them they store, the
   accumulator layout of the epilogue, and the sum of the partials in slice
@@ -36,28 +35,29 @@ from sshslie_torch.ops import conv9
 C = 64
 SEG = 64        # kSegT
 WGS = 2         # kWgsT
-XROW = 72       # kXRowT
-DYROW = 68      # kDyRowT
+ROW = 72        # kRowT
 LANE = np.arange(32)
 G, Q = LANE >> 2, LANE & 3
 
 
 def tile(k):
-    """Tf32WTile<K>: (groups, taps a warpgroup, X rows a segment)."""
+    """Tf32WTile<K>: (groups, taps a warpgroup, X rows a segment, pixels of a
+    phase copy)."""
     groups = 1 if k <= 9 else 2
     taps = -(-k // (WGS * groups))
-    return groups, taps, SEG + WGS * taps - 1
+    window = WGS * taps
+    return groups, taps, SEG + window - 1, SEG + 4 * ((window - 1) // 4)
 
 
 def first_tap(k, u):
     """tf32_first_tap<K>(u)."""
-    _, taps, _ = tile(k)
+    taps = tile(k)[1]
     return min(u * taps, k - taps)
 
 
 def splits_tf32(b, h, k, sms):
     """splits_tf32<K> with one resident block an SM."""
-    groups, _, _ = tile(k)
+    groups = tile(k)[0]
     return int(max(1, min(sms // (k * groups), b * h)))
 
 
@@ -69,15 +69,10 @@ def tf32(a):
     return out.view(np.float32)
 
 
-def dyt_offset(px, co):
-    """mma.cuh::dyt_offset, bytes."""
-    px, co = np.asarray(px), np.asarray(co)
-    return (px >> 5) * 8192 + co * 128 + ((((px & 31) >> 2) ^ (co & 7)) << 4) + (px & 3) * 4
-
-
-def swizzle(addr):
-    """wgmma's 128-byte swizzle on a byte address of a 1024-byte-aligned tile."""
-    return addr ^ (((addr >> 7) & 7) << 4)
+def xt_offset(ci, j, sbo):
+    """mma.cuh::xt_offset, bytes."""
+    ci, j = np.asarray(ci), np.asarray(j)
+    return (ci >> 3) * sbo + (j >> 2) * 128 + (ci & 7) * 16 + (j & 3) * 4
 
 
 def assert_banks(word_addrs, width=1):
@@ -91,35 +86,91 @@ def assert_banks(word_addrs, width=1):
         assert len(set(banks.tolist())) == len(banks), "bank conflict"
 
 
-def descriptor_b(dt_words, ks):
-    """B (8 k x 64 n) of k step ks: wgmma's reads through dyt_desc(base, ks)."""
-    start = (ks >> 2) * 8192 + (ks & 3) * 32
+def descriptor_b(xt_words, start, sbo):
+    """B (8 k x 64 n) of one k step: wgmma's reads through xt_desc(start, sbo),
+    K-major without swizzle: core matrices of 8 rows (n) x 16 bytes, the next
+    4 k at the leading offset (128 bytes), the next 8 n at the stride offset."""
     n = np.arange(64)[None, :]
     kk = np.arange(8)[:, None]
-    addr = start + (n >> 3) * 1024 + (n & 7) * 128 + kk * 4
-    return dt_words[swizzle(addr) // 4]
+    addr = start + (n >> 3) * sbo + (kk >> 2) * 128 + (n & 7) * 16 + (kk & 3) * 4
+    for core in range(8):                     # each core matrix: 128 contiguous bytes
+        blk = addr[(core & 1) * 4:(core & 1) * 4 + 4, (core >> 1) * 8:(core >> 1) * 8 + 8]
+        assert sorted(blk.reshape(-1).tolist()) == list(range(blk.min(), blk.min() + 128, 4))
+    return xt_words[addr // 4]
 
 
-def a_matrix(xs_words, xoff_of_warp, px0):
-    """The warpgroup's A (64 ci x 8 px) of one k step: x_fragment_tf32 of each
-    warp's lanes (pointer xs + xoff, pixel px0 = 8 ks + tap + q folded into
-    xoff's q and ``px0``), placed by the m16n8k8 A layout."""
+def a_matrix(rows_words, aoff_of_warp, px0):
+    """The warpgroup's A (64 channels x 8 pixels) of one k step:
+    rows_fragment_tf32 of each warp's lanes (pointer rows + aoff, aoff
+    holding the lane's q and channel), placed by the m16n8k8 A layout."""
     a = np.zeros((64, 8), np.float32)
     for wq in range(4):
-        r = xoff_of_warp[wq] + px0 * XROW
-        for reg, off in enumerate((0, 8, 4 * XROW, 4 * XROW + 8)):
+        r = aoff_of_warp[wq] + px0 * ROW
+        for reg, off in enumerate((0, 8, 4 * ROW, 4 * ROW + 8)):
             assert_banks(r + off)
             rows = 16 * wq + G + 8 * (reg & 1)
             cols = Q + 4 * (reg >> 1)
-            a[rows, cols] = tf32(xs_words[r + off])
+            a[rows, cols] = tf32(rows_words[r + off])
     return a
+
+
+def land(src_rows, first, count, width):
+    """cp.async of pixels first .. first + count - 1 of one image row
+    (width pixels, 64 channels) into rows of 72 floats, zero outside: thread
+    tid copies chunk tid % 16 of pixels tid / 16 + 16 n."""
+    out = np.full(count * ROW, np.nan, np.float32)
+    for tid in range(256):
+        ch, p0 = tid & 15, tid >> 4
+        for n in range(-(-count // 16)):
+            p = p0 + 16 * n
+            if p >= count:
+                continue
+            gw = first + p
+            inside = 0 <= gw < width
+            out[p * ROW + ch * 4:p * ROW + ch * 4 + 4] = src_rows[gw, ch * 4:ch * 4 + 4] if inside else 0
+    return out
+
+
+def convert_x(raw, k):
+    """convert_x over all its parts: the phase copies of X^T, as words; also
+    checks that the taps' parts cover every task once and the banks. A warp
+    task is (core matrix column J, 32 channels): 7 pixels of a lane's
+    channel loaded, 4 of them stored into each copy, 16 bytes."""
+    _, taps, xrows, pix = tile(k)
+    sbo = pix * 32
+    xt = np.full(4 * 8 * sbo // 4, np.nan, np.float32)
+    tasks = pix // 4 * 2
+    parts = taps - 1
+    per = -(-tasks // parts)
+    seen = []
+    for part in range(parts):
+        end = min(tasks, (part + 1) * per)
+        for warp in range(8):
+            for task in range(part * per + warp, end, 8):
+                seen.append(task)
+                cj, ci0 = task >> 1, (task & 1) * 32
+                rows = [min(4 * cj + e, xrows - 1) for e in range(7)]
+                loads = [r * ROW + ci0 + LANE for r in rows]
+                for ld in loads:
+                    assert_banks(ld)
+                v = [tf32(raw[ld]) for ld in loads]
+                ci = ci0 + LANE
+                base = ((ci >> 3) * sbo + cj * 128 + (LANE & 7) * 16) // 4
+                for c in range(4):
+                    wa = base + c * 8 * sbo // 4
+                    assert_banks(wa, width=4)
+                    assert np.all(wa * 4 == c * 8 * sbo + xt_offset(ci, 4 * cj, sbo))
+                    for e in range(4):
+                        xt[wa + e] = v[c + e]
+    assert sorted(seen) == list(range(tasks))
+    return xt, sbo
 
 
 def block(x, dy, k, s, kh, z, splits):
     """One block (slice s, kernel row kh, tap group z): its partials, (k, 64, 64)
     for the taps it stores (NaN elsewhere)."""
     b_, h_, w_, _ = x.shape
-    groups, taps, xrows = tile(k)
+    groups, taps, xrows, pix = tile(k)
     p = (k - 1) // 2
     rows = b_ * h_
     r0, r1 = rows * s // splits, rows * (s + 1) // splits
@@ -132,62 +183,26 @@ def block(x, dy, k, s, kh, z, splits):
 
     items = [(r, seg) for r in range(r0, r1) if valid(r) for seg in range(nseg)]
     kwb = first_tap(k, z * WGS)
-    acc = {}
-    for wg in range(WGS):
-        for t in range(taps):
-            acc[(wg, t)] = np.zeros((64, 64), np.float32)
+    acc = {(wg, t): np.zeros((64, 64), np.float32) for wg in range(WGS) for t in range(taps)}
     for r, seg in items:
-        # load_x: X pixels w0 - P + kwb .. of input row r + kh - P, cp.async chunks.
-        xs = np.full(xrows * XROW, np.nan, np.float32)
-        i = np.arange(xrows * 16)
-        px, ch = i >> 4, i & 15
-        gw = seg * SEG - p + kwb + px
-        inside = (gw >= 0) & (gw < w_)
-        src = np.zeros((len(i), 4), np.float32)
-        src[inside] = xf[r + kh - p][gw[inside, None], ch[inside, None] * 4 + np.arange(4)]
-        for e in range(4):
-            xs[px * XROW + ch * 4 + e] = src[:, e]
-        # load_dy: dY pixels w0 .. w0 + 63 as they lie, zero past W.
-        dr = np.full(SEG * DYROW, np.nan, np.float32)
-        i = np.arange(SEG * 16)
-        px, ch = i >> 4, i & 15
-        inside = seg * SEG + px < w_
-        src = np.zeros((len(i), 4), np.float32)
-        src[inside] = dyf[r][seg * SEG + px[inside, None], ch[inside, None] * 4 + np.arange(4)]
-        for e in range(4):
-            dr[px * DYROW + ch * 4 + e] = src[:, e]
-        # transpose_dy: thread i (all of them over the strided loop).
-        dt = np.full(SEG * C, np.nan, np.float32)
-        written = np.zeros(SEG * C, int)
-        for i0 in range(0, SEG * 16, 32):           # one warp-wide step
-            i = i0 + LANE
-            px = (i & 31) | (((i >> 5) & 1) << 5)
-            c4 = (i >> 6) * 4
-            rd = px * DYROW + c4
-            assert_banks(rd, width=4)
-            v = np.stack([dr[rd + e] for e in range(4)], 1)
-            for e in range(4):
-                wa = dyt_offset(px, c4 + e) // 4
-                assert_banks(wa)
-                dt[wa] = tf32(v[:, e])
-                written[wa] += 1
-        assert np.all(written == 1), "the dY^T tile is not a permutation"
-        bs = [descriptor_b(dt, ks) for ks in range(8)]
-        # The warpgroups' taps: fresh accumulators a tap, 8 k steps, then += .
+        raw = land(xf[r + kh - p], seg * SEG - p + kwb, xrows, w_)
+        ds = land(dyf[r], seg * SEG, SEG, w_)
+        xt, sbo = convert_x(raw, k)
+        aoff = [Q * ROW + 16 * wq + G for wq in range(4)]
+        a = [a_matrix(ds, aoff, 8 * ks) for ks in range(8)]      # dY^T, every tap's
         for wg in range(WGS):
-            u = z * WGS + wg
-            kw0 = first_tap(k, u)
-            xoff = [(kw0 - kwb + Q) * XROW + 16 * wq + G for wq in range(4)]
+            kw0 = first_tap(k, z * WGS + wg)
             for t in range(taps):
+                rr = kw0 - kwb + t                                 # copy rr % 4, pixel 4 (rr // 4)
+                start = (rr & 3) * 8 * sbo + (rr >> 2) * 128
                 fresh = np.zeros((64, 64), np.float32)
                 for ks in range(8):
-                    assert 8 * ks + t + kw0 - kwb + 3 + 4 < xrows, "A past the staged X rows"
-                    a = a_matrix(xs, xoff, 8 * ks + t)
-                    assert not np.isnan(a).any() and not np.isnan(bs[ks]).any()
-                    prod = a.astype(np.float64) @ bs[ks].astype(np.float64)
+                    bk = descriptor_b(xt, start + ks * 256, sbo)
+                    assert not np.isnan(bk).any(), "B reads a pixel the copies do not hold"
+                    prod = a[ks].astype(np.float64) @ bk.astype(np.float64)
                     fresh = (prod if ks == 0 else fresh + prod).astype(np.float32)
                 acc[(wg, t)] = acc[(wg, t)] + fresh
-    # Epilogue: acc[t][i] is ci 16 wq + g + 8 ((i >> 1) & 1), co 8 (i >> 2) + 2 q + (i & 1).
+    # Epilogue: acc[t][i] is co 16 wq + g + 8 ((i >> 1) & 1), ci 8 (i >> 2) + 2 q + (i & 1).
     out = np.full((k, 64, 64), np.nan, np.float32)
     i = np.arange(32)
     for wg in range(WGS):
@@ -199,10 +214,10 @@ def block(x, dy, k, s, kh, z, splits):
                 continue
             seen = np.zeros((64, 64), int)
             for wq in range(4):
-                ci = 16 * wq + G[:, None] + 8 * ((i[None, :] >> 1) & 1)
-                co = 8 * (i[None, :] >> 2) + 2 * Q[:, None] + (i[None, :] & 1)
+                co = 16 * wq + G[:, None] + 8 * ((i[None, :] >> 1) & 1)
+                ci = 8 * (i[None, :] >> 2) + 2 * Q[:, None] + (i[None, :] & 1)
                 assert np.isnan(out[kw, ci, co]).all(), "a tap stored twice"
-                out[kw, ci, co] = acc[(wg, t)][ci, co]
+                out[kw, ci, co] = acc[(wg, t)][co, ci]
                 seen[ci, co] += 1
             assert np.all(seen == 1)
     return out
@@ -211,7 +226,7 @@ def block(x, dy, k, s, kh, z, splits):
 def model(x, dy, k, sms):
     """The launch: the slices' partials, then wgrad_reduce_kernel's sum in slice order."""
     b_, h_, _, _ = x.shape
-    groups, _, _ = tile(k)
+    groups = tile(k)[0]
     splits = splits_tf32(b_, h_, k, sms)
     part = np.full((splits, k, k, 64, 64), np.nan, np.float32)
     for s in range(splits):
@@ -252,9 +267,9 @@ def test_model_matches_plain_tf32(k, shape, sms):
 
 def test_tap_assignment_covers_each_tap_once():
     """Every tap of a kernel row is stored by exactly one warpgroup, and each
-    warpgroup's taps lie inside its block's staged X window."""
+    warpgroup's taps lie inside its block's staged X window and phase copies."""
     for k in conv9.KERNEL_SIZES:
-        groups, taps, xrows = tile(k)
+        groups, taps, xrows, pix = tile(k)
         owners = []
         for z in range(groups):
             kwb = first_tap(k, z * WGS)
@@ -262,6 +277,7 @@ def test_tap_assignment_covers_each_tap_once():
                 u = z * WGS + wg
                 kw0 = first_tap(k, u)
                 assert 0 <= kw0 and kw0 + taps <= k
-                assert kw0 - kwb + taps - 1 + 63 < xrows
+                last = kw0 - kwb + taps - 1                  # the window's last tap
+                assert last + 63 < xrows and (last >> 2) * 4 + 63 < pix
                 owners += [kw for kw in range(kw0, kw0 + taps) if kw >= u * taps]
         assert sorted(owners) == list(range(k)), k
