@@ -402,11 +402,17 @@ constexpr int kRowT = 72;                // floats a landed pixel (X or dY): 64 
 
 template <int K>
 struct Tf32WTile {
-  // Blocks a kernel row, and taps a warpgroup computes: the whole row up to
-  // k = 9, half of it above, so that the running sums fit the registers.
+  // Blocks a kernel row, and taps warpgroups 0 and 1 of a block compute: the
+  // whole row up to k = 9, 5 + 4 taps at k = 9; half of it above, so that
+  // the running sums fit the registers. At k = 3, and above 9, both take T
+  // = ceil(k / 2 groups) taps, the last warpgroup the T that end at k (a
+  // tap may be computed twice and is stored once).
   static constexpr int kGroups = K <= 9 ? 1 : 2;
+  static constexpr bool kSplit = kGroups == 1 && K >= 5;
   static constexpr int kTapsWg = (K + kWgsT * kGroups - 1) / (kWgsT * kGroups);
-  static constexpr int kTaps = kWgsT * kTapsWg;                 // taps of the block's window
+  static constexpr int kTaps0 = kSplit ? (K + 1) / 2 : kTapsWg;
+  static constexpr int kTaps1 = kSplit ? K / 2 : kTapsWg;
+  static constexpr int kTaps = kTaps0 + kTaps1;                 // taps of the block's window
   static constexpr int kXRows = kSegT + kTaps - 1;              // X pixels a segment
   static constexpr int kXtPix = kSegT + 4 * ((kTaps - 1) / 4);  // pixels of a phase copy
   static constexpr int kXtSbo = kXtPix * 32;                    // bytes of 8 channels of a copy
@@ -415,16 +421,22 @@ struct Tf32WTile {
   static constexpr int kDyBytes = kSegT * kRowT * 4;
   // Two buffers of each: one read while the next lands or is converted.
   static constexpr int kSmemBytes = 2 * (kXtBytes + kRawBytes + kDyBytes);
-  static_assert(kTapsWg >= 2, "a tap to issue the loads, another to convert X");
+  static_assert(kTaps1 >= 2, "a tap to issue the loads, another to convert X");
 };
 
-// First tap warpgroup u (0 .. 2 kGroups - 1) computes. It owns (stores) taps
-// u T .. min((u + 1) T, K) - 1, T = kTapsWg; the last one computes the T
-// taps that end at K, so no tap is computed past the kernel row.
+// First tap warpgroup u (0 .. 2 kGroups - 1) computes, and the first it
+// stores (the taps below are another warpgroup's).
 template <int K>
 __device__ __forceinline__ int tf32_first_tap(int u) {
-  constexpr int T = Tf32WTile<K>::kTapsWg;
-  return min(u * T, K - T);
+  using T = Tf32WTile<K>;
+  if (T::kSplit) return u * T::kTaps0;
+  return min(u * T::kTapsWg, K - T::kTapsWg);
+}
+
+template <int K>
+__device__ __forceinline__ int tf32_first_stored(int u) {
+  using T = Tf32WTile<K>;
+  return T::kSplit ? u * T::kTaps0 : u * T::kTapsWg;
 }
 
 template <int K>
@@ -433,7 +445,6 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                       float* __restrict__ part, int B, int H, int W, int splits) {
   using T = Tf32WTile<K>;
   constexpr int P = (K - 1) / 2;
-  constexpr int kTaps = T::kTapsWg;
   extern __shared__ __align__(1024) unsigned char smem[];
   // [buffer]: X^T phase copies, then landed X pixel rows, then landed dY pixel rows.
   auto raw_ptr = [&](int buf) {
@@ -538,19 +549,7 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     }
   };
 
-  // acc[t]: the running sums of tap kw0 + t, output channels (M) x input
-  // channels (N); fresh: one tap's products of the current segment.
-  float acc[kTaps][32];
-  float fresh[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) fresh[i] = 0.f;
-#pragma unroll
-  for (int t = 0; t < kTaps; ++t)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
-  unsigned a[kSegT / 8][4];  // A, dY^T of the segment: every tap's
   const int aoff = q * kRowT + 16 * wq + g;
-
   // Prologue: items 0 and 1's X and item 0's dY land; item 0's X is converted.
   load_x(cx, 0);
   load_x(cx, 1);
@@ -560,58 +559,80 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   __syncthreads();
   convert_x(0, 0, 1);
 
-#pragma unroll 1
-  for (int it = 0; it < items; ++it) {
-    const int buf = it & 1;
-    cp_async_wait<0>();   // item it's dY and item it + 1's X landed
-    fence_proxy_async();  // item it's X^T, stored by this thread, is visible to wgmma
-    __syncthreads();      // ... for all threads; and every warpgroup is done with item it - 1
-    const float* ds = dy_ptr(buf) + aoff;
+  // The warpgroup's kTapsHere taps over the slice's items, then its partial.
+  auto run = [&](auto taps_tag) {
+    constexpr int kTapsHere = decltype(taps_tag)::value;
+    // acc[t]: the running sums of tap kw0 + t, output channels (M) x input
+    // channels (N); fresh: one tap's products of the current segment.
+    float acc[kTapsHere][32];
+    float fresh[32];
 #pragma unroll
-    for (int ks = 0; ks < kSegT / 8; ++ks) rows_fragment_tf32<kRowT>(a[ks], ds, 8 * ks);
-    const unsigned xt = smem_u32(smem) + buf * T::kXtBytes;
-    // Per tap, 8 k steps of wgmma into fresh accumulators, the first with
-    // scale-d false; while they run, this thread's share of the loads (tap
-    // 0) or of the next item's X^T; then the tap's sums += them, so no
-    // chain of the tensor cores' truncating adds runs past the segment.
+    for (int i = 0; i < 32; ++i) fresh[i] = 0.f;
 #pragma unroll
-    for (int t = 0; t < kTaps; ++t) {
-      const int r = kw0 - kwb + t;  // the tap's offset in the window: copy r % 4, pixel 4 (r / 4)
-      const unsigned long long desc =
-          xt_desc(xt + (r & 3) * 8 * T::kXtSbo + (r >> 2) * 128, T::kXtSbo);
-      wgmma_fence();
-      wgmma_m64n64k8_tf32_first(fresh, a[0], desc);
+    for (int t = 0; t < kTapsHere; ++t)
 #pragma unroll
-      for (int ks = 1; ks < kSegT / 8; ++ks)
-        wgmma_m64n64k8_tf32(fresh, a[ks], desc + ((ks * 256) >> 4));
-      wgmma_commit();
-      if (t == 0) {
-        load_x(cx, buf);       // item it + 2
-        load_dy(cd, buf ^ 1);  // item it + 1
-        cp_async_commit();
-      } else if (it + 1 < items) {
-        convert_x(buf ^ 1, t - 1, kTaps - 1);  // item it + 1
-      }
-      wgmma_wait<0>();
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[t][i] += fresh[i];
-    }
-  }
-  cp_async_wait<0>();
+      for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
+    unsigned a[kSegT / 8][4];  // A, dY^T of the segment: every tap's
 
-  // Partial of slice s: part[s][kh][kw][ci][co]; acc[t][i] is output
-  // channel 16 wq + g + 8 ((i >> 1) & 1), input channel 8 (i >> 2) + 2 q +
-  // (i & 1). Taps below u T are another warpgroup's.
-  float* out = part + ((static_cast<size_t>(s) * K + kh) * K) * kC * kC;
+#pragma unroll 1
+    for (int it = 0; it < items; ++it) {
+      const int buf = it & 1;
+      cp_async_wait<0>();   // item it's dY and item it + 1's X landed
+      fence_proxy_async();  // item it's X^T, stored by this thread, is visible to wgmma
+      __syncthreads();      // ... for all threads; and every warpgroup is done with item it - 1
+      const float* ds = dy_ptr(buf) + aoff;
 #pragma unroll
-  for (int t = 0; t < kTaps; ++t) {
-    const int kw = kw0 + t;
-    if (kw < u * kTaps) continue;
-    float* o = out + static_cast<size_t>(kw) * kC * kC + (2 * q) * kC + 16 * wq + g;
+      for (int ks = 0; ks < kSegT / 8; ++ks) rows_fragment_tf32<kRowT>(a[ks], ds, 8 * ks);
+      const unsigned xt = smem_u32(smem) + buf * T::kXtBytes;
+      // Per tap, 8 k steps of wgmma into fresh accumulators, the first with
+      // scale-d false; while they run, this thread's share of the loads
+      // (tap 0) or of the next item's X^T (taps 1 .. kTaps1 - 1, in as many
+      // parts); then the tap's sums += them, so no chain of the tensor
+      // cores' truncating adds runs past the segment.
 #pragma unroll
-    for (int i = 0; i < 32; ++i)
-      o[(8 * (i >> 2) + (i & 1)) * kC + 8 * ((i >> 1) & 1)] = acc[t][i];
-  }
+      for (int t = 0; t < kTapsHere; ++t) {
+        const int r = kw0 - kwb + t;  // the tap's offset in the window: copy r % 4, pixel 4 (r / 4)
+        const unsigned long long desc =
+            xt_desc(xt + (r & 3) * 8 * T::kXtSbo + (r >> 2) * 128, T::kXtSbo);
+        wgmma_fence();
+        wgmma_m64n64k8_tf32_first(fresh, a[0], desc);
+#pragma unroll
+        for (int ks = 1; ks < kSegT / 8; ++ks)
+          wgmma_m64n64k8_tf32(fresh, a[ks], desc + ((ks * 256) >> 4));
+        wgmma_commit();
+        if (t == 0) {
+          load_x(cx, buf);       // item it + 2
+          load_dy(cd, buf ^ 1);  // item it + 1
+          cp_async_commit();
+        } else if (t < T::kTaps1 && it + 1 < items) {
+          convert_x(buf ^ 1, t - 1, T::kTaps1 - 1);  // item it + 1
+        }
+        wgmma_wait<0>();
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc[t][i] += fresh[i];
+      }
+    }
+    cp_async_wait<0>();
+
+    // Partial of slice s: part[s][kh][kw][ci][co]; acc[t][i] is output
+    // channel 16 wq + g + 8 ((i >> 1) & 1), input channel 8 (i >> 2) + 2 q
+    // + (i & 1).
+    float* out = part + ((static_cast<size_t>(s) * K + kh) * K) * kC * kC;
+    const int stored = tf32_first_stored<K>(u);
+#pragma unroll
+    for (int t = 0; t < kTapsHere; ++t) {
+      const int kw = kw0 + t;
+      if (kw < stored) continue;
+      float* o = out + static_cast<size_t>(kw) * kC * kC + (2 * q) * kC + 16 * wq + g;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        o[(8 * (i >> 2) + (i & 1)) * kC + 8 * ((i >> 1) & 1)] = acc[t][i];
+    }
+  };
+  if (wg == 0)
+    run(std::integral_constant<int, T::kTaps0>());
+  else
+    run(std::integral_constant<int, T::kTaps1>());
 }
 
 template <int K>

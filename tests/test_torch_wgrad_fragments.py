@@ -41,18 +41,26 @@ G, Q = LANE >> 2, LANE & 3
 
 
 def tile(k):
-    """Tf32WTile<K>: (groups, taps a warpgroup, X rows a segment, pixels of a
-    phase copy)."""
+    """Tf32WTile<K>: (groups, taps of warpgroups 0 and 1, X rows a segment,
+    pixels of a phase copy)."""
     groups = 1 if k <= 9 else 2
+    split = groups == 1 and k >= 5
     taps = -(-k // (WGS * groups))
-    window = WGS * taps
-    return groups, taps, SEG + window - 1, SEG + 4 * ((window - 1) // 4)
+    t0, t1 = ((k + 1) // 2, k // 2) if split else (taps, taps)
+    return groups, (t0, t1), SEG + t0 + t1 - 1, SEG + 4 * ((t0 + t1 - 1) // 4)
 
 
 def first_tap(k, u):
     """tf32_first_tap<K>(u)."""
-    taps = tile(k)[1]
-    return min(u * taps, k - taps)
+    groups, (t0, t1), _, _ = tile(k)
+    if groups == 1 and k >= 5:
+        return u * t0
+    return min(u * t0, k - t0)
+
+
+def first_stored(k, u):
+    """tf32_first_stored<K>(u)."""
+    return u * tile(k)[1][0]
 
 
 def splits_tf32(b, h, k, sms):
@@ -136,11 +144,11 @@ def convert_x(raw, k):
     checks that the taps' parts cover every task once and the banks. A warp
     task is (core matrix column J, 32 channels): 7 pixels of a lane's
     channel loaded, 4 of them stored into each copy, 16 bytes."""
-    _, taps, xrows, pix = tile(k)
+    _, (_, t1), xrows, pix = tile(k)
     sbo = pix * 32
     xt = np.full(4 * 8 * sbo // 4, np.nan, np.float32)
     tasks = pix // 4 * 2
-    parts = taps - 1
+    parts = t1 - 1
     per = -(-tasks // parts)
     seen = []
     for part in range(parts):
@@ -183,7 +191,7 @@ def block(x, dy, k, s, kh, z, splits):
 
     items = [(r, seg) for r in range(r0, r1) if valid(r) for seg in range(nseg)]
     kwb = first_tap(k, z * WGS)
-    acc = {(wg, t): np.zeros((64, 64), np.float32) for wg in range(WGS) for t in range(taps)}
+    acc = {(wg, t): np.zeros((64, 64), np.float32) for wg in range(WGS) for t in range(taps[wg])}
     for r, seg in items:
         raw = land(xf[r + kh - p], seg * SEG - p + kwb, xrows, w_)
         ds = land(dyf[r], seg * SEG, SEG, w_)
@@ -192,7 +200,7 @@ def block(x, dy, k, s, kh, z, splits):
         a = [a_matrix(ds, aoff, 8 * ks) for ks in range(8)]      # dY^T, every tap's
         for wg in range(WGS):
             kw0 = first_tap(k, z * WGS + wg)
-            for t in range(taps):
+            for t in range(taps[wg]):
                 rr = kw0 - kwb + t                                 # copy rr % 4, pixel 4 (rr // 4)
                 start = (rr & 3) * 8 * sbo + (rr >> 2) * 128
                 fresh = np.zeros((64, 64), np.float32)
@@ -208,9 +216,9 @@ def block(x, dy, k, s, kh, z, splits):
     for wg in range(WGS):
         u = z * WGS + wg
         kw0 = first_tap(k, u)
-        for t in range(taps):
+        for t in range(taps[wg]):
             kw = kw0 + t
-            if kw < u * taps:
+            if kw < first_stored(k, u):
                 continue
             seen = np.zeros((64, 64), int)
             for wq in range(4):
@@ -270,14 +278,15 @@ def test_tap_assignment_covers_each_tap_once():
     warpgroup's taps lie inside its block's staged X window and phase copies."""
     for k in conv9.KERNEL_SIZES:
         groups, taps, xrows, pix = tile(k)
+        assert taps[1] >= 2
         owners = []
         for z in range(groups):
             kwb = first_tap(k, z * WGS)
             for wg in range(WGS):
                 u = z * WGS + wg
                 kw0 = first_tap(k, u)
-                assert 0 <= kw0 and kw0 + taps <= k
-                last = kw0 - kwb + taps - 1                  # the window's last tap
+                assert 0 <= kw0 and kw0 + taps[wg] <= k
+                last = kw0 - kwb + taps[wg] - 1              # the window's last tap
                 assert last + 63 < xrows and (last >> 2) * 4 + 63 < pix
-                owners += [kw for kw in range(kw0, kw0 + taps) if kw >= u * taps]
+                owners += [kw for kw in range(kw0, kw0 + taps[wg]) if kw >= first_stored(k, u)]
         assert sorted(owners) == list(range(k)), k
