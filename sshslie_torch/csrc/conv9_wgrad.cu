@@ -526,17 +526,18 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     advance(c);
   };
   // Part `part` of `parts` of buffer buf's landed X into its X^T phase
-  // copies. A warp takes pixels 4 J .. 4 J + 6 of 32 channels, a channel a
-  // lane (conflict-free loads from the 72-float rows), rounds them to TF32
-  // once and stores 4 pixels of its channel into each copy, 16 bytes: pixel
-  // p goes to pixel p - c of copy c, and 8 lanes fill one core matrix.
+  // copies, by warpgroup 1 (it computes the fewer taps). A warp takes pixels
+  // 4 J .. 4 J + 6 of 32 channels, a channel a lane (conflict-free loads
+  // from the 72-float rows), rounds them to TF32 once and stores 4 pixels
+  // of its channel into each copy, 16 bytes: pixel p goes to pixel p - c of
+  // copy c, and 8 lanes fill one core matrix.
   auto convert_x = [&](int buf, int part, int parts) {
     constexpr int kTasks = T::kXtPix / 4 * 2;  // (core matrix column, 32 channels)
     const int per = (kTasks + parts - 1) / parts;
     const int end = min(kTasks, (part + 1) * per);
     const float* raw = raw_ptr(buf) + lane;
     unsigned char* xt = smem + buf * T::kXtBytes + (lane & 7) * 16;
-    for (int task = part * per + (tid >> 5); task < end; task += kThreadsT / 32) {
+    for (int task = part * per + wq; task < end; task += 4) {
       const int J = task >> 1;
       const int ci = (task & 1) * 32;
       float v[7];
@@ -557,7 +558,7 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  convert_x(0, 0, 1);
+  if (wg == 1) convert_x(0, 0, 1);
 
   // The warpgroup's kTapsHere taps over the slice's items, then its partial.
   auto run = [&](auto taps_tag) {
@@ -586,9 +587,9 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       const unsigned xt = smem_u32(smem) + buf * T::kXtBytes;
       // Per tap, 8 k steps of wgmma into fresh accumulators, the first with
       // scale-d false; while they run, this thread's share of the loads
-      // (tap 0) or of the next item's X^T (taps 1 .. kTaps1 - 1, in as many
-      // parts); then the tap's sums += them, so no chain of the tensor
-      // cores' truncating adds runs past the segment.
+      // (tap 0) or, in warpgroup 1, of the next item's X^T (taps 1 ..
+      // kTaps1 - 1, in as many parts); then the tap's sums += them, so no
+      // chain of the tensor cores' truncating adds runs past the segment.
 #pragma unroll
       for (int t = 0; t < kTapsHere; ++t) {
         const int r = kw0 - kwb + t;  // the tap's offset in the window: copy r % 4, pixel 4 (r / 4)
@@ -604,7 +605,7 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
           load_x(cx, buf);       // item it + 2
           load_dy(cd, buf ^ 1);  // item it + 1
           cp_async_commit();
-        } else if (t < T::kTaps1 && it + 1 < items) {
+        } else if (wg == 1 && t < T::kTaps1 && it + 1 < items) {
           convert_x(buf ^ 1, t - 1, T::kTaps1 - 1);  // item it + 1
         }
         wgmma_wait<0>();

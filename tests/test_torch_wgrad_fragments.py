@@ -142,8 +142,9 @@ def land(src_rows, first, count, width):
 def convert_x(raw, k):
     """convert_x over all its parts: the phase copies of X^T, as words; also
     checks that the taps' parts cover every task once and the banks. A warp
-    task is (core matrix column J, 32 channels): 7 pixels of a lane's
-    channel loaded, 4 of them stored into each copy, 16 bytes."""
+    of warpgroup 1 takes a task, (core matrix column J, 32 channels): 7
+    pixels of a lane's channel loaded, 4 of them stored into each copy, 16
+    bytes."""
     _, (_, t1), xrows, pix = tile(k)
     sbo = pix * 32
     xt = np.full(4 * 8 * sbo // 4, np.nan, np.float32)
@@ -153,8 +154,8 @@ def convert_x(raw, k):
     seen = []
     for part in range(parts):
         end = min(tasks, (part + 1) * per)
-        for warp in range(8):
-            for task in range(part * per + warp, end, 8):
+        for warp in range(4):                 # warpgroup 1's warps
+            for task in range(part * per + warp, end, 4):
                 seen.append(task)
                 cj, ci0 = task >> 1, (task & 1) * 32
                 rows = [min(4 * cj + e, xrows - 1) for e in range(7)]
