@@ -1725,8 +1725,19 @@ def main() -> int:
             conv_tf32_check(f"conv9 tf32 (1, 37, 53, 64) k{kk}", x_odd, wk)
             conv_tf32_check(f"conv9 tf32 dgrad (1, 37, 53, 64) k{kk}", x_odd,
                             conv9.conv9_dgrad_weights(wk))
-            wgrad_tf32_check(f"conv9_wgrad tf32 (1, 37, 53, 64) k{kk}", x_odd, dy_odd, kk)
-        log(f"TF32 checks (main shapes; (1, 37, 53, 64) at k = 3, 9, 13): "
+        # The weight gradient at every k its TF32 entry takes (one or two
+        # blocks a kernel row, taps split 5 + 4 at k = 9): the largest error
+        # over the largest |dW| is logged against the 1e-5 tolerance.
+        wgrad_rel = {}
+        for kk in conv9.KERNEL_SIZES:
+            dw_plain = conv9.conv9_wgrad_plain(x_odd, dy_odd, kk, tf32=True)
+            wgrad_rel[kk] = (wgrad_tf32_check(f"conv9_wgrad tf32 (1, 37, 53, 64) k{kk}", x_odd, dy_odd, kk)
+                             / float(dw_plain.abs().max()))
+        wgrad_rel[9, "main"] = errs["wgrad_128_tf32"] / float(
+            conv9.conv9_wgrad_plain(xt, gt, 9, tf32=True).abs().max())
+        log("conv9_wgrad tf32 max|err| / max|dW| (tolerance 1e-5): "
+            + ", ".join(f"{k}: {v:.3e}" for k, v in wgrad_rel.items()))
+        log(f"TF32 checks (main shapes; (1, 37, 53, 64) at k = 3, 9, 13, wgrad at k = 3 .. 13): "
             f"{time.perf_counter() - t_tf32:.2f} s")
         # The bfloat16 flash kernel carries p as a bfloat16 hi + lo pair, ~16
         # bits: against sdpa_chunked on the operands widened to float32 (the

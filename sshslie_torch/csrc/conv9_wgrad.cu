@@ -421,7 +421,6 @@ struct Tf32WTile {
   static constexpr int kDyBytes = kSegT * kRowT * 4;
   // Two buffers of each: one read while the next lands or is converted.
   static constexpr int kSmemBytes = 2 * (kXtBytes + kRawBytes + kDyBytes);
-  static_assert(kTaps1 >= 2, "a tap to issue the loads, another to convert X");
 };
 
 // First tap warpgroup u (0 .. 2 kGroups - 1) computes, and the first it
@@ -493,9 +492,10 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       do ++c.r; while (c.r < r1 && !valid(c.r));
     }
   };
-  // A thread copies the 16-byte chunk ch of pixels p0, p0 + 16, ...
+  // Warpgroup 0 (it computes the more taps) issues the loads: a thread
+  // copies the 16-byte chunk ch of pixels p0, p0 + 8, ...
   const int ch = tid & 15;
-  const int p0 = tid >> 4;
+  const int p0 = (tid >> 4) & 7;
   // X pixels w0 - P + kwb .. + kXRows - 1 of input row r + kh - P as they
   // lie, into buffer buf, zero outside the image; then the cursor moves on.
   auto load_x = [&](Cursor& c, int buf) {
@@ -504,11 +504,11 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     const float* src = x + (static_cast<long long>(c.r + kh - P) * W + gw0) * kC + ch * 4;
     const unsigned dst = smem_u32(raw_ptr(buf)) + (p0 * kRowT + ch * 4) * 4;
 #pragma unroll
-    for (int n = 0; n < (T::kXRows + 15) / 16; ++n) {
-      const int gw = gw0 + 16 * n;
+    for (int n = 0; n < (T::kXRows + 7) / 8; ++n) {
+      const int gw = gw0 + 8 * n;
       const bool in = gw >= 0 && gw < W;
-      if (16 * n + p0 < T::kXRows)
-        cp_async16(dst + 16 * n * kRowT * 4, in ? src + 16 * n * kC : x, in ? 16 : 0);
+      if (8 * n + p0 < T::kXRows)
+        cp_async16(dst + 8 * n * kRowT * 4, in ? src + 8 * n * kC : x, in ? 16 : 0);
     }
     advance(c);
   };
@@ -519,9 +519,9 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     const float* src = dy + (static_cast<long long>(c.r) * W + w) * kC + ch * 4;
     const unsigned dst = smem_u32(dy_ptr(buf)) + (p0 * kRowT + ch * 4) * 4;
 #pragma unroll
-    for (int n = 0; n < kSegT / 16; ++n) {
-      const bool in = w + 16 * n < W;
-      cp_async16(dst + 16 * n * kRowT * 4, in ? src + 16 * n * kC : dy, in ? 16 : 0);
+    for (int n = 0; n < kSegT / 8; ++n) {
+      const bool in = w + 8 * n < W;
+      cp_async16(dst + 8 * n * kRowT * 4, in ? src + 8 * n * kC : dy, in ? 16 : 0);
     }
     advance(c);
   };
@@ -552,11 +552,13 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 
   const int aoff = q * kRowT + 16 * wq + g;
   // Prologue: items 0 and 1's X and item 0's dY land; item 0's X is converted.
-  load_x(cx, 0);
-  load_x(cx, 1);
-  load_dy(cd, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
+  if (wg == 0) {
+    load_x(cx, 0);
+    load_x(cx, 1);
+    load_dy(cd, 0);
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
   __syncthreads();
   if (wg == 1) convert_x(0, 0, 1);
 
@@ -578,7 +580,7 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
 #pragma unroll 1
     for (int it = 0; it < items; ++it) {
       const int buf = it & 1;
-      cp_async_wait<0>();   // item it's dY and item it + 1's X landed
+      cp_async_wait<0>();   // item it's dY and item it + 1's X landed (warpgroup 0's copies)
       fence_proxy_async();  // item it's X^T, stored by this thread, is visible to wgmma
       __syncthreads();      // ... for all threads; and every warpgroup is done with item it - 1
       const float* ds = dy_ptr(buf) + aoff;
@@ -586,10 +588,10 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
       for (int ks = 0; ks < kSegT / 8; ++ks) rows_fragment_tf32<kRowT>(a[ks], ds, 8 * ks);
       const unsigned xt = smem_u32(smem) + buf * T::kXtBytes;
       // Per tap, 8 k steps of wgmma into fresh accumulators, the first with
-      // scale-d false; while they run, this thread's share of the loads
-      // (tap 0) or, in warpgroup 1, of the next item's X^T (taps 1 ..
-      // kTaps1 - 1, in as many parts); then the tap's sums += them, so no
-      // chain of the tensor cores' truncating adds runs past the segment.
+      // scale-d false; while they run, warpgroup 0 issues the loads (tap 0)
+      // and warpgroup 1 converts the next item's X^T (a part a tap); then
+      // the tap's sums += them, so no chain of the tensor cores'
+      // truncating adds runs past the segment.
 #pragma unroll
       for (int t = 0; t < kTapsHere; ++t) {
         const int r = kw0 - kwb + t;  // the tap's offset in the window: copy r % 4, pixel 4 (r / 4)
@@ -601,13 +603,13 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
         for (int ks = 1; ks < kSegT / 8; ++ks)
           wgmma_m64n64k8_tf32(fresh, a[ks], desc + ((ks * 256) >> 4));
         wgmma_commit();
-        if (t == 0) {
+        if (wg == 0 && t == 0) {
           load_x(cx, buf);       // item it + 2
           load_dy(cd, buf ^ 1);  // item it + 1
           cp_async_commit();
-        } else if (wg == 1 && t < T::kTaps1 && it + 1 < items) {
-          convert_x(buf ^ 1, t - 1, T::kTaps1 - 1);  // item it + 1
         }
+        if (wg == 1 && t < T::kTaps1 && it + 1 < items)
+          convert_x(buf ^ 1, t, T::kTaps1);  // item it + 1
         wgmma_wait<0>();
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc[t][i] += fresh[i];

@@ -125,12 +125,12 @@ def a_matrix(rows_words, aoff_of_warp, px0):
 def land(src_rows, first, count, width):
     """cp.async of pixels first .. first + count - 1 of one image row
     (width pixels, 64 channels) into rows of 72 floats, zero outside: thread
-    tid copies chunk tid % 16 of pixels tid / 16 + 16 n."""
+    tid of warpgroup 0 copies chunk tid % 16 of pixels tid / 16 + 8 n."""
     out = np.full(count * ROW, np.nan, np.float32)
-    for tid in range(256):
+    for tid in range(128):
         ch, p0 = tid & 15, tid >> 4
-        for n in range(-(-count // 16)):
-            p = p0 + 16 * n
+        for n in range(-(-count // 8)):
+            p = p0 + 8 * n
             if p >= count:
                 continue
             gw = first + p
@@ -149,7 +149,7 @@ def convert_x(raw, k):
     sbo = pix * 32
     xt = np.full(4 * 8 * sbo // 4, np.nan, np.float32)
     tasks = pix // 4 * 2
-    parts = t1 - 1
+    parts = t1                                # a part at each of warpgroup 1's taps
     per = -(-tasks // parts)
     seen = []
     for part in range(parts):
@@ -279,7 +279,6 @@ def test_tap_assignment_covers_each_tap_once():
     warpgroup's taps lie inside its block's staged X window and phase copies."""
     for k in conv9.KERNEL_SIZES:
         groups, taps, xrows, pix = tile(k)
-        assert taps[1] >= 2
         owners = []
         for z in range(groups):
             kwb = first_tap(k, z * WGS)
