@@ -74,41 +74,44 @@
 // partials and dW (conv_pallas.py::conv9_wgrad under matmul_precision
 // tensorfloat32). What bounds it: the 2.17e10 FLOP at the training shape
 // (2, 128, 128, 64), k = 9, at the dense TF32 rate (495 TFLOP/s): 0.0439
-// ms, against ~0.01 ms for the float32 bytes. Per tap a GEMM dW_tap (64 ci
-// x 64 co) = X_tap^T (64 x P) dY (P x 64) over the P = B*H*W pixels, split
-// into slices, on wgmma m64n64k8 .tf32:
-//   * .tf32 wgmma reads B K-major only and a descriptor moves in 16-byte
-//     steps, so the tap's one-pixel shift cannot live in B. B is dY, the
-//     same for every tap: transposed to [co][px] rows, two 128-byte-swizzled
-//     atoms a 64-pixel segment (mma.cuh::dyt_offset), read through a
-//     descriptor 32 bytes a k step. A is X shifted by the tap, from
-//     registers: 32-bit loads from the [px][ci] rows (72 floats,
-//     conflict-free), where any tap offset is a plain address offset.
+// ms, against ~0.01 ms for the float32 bytes. Per tap a GEMM dW_tap^T (64 co
+// x 64 ci) = dY^T (64 x P) X_tap (P x 64) over the P = B*H*W pixels, split
+// into slices, on wgmma m64n64k8 .tf32 (the form of mma.cuh, checked by
+// tools/tc_probe and the lane-level model tests/test_torch_wgrad_fragments.py):
+//   * .tf32 wgmma reads B K-major only, and a descriptor moves in 16-byte
+//     steps. A is dY^T from registers, loaded once a 64-pixel segment and
+//     shared by every tap. B is X^T, the tap's one-pixel shift in the
+//     descriptor: four phase copies of X^T without swizzle (copy c holds
+//     pixels c, c + 1, ...), tap 4 a + c reading copy c from pixel 4 a.
 //   * Block (slice s, kernel row kh, tap group) of two warpgroups owns the
-//     whole kernel row up to k = 9 (half of it above): warpgroup u computes
-//     T = ceil(k / 2) taps (k / 4 above 9), the last one the T that end at
-//     k, so a tap in the middle of the row may be computed twice and is
-//     stored once. One block an SM; at k = 9 the block stages each segment
-//     once for 10 taps, so x and dY are read from L2 9 times, not 18.
-//   * The tensor cores' float32 sums truncate. Each tap's segment (8 k
-//     steps) goes into fresh accumulators, the first wgmma with scale-d
-//     false; then the tap's running sums += them by float32 adds: no chain
-//     runs longer than one 64-pixel segment. 5 x 32 running and 32 fresh
-//     accumulators a thread at k = 9; A in two halves of 4 k steps, one
-//     loading while the other is read.
-//   * Staging, a ring of two: per segment cp.async brings X (the halo'd
-//     pixels the block's taps read, zero outside the image) one segment
-//     ahead and dY as it lies ([px][co], 68-float rows) two ahead; during
-//     the segment before its use each thread rounds its share of dY
-//     (cvt.rna) and stores it transposed (a warp over 32 pixels of one
-//     channel chunk: conflict-free), so the transposing pass is the
-//     rounding pass. X is rounded as its A fragments load. One fence and
+//     whole kernel row up to k = 9 (half of it above): warpgroup 0 computes
+//     5 taps and warpgroup 1 4 at k = 9, 5 x 32 running sums in registers
+//     (248 registers, no spills), one block an SM. The block stages each
+//     segment once for all 9 taps, so x and dY are read from L2 9 times.
+//   * Each tap's segment (8 k steps) goes into fresh accumulators, the first
+//     wgmma with scale-d false; then the tap's running sums += them by
+//     float32 adds: no chain of the tensor cores' truncating adds runs
+//     longer than one segment.
+//   * Staging, a ring of two: warpgroup 0 issues cp.async of X two segments
+//     ahead and of dY one ahead (72-float rows); warpgroup 1 rounds the next
+//     segment's X once (cvt.rna) into the phase copies, a part while each of
+//     its taps runs; dY is rounded as its A fragments load. One fence and
 //     __syncthreads a segment.
 //   * Rows whose input row lands in the zero padding are skipped, partials
 //     go to the scratch buffer and wgrad_reduce_kernel sums them in slice
 //     order, as in the other entries: repeats are bit-identical. The slice
 //     count fills one wave of resident blocks
 //     (sshslie_conv9_wgrad_splits_tf32).
+//   * Measured on an H100 (tools/conv_bench, PERF.md, PR 12): 0.107 ms at
+//     (2, 128, 128, 64), k = 9 (41% of the bound; cuDNN's TF32 call 0.38),
+//     from 0.272 on mma.sync. The partial stores and the second kernel take
+//     ~0.016 ms of it. In the loop the tensor cores run about half the
+//     time, shared memory (B's 144 KB an item, the staging ~170 KB) a
+//     little more. Tried and dropped: A = X shifted by the tap with B = dY
+//     transposed (0.155: the per-tap A loads and their rounding), a bulk
+//     copy of X (slower), the partials staged for coalesced stores, dY
+//     rounded in place, the conversion staggered before the taps, double
+//     fresh accumulators in warpgroup 1 (~1%).
 #include <type_traits>
 
 #include "common.cuh"

@@ -207,45 +207,41 @@ __global__ void __launch_bounds__(256, 1) wgmma_tf32_loop(float* out, int iters)
   out[blockIdx.x * 256 + threadIdx.x] = sum;
 }
 
-// TF32 chains: NWG warpgroups, each NACC accumulator tiles of 64 x 64; an
-// iteration is 8 k steps into each (a chain of 8 dependent wgmma a tile,
-// the tiles' steps interleaved), committed, then waited for to the end,
-// as the TF32 wgrad kernel runs a tap's segment.
-template <int NWG, int NACC, int kInterleave = 0>
-__global__ void __launch_bounds__(128 * NWG, 1) wgmma_tf32_chains(float* out, int iters) {
+// A TF32 chain: 2 warpgroups, each one accumulator tile of 64 x 64; an
+// iteration is 8 k steps into it (8 dependent wgmma), committed, then waited
+// for, as the TF32 wgrad kernel runs a tap's segment. B K-major with the
+// 128-byte swizzle or (kInterleave) without swizzle, as the wgrad kernel's.
+template <int kInterleave>
+__global__ void __launch_bounds__(256, 1) wgmma_tf32_chains(float* out, int iters) {
   __shared__ __align__(1024) unsigned char smem[16384];
-  for (int i = threadIdx.x; i < 4096; i += 128 * NWG)
+  for (int i = threadIdx.x; i < 4096; i += 256)
     reinterpret_cast<float*>(smem)[i] = (i & 1) ? 1.f : 0.f;
   fence_proxy_async();
   __syncthreads();
   const unsigned base = smem_u32(smem);
   const unsigned a[4] = {0x3f800000u, 0x3f800000u, 0u, 0u};
-  float d[NACC][32];
-  for (int m = 0; m < NACC; ++m)
-    for (int i = 0; i < 32; ++i) d[m][i] = 0.f;
+  float d[32];
+  for (int i = 0; i < 32; ++i) d[i] = 0.f;
   for (int it = 0; it < iters; ++it) {
     wgmma_fence();
 #pragma unroll
     for (int ks = 0; ks < 8; ++ks)
-#pragma unroll
-      for (int m = 0; m < NACC; ++m)
-        wgmma_m64n64k8_tf32(d[m], a, kInterleave ? xt_desc(base + (ks & 3) * 256, 2048)
-                                                 : wgmma_desc(base + (ks & 3) * 32));
+      wgmma_m64n64k8_tf32(d, a, kInterleave ? xt_desc(base + (ks & 3) * 256, 2048)
+                                            : wgmma_desc(base + (ks & 3) * 32));
     wgmma_commit();
     wgmma_wait<0>();
   }
   float sum = 0.f;
-  for (int m = 0; m < NACC; ++m)
-    for (int i = 0; i < 32; ++i) sum += d[m][i];
-  out[blockIdx.x * 128 * NWG + threadIdx.x] = sum;
+  for (int i = 0; i < 32; ++i) sum += d[i];
+  out[blockIdx.x * 256 + threadIdx.x] = sum;
 }
 
-// The TF32 wgrad kernel's tap loop alone: 2 warpgroups, each NTAPS taps an
-// iteration (a segment), a tap a chain of 8 k steps into fresh
-// accumulators (FIRST: the first with scale-d false, else zeroed), waited
-// for, then (FLUSH) added to the tap's running sums in registers.
-template <int NTAPS, int FIRST, int FLUSH>
+// The TF32 wgrad kernel's tap loop alone: 2 warpgroups, each 5 taps an
+// iteration (a segment), a tap a chain of 8 k steps into fresh accumulators
+// (the first with scale-d false), waited for, then added to the tap's
+// running sums in registers.
 __global__ void __launch_bounds__(256, 1) wgmma_tf32_taps(float* out, int iters) {
+  constexpr int kTaps = 5;
   __shared__ __align__(1024) unsigned char smem[16384];
   for (int i = threadIdx.x; i < 4096; i += 256)
     reinterpret_cast<float*>(smem)[i] = (i & 1) ? 1.f : 0.f;
@@ -257,34 +253,26 @@ __global__ void __launch_bounds__(256, 1) wgmma_tf32_taps(float* out, int iters)
     a[ks][0] = a[ks][1] = 0x3f800000u + ks;
     a[ks][2] = a[ks][3] = 0u;
   }
-  float acc[NTAPS][32], fresh[32];
+  float acc[kTaps][32], fresh[32];
   for (int i = 0; i < 32; ++i) fresh[i] = 0.f;
-  for (int t = 0; t < NTAPS; ++t)
+  for (int t = 0; t < kTaps; ++t)
     for (int i = 0; i < 32; ++i) acc[t][i] = 0.f;
   for (int it = 0; it < iters; ++it) {
 #pragma unroll
-    for (int t = 0; t < NTAPS; ++t) {
+    for (int t = 0; t < kTaps; ++t) {
       const unsigned long long desc = wgmma_desc(base + ((t + it) & 1) * 1024);
-      if (!FIRST) {
-#pragma unroll
-        for (int i = 0; i < 32; ++i) fresh[i] = 0.f;
-      }
       wgmma_fence();
-      if (FIRST) wgmma_m64n64k8_tf32_first(fresh, a[0], desc);
-      else wgmma_m64n64k8_tf32(fresh, a[0], desc);
+      wgmma_m64n64k8_tf32_first(fresh, a[0], desc);
 #pragma unroll
       for (int ks = 1; ks < 8; ++ks) wgmma_m64n64k8_tf32(fresh, a[ks], desc + (((ks & 3) * 32) >> 4));
       wgmma_commit();
       wgmma_wait<0>();
-      if (FLUSH) {
 #pragma unroll
-        for (int i = 0; i < 32; ++i) acc[t][i] += fresh[i];
-      }
+      for (int i = 0; i < 32; ++i) acc[t][i] += fresh[i];
     }
   }
   float sum = 0.f;
-  for (int i = 0; i < 32; ++i) sum += fresh[i];
-  for (int t = 0; t < NTAPS; ++t)
+  for (int t = 0; t < kTaps; ++t)
     for (int i = 0; i < 32; ++i) sum += acc[t][i];
   out[blockIdx.x * 256 + threadIdx.x] = sum;
 }
@@ -402,10 +390,8 @@ SSHSLIE_EXPORT int probe_layout(int mn_major, const void* A, const void* X, void
 // which: 0 wgmma m64n64k16, 1 wgmma m64n32k16, 2 mma.sync, 3 mma.sync + ldmatrix,
 // 4 wgmma m64n32k8 .tf32, 5 wgmma m64n64k8 .tf32 (4 accumulators, B from row 0),
 // 6 the same with 2 accumulators, 7 with 4 accumulators and B from row 3;
-// 8 .. 14 TF32 chains of 8 k steps waited for each iteration (warpgroups x
-// accumulators a warpgroup: 2 x 1, 3 x 1, 4 x 1, 2 x 2, 3 x 2, 3 x 3, 2 x 4;
-// 15 2 x 1 with B K-major without swizzle); 16 .. 18 the TF32 wgrad tap loop
-// (5 taps: first with scale-d false and flush; no flush; zeroed, flush).
+// 8, 9 a TF32 chain of 8 k steps waited for each iteration, B swizzled or
+// not; 10 the TF32 wgrad kernel's tap loop.
 SSHSLIE_EXPORT int probe_loop(int which, void* out, int blocks, int iters) {
   float* o = static_cast<float*>(out);
   switch (which) {
@@ -417,17 +403,9 @@ SSHSLIE_EXPORT int probe_loop(int which, void* out, int blocks, int iters) {
     case 5: wgmma_tf32_loop<64, 4, 0><<<blocks, 256>>>(o, iters); break;
     case 6: wgmma_tf32_loop<64, 2, 0><<<blocks, 256>>>(o, iters); break;
     case 7: wgmma_tf32_loop<64, 4, 3><<<blocks, 256>>>(o, iters); break;
-    case 8: wgmma_tf32_chains<2, 1><<<blocks, 256>>>(o, iters); break;
-    case 9: wgmma_tf32_chains<3, 1><<<blocks, 384>>>(o, iters); break;
-    case 10: wgmma_tf32_chains<4, 1><<<blocks, 512>>>(o, iters); break;
-    case 11: wgmma_tf32_chains<2, 2><<<blocks, 256>>>(o, iters); break;
-    case 12: wgmma_tf32_chains<3, 2><<<blocks, 384>>>(o, iters); break;
-    case 13: wgmma_tf32_chains<3, 3><<<blocks, 384>>>(o, iters); break;
-    case 14: wgmma_tf32_chains<2, 4><<<blocks, 256>>>(o, iters); break;
-    case 15: wgmma_tf32_chains<2, 1, 1><<<blocks, 256>>>(o, iters); break;
-    case 16: wgmma_tf32_taps<5, 1, 1><<<blocks, 256>>>(o, iters); break;
-    case 17: wgmma_tf32_taps<5, 1, 0><<<blocks, 256>>>(o, iters); break;
-    case 18: wgmma_tf32_taps<5, 0, 1><<<blocks, 256>>>(o, iters); break;
+    case 8: wgmma_tf32_chains<0><<<blocks, 256>>>(o, iters); break;
+    case 9: wgmma_tf32_chains<1><<<blocks, 256>>>(o, iters); break;
+    case 10: wgmma_tf32_taps<<<blocks, 256>>>(o, iters); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -17,9 +17,10 @@ Builds ``tc_probe.cu`` (with the port's ``csrc/mma.cuh``) into
   ldmatrix loads of a 64 x 64 warp tile) and of wgmma with A from
   registers (bfloat16 k16, TF32 k8; TF32 also with 2 accumulator tiles a
   warpgroup instead of 4, and with B from an unaligned start row), two
-  warpgroups (8 warps) a block, one and two blocks an SM; and of TF32
-  chains of 8 dependent k steps waited for at each end (the TF32 wgrad
-  kernel's segments), 2 to 4 warpgroups x 1 to 4 chains, one block an SM;
+  warpgroups (8 warps) a block, one and two blocks an SM; and, 2
+  warpgroups a block, one block an SM, of a TF32 chain of 8 dependent k
+  steps waited for each time (B swizzled and not) and of the TF32 wgrad
+  kernel's tap loop (5 taps, running sums in registers);
 * the card's name, power limit and SM clock.
 
 Needs a CUDA card and nvcc; no part of the port imports it.
@@ -45,16 +46,11 @@ LOOPS = {0: ("wgmma m64n64k16, A in registers", 64, 16, 4),
          5: ("wgmma m64n64k8 .tf32, A in registers, 4 accumulators", 64, 8, 4),
          6: ("wgmma m64n64k8 .tf32, A in registers, 2 accumulators", 64, 8, 2),
          7: ("wgmma m64n64k8 .tf32, A in registers, 4 accumulators, B from row 3", 64, 8, 4)}
-# which: (name, warpgroups, accumulators a warpgroup): chains of 8 dependent
-# k steps, waited for each iteration (the TF32 wgrad kernel's segments).
-CHAINS = {8: ("2 warpgroups x 1", 2, 1), 9: ("3 warpgroups x 1", 3, 1),
-          10: ("4 warpgroups x 1", 4, 1), 11: ("2 warpgroups x 2", 2, 2),
-          12: ("3 warpgroups x 2", 3, 2), 13: ("3 warpgroups x 3", 3, 3),
-          14: ("2 warpgroups x 4", 2, 4),
-          15: ("2 warpgroups x 1, B K-major without swizzle,", 2, 1),
-          16: ("the wgrad tap loop (5 taps, scale-d false, running sums +=), 2 warpgroups x 1", 2, 5),
-          17: ("the wgrad tap loop without the +=, 2 warpgroups x 1", 2, 5),
-          18: ("the wgrad tap loop, zeroed instead of scale-d false, 2 warpgroups x 1", 2, 5)}
+# which: (name, wgmma a block and iteration): the TF32 wgrad kernel's chains
+# of 8 dependent k steps, waited for each iteration, 2 warpgroups a block.
+CHAINS = {8: ("a chain of 8 k steps a warpgroup", 16),
+          9: ("a chain of 8 k steps a warpgroup, B K-major without swizzle", 16),
+          10: ("the wgrad tap loop (5 taps, scale-d false, running sums +=)", 80)}
 
 
 def _library() -> ctypes.CDLL:
@@ -128,8 +124,8 @@ def main() -> int:
             # A block's iteration: 4 k steps x nacc tiles of 64 x n x k per warpgroup, 2 warpgroups.
             flop = 2.0 * blocks * iters * 4 * nacc * 2 * 64 * n * k
             print(f"{name}, {blocks} blocks: code {code}, {ms:.3f} ms, {flop / ms / 1e9:.1f} TFLOP/s")
-    out = torch.zeros(sms * 512, device=dev)
-    for which, (name, nwg, nacc) in CHAINS.items():
+    out = torch.zeros(sms * 256, device=dev)
+    for which, (name, per_iter) in CHAINS.items():
         lib.probe_loop(which, ctypes.c_void_p(out.data_ptr()), sms, 10)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -138,9 +134,9 @@ def main() -> int:
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end)
-        flop = 2.0 * sms * iters * nwg * nacc * 8 * 64 * 64 * 8
-        print(f"wgmma m64n64k8 .tf32 chains of 8 waited, {name} accumulators, {sms} blocks: "
-              f"code {code}, {ms:.3f} ms, {flop / ms / 1e9:.1f} TFLOP/s")
+        flop = 2.0 * sms * iters * per_iter * 64 * 64 * 8
+        print(f"wgmma m64n64k8 .tf32, {name}, {sms} blocks: code {code}, {ms:.3f} ms, "
+              f"{flop / ms / 1e9:.1f} TFLOP/s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())
