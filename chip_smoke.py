@@ -104,6 +104,26 @@ bfloat16``.
    true --fused_pipeline on --steps_per_dispatch 2`` (5 conv9 launches a
    step: 2 recomputed forwards), and ``--phase test --precision bfloat16``
    from the first one's checkpoint.
+7b. Main path 8, the disk-backed data path: the four training cubes, the
+   two test cubes and their ground truth written again as ENVI pairs (BSQ,
+   float32, ``utils/io_envi.py::save_envi``). (a) ``train_and_test`` as in 5
+   on them with ``data_pattern: "*.hdr"``, ``lazy_loading``,
+   ``cube_cache_size: 2`` and ``fused_window: 2``: the windowed fused
+   pipeline, epoch 0 on cubes {0, 1} and epoch 1 on {2, 3}, each read from
+   disk once (the lazy store's loads recorded), launches exact as in 5; (b)
+   the same training on the ``.mat`` cubes in RAM (``phase: train``): epoch
+   terms and weights equal (a)'s bit for bit, with cuDNN's deterministic
+   algorithms; (c) ``fused_window: auto`` on the lazy store resolves to 3 of
+   4 (its console line); (d) the host pipeline on the lazy store: ``sampler:
+   auto`` takes PatchSampler, batches through the ``Prefetcher``
+   (``prefetch_batches: 2``), terms equal the in-RAM ``sampler: python``
+   run's bit for bit; (e) the test phase on the ENVI test cubes: S equals
+   a ``.mat`` test phase's run beside it within 1e-6 of its span; (f) ``python -m
+   sshslie_torch.doctor`` on path 2's values in a subprocess: exit 0, the
+   device row names the card, the kernel build row PASS. In path 6b, (g):
+   one request through ``sshslie_torch.serve_client`` (its ``main``), S
+   equal to the service's direct ``enhance`` within 1e-5 of the span,
+   launches counted as the other requests'.
 8. Kernels against their plain versions on the card, each dtype with its
    stated tolerance (float32 conv9 and flash also at the micro-batched
    serving shapes (4, 512, 512, 64) and (4, 4, 4096, 16); the bfloat16 conv9, its dgrad and conv9_wgrad also at
@@ -145,7 +165,7 @@ bfloat16``.
 Prints one JSON line of kernels, then the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. A row's "launches" are the launches
 the wrappers counted at its (pass, dtype or "tf32", shape) over the main
-paths' reads (4, 5, 5b, 6, 6b, 6c, 7); a row with none fails the run. Any failure exits non-zero before
+paths' reads (4, 5, 5b, 6, 6b, 6c, 7, 7b); a row with none fails the run. Any failure exits non-zero before
 the last line. Needs one CUDA card, nvcc and the repository's files.
 """
 
@@ -837,6 +857,18 @@ def run_serving(cfg, bcfg, test_kw: dict, card: str) -> dict:
         check_close("serving S 512^2 (.mat) vs the test phase's S, raw scale", torch.from_numpy(s1),
                     torch.from_numpy(s_test), tol)
         log(f"  X-Inference-Seconds {rh['X-Inference-Seconds']}")
+        # (g) One request through the port's client (``python -m
+        # sshslie_torch.serve_client``), against the service's direct enhance.
+        from sshslie_torch import serve_client
+
+        out = counted("serve float32 512^2 through serve_client", "float32", lambda: serve_client.main([
+            os.path.join(cfg.test_data, "cube0.mat"), "client_s.mat", "--url",
+            f"http://{srv.host}:{srv.port}", "--request_encoding", "f32", "--encoding", "f32"]))
+        direct = counted("serve float32 512^2 direct enhance", "float32",
+                         lambda: svc.enhance(cubes[0])["S"])
+        n_direct += 1
+        check_close("serve_client S vs the service's direct enhance, raw scale",
+                    torch.from_numpy(out["data"]), torch.from_numpy(direct), tol)
         blob, hd = f32_body(cubes[0][:ragged_hw[0], :ragged_hw[1]])
         rh, data = counted("serve float32 500x460 (bucket 512^2)", "float32",
                            lambda: enhance(srv, blob, hd, "?encoding=f32")[1:])
@@ -906,7 +938,7 @@ def run_serving(cfg, bcfg, test_kw: dict, card: str) -> dict:
             raise AssertionError(f"artifacts: {[(k, v.shape) for k, v in arts.items()]}")
         check_close("serving artifacts=1 S vs the f32 S", torch.from_numpy(arts["data"]),
                     torch.from_numpy(s1), tol)
-        n_http = 7
+        n_http = 8
         requests, errors = metric(srv, "sshslie_requests_total"), metric(srv, "sshslie_request_errors_total")
         log(f"serving /metrics: requests {requests}, errors {errors}")
         if requests != n_http + n_direct or errors != 0:
@@ -1400,6 +1432,217 @@ def run_tf32(cfg, test_kw: dict, train_kw: dict) -> dict:
     return total
 
 
+def console_lines(c, prefix: str) -> list:
+    """The lines of a run's console log (the runner tees stdout to it) that
+    start with ``prefix``."""
+    path = os.path.join("logs", f"console_output_{c.full_model_name}.log")
+    with open(path) as fh:
+        return [ln.strip() for ln in fh if ln.startswith(prefix)]
+
+
+def run_disk(cfg, test_kw: dict, train_kw: dict, card: str, doctor_flags: list) -> dict:
+    """Main path 8: the disk-backed data path. The float32 training cubes,
+    test cubes and ground truth written a second time as ENVI pairs (BSQ,
+    float32, ``save_envi``); then, each through ``runner.main`` with the
+    launch counts set to 0 before and read after:
+    (a) ``train_and_test`` at path 2's values on the ENVI cubes with
+        ``lazy_loading``, ``cube_cache_size: 2`` and ``fused_window: 2``: the
+        windowed fused pipeline, epoch 0 on cubes {0, 1} and epoch 1 on
+        {2, 3} (each read once), launches exact;
+    (b) the same training on the ``.mat`` cubes in RAM with ``fused_window:
+        2`` (``phase: train``): its epoch terms and weights equal (a)'s bit
+        for bit (cuDNN's deterministic algorithms; the inputs are the same
+        float32 values);
+    (c) ``fused_window: auto`` on the lazy ENVI store: K = N - 1 = 3 (a lazy
+        store always windows; the card's free memory holds far more);
+    (d) the host pipeline (``fused_pipeline: off``) on the lazy store:
+        ``sampler: auto`` takes PatchSampler, batches through the Prefetcher
+        (``prefetch_batches: 2``); its terms equal the in-RAM ``.mat`` run's
+        with ``sampler: python`` bit for bit;
+    (e) the test phase on the ENVI test cubes (a lazy store): S equals a
+        ``.mat`` test phase's run beside it within 1e-6 of its span (path 1's
+        S, from the script's start, is compared for the record);
+    (f) ``python -m sshslie_torch.doctor`` on path 2's values in a
+        subprocess: exit 0, the device row names the card, the kernel build
+        row PASS.
+    Returns the launches by kernel and dtype of (a)-(e)."""
+    import numpy as np
+    import scipy.io as sio
+    import torch
+
+    from sshslie_torch import runner
+    from sshslie_torch.config import load_config
+    from sshslie_torch.data import datasets
+    from sshslie_torch.ops import attention, conv9
+    from sshslie_torch.train import LOSS_KEYS
+    from sshslie_torch.utils.io_envi import save_envi
+    from sshslie_torch.utils.io_hsi import load_hsi
+
+    t0 = time.perf_counter()
+    for src, dst in (("low/train", "envi/train"), ("low/test", "envi/test"),
+                     ("high/test", "envi/high")):
+        os.makedirs(os.path.join("data", dst), exist_ok=True)
+        for f in sorted(os.listdir(os.path.join("data", src))):
+            cube = np.ascontiguousarray(sio.loadmat(os.path.join("data", src, f))["data"],
+                                        dtype=np.float32)
+            save_envi(os.path.join("data", dst, os.path.splitext(f)[0]), cube)
+            if src == "high/test":
+                # The test phase scores its saved .mat outputs against .mat labels.
+                shutil.copy(os.path.join("data", src, f), os.path.join("data", dst, f))
+    log(f"disk (8): ENVI pairs written in {time.perf_counter() - t0:.2f} s")
+
+    # Every store the runs build, and every disk load of a lazy one, in order.
+    stores, loads = [], []
+    build_store, lazy_load = datasets.store_from_config, datasets.LazyCubeStore._load
+
+    def recording_store(c, path, pattern=None):
+        store = build_store(c, path, pattern)
+        stores.append((os.path.normpath(path), store))
+        return store
+
+    def recording_load(store, idx):
+        loads.append(store.files[idx])
+        return lazy_load(store, idx)
+
+    total = {}
+
+    def counted(what, c, want):
+        zero_counts(conv9, attention)
+        t = time.perf_counter()
+        result = runner.main(c)
+        torch.cuda.synchronize()
+        counts = read_counts(conv9, attention)
+        tally_shapes(conv9, attention)
+        check_launches(what, counts, "float32", want)
+        for k, by in counts.items():
+            for dt, n in by.items():
+                total.setdefault(k, {})[dt] = total.get(k, {}).get(dt, 0) + n
+        trainer = result.get("trainer")
+        log(f"main path (disk {what}): {time.perf_counter() - t:.2f} s; launches {counts}"
+            + (f"; {trainer.pipeline} pipeline, epoch (host s, wall s) {trainer.epoch_seconds}"
+               if trainer else ""))
+        return result
+
+    def train_want(steps, cubes_run):
+        return {"conv9": (3 * steps + cubes_run,) * 2, "conv9_wgrad": (2 * steps,) * 2,
+                "flash_attention": (cubes_run,) * 2}
+
+    def same_run(what, got, want):
+        """Epoch terms and final weights of two trainers, bit for bit."""
+        g_sd, w_sd = got.model.state_dict(), want.model.state_dict()
+        same = (all(got.all_epoch_losses[k] == want.all_epoch_losses[k] for k in LOSS_KEYS)
+                and all(torch.equal(g_sd[n], w_sd[n]) for n in w_sd))
+        log(f"disk {what}: total loss {got.all_epoch_losses['total_loss']} vs "
+            f"{want.all_epoch_losses['total_loss']}; terms and weights bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"disk {what}: the runs differ")
+
+    envi = dict(data_pattern="*.hdr", lazy_loading=True, cube_cache_size=2,
+                train_data="./data/envi/train", eval_data="./data/envi/test",
+                test_data="./data/envi/test", label_dir="./data/envi/high")
+    ram = dict(train_data="./data/low/train", phase="train", eval_every_epoch=100)
+    datasets.store_from_config = recording_store
+    datasets.LazyCubeStore._load = recording_load
+    torch.backends.cudnn.deterministic = True
+    try:
+        # ---- (a) train_and_test, lazy ENVI store, a window of 2 of the 4 cubes ----
+        acfg = load_config(None, {**train_kw, **envi, "fused_window": 2,
+                                  "model_name": "chip_smoke_disk"})
+        steps = acfg.epoch * (N_TRAIN // acfg.batch_size)
+        a = counted("(a) lazy ENVI train_and_test, fused_window 2", acfg,
+                    train_want(steps, 2 * acfg.epoch + 2))
+        trainer_a = a["trainer"]
+        check_training("disk (a)", trainer_a, acfg, a, math, np, torch, load_hsi, LOSS_KEYS)
+        lines = console_lines(acfg, "Patch sampler:")
+        train_store = [s for p, s in stores if p == os.path.normpath(acfg.train_data)][0]
+        train_loads = [os.path.basename(f) for f in loads if f in train_store.files]
+        log(f"disk (a): {lines}; train store {type(train_store).__name__}, load_count "
+            f"{train_store.load_count}, loads in order {train_loads}; epoch (host s, wall s) "
+            f"{trainer_a.epoch_seconds}")
+        if (trainer_a.pipeline != "fused" or len(lines) != 1 or "windowed (window=2/4 cubes"
+                not in lines[0] or not isinstance(train_store, datasets.LazyCubeStore)
+                or train_store.load_count != 4
+                or train_loads != [f"train{i}.hdr" for i in range(4)]):
+            raise AssertionError("disk (a): not the windowed pipeline over {0,1} then {2,3}")
+
+        # ---- (b) the same training on the .mat cubes in RAM ----
+        bcfg = load_config(None, {**train_kw, **ram, "fused_window": 2,
+                                  "model_name": "chip_smoke_disk_ram"})
+        b = counted("(b) in-RAM .mat train, fused_window 2", bcfg, train_want(steps, 0))
+        same_run("(b) in RAM vs (a) lazy ENVI", b["trainer"], trainer_a)
+
+        # ---- (c) fused_window auto on the lazy ENVI store ----
+        ccfg = load_config(None, {**train_kw, **envi, "phase": "train", "epoch": 1,
+                                  "eval_every_epoch": 100, "fused_window": "auto",
+                                  "model_name": "chip_smoke_disk_auto"})
+        free, total_mem = torch.cuda.mem_get_info()
+        c = counted("(c) lazy ENVI train, fused_window auto", ccfg, train_want(2, 0))
+        lines = console_lines(ccfg, "fused_window=auto:")
+        log(f"disk (c): {lines} (card memory free {free} of {total_mem} bytes before the run)")
+        if (len(lines) != 1 or "window=3/4 cube(s)" not in lines[0]
+                or c["trainer"].pipeline != "fused"):
+            raise AssertionError(f"disk (c): fused_window auto resolved {lines}")
+
+        # ---- (d) the host pipeline on the lazy store, then in RAM with sampler python ----
+        host = {"phase": "train", "epoch": 1, "eval_every_epoch": 100, "fused_pipeline": "off",
+                "prefetch_batches": 2}
+        dcfg = load_config(None, {**train_kw, **envi, **host, "sampler": "auto",
+                                  "model_name": "chip_smoke_disk_host"})
+        d = counted("(d) lazy ENVI train, host pipeline", dcfg, train_want(2, 0))
+        lines = console_lines(dcfg, "Patch sampler:")
+        log(f"disk (d): {lines}")
+        if len(lines) != 1 or not lines[0].startswith("Patch sampler: PatchSampler (sampler='auto',"):
+            raise AssertionError(f"disk (d): sampler lines {lines}")
+        rcfg = load_config(None, {**train_kw, **ram, **host, "sampler": "python",
+                                  "model_name": "chip_smoke_disk_host_ram"})
+        r = counted("(d) in-RAM .mat train, host pipeline, sampler python", rcfg, train_want(2, 0))
+        same_run("(d) lazy ENVI vs in RAM, host pipeline", d["trainer"], r["trainer"])
+
+        # ---- (e) the test phase on the ENVI test cubes, beside a .mat one ----
+        # The two run back to back on the same algorithms; the float32 test
+        # phase of path 1, at the script's start, is compared too, for the record.
+        tests = {}
+        for key, extra in (("mat", {}), ("envi", dict(data_pattern="*.hdr", lazy_loading=True,
+                                                      test_data="./data/envi/test"))):
+            tests[key] = load_config(None, dict(test_kw, model_name=cfg.model_name,
+                                                timestamp=f"disk_{key}", **extra))
+            counted(f"(e) {key} test phase", tests[key], {
+                "conv9": (2, 2), "flash_attention": (2, 2), "conv9_wgrad": (0, 0)})
+            check_saved_s(tests[key], load_hsi, np)
+        for i in range(2):
+            want, got, first = (torch.from_numpy(load_hsi(
+                os.path.join(c.test_result_dir, f"cube{i}.mat"), mat_key=cfg.mat_key_prediction))
+                for c in (tests["mat"], tests["envi"], cfg))
+            check_close(f"disk (e): ENVI test S of cube{i} vs the .mat test phase's", got, want,
+                        1e-6 * float(want.max() - want.min()))
+            log(f"disk (e): ENVI test S of cube{i} vs path 1's .mat test phase: max|d| "
+                f"{float((got.double() - first.double()).abs().max())!r} (raw scale; S spans "
+                f"{float(first.max() - first.min())!r})")
+    finally:
+        torch.backends.cudnn.deterministic = False
+        datasets.store_from_config = build_store
+        datasets.LazyCubeStore._load = lazy_load
+
+    # ---- (f) the doctor, as a user runs it ----
+    t = time.perf_counter()
+    flags = ["--config", "", "--model_name", "chip_smoke_doctor", *doctor_flags]
+    for key, val in train_kw.items():
+        flags += [f"--{key}", str(val)]
+    proc = subprocess.run([sys.executable, "-m", "sshslie_torch.doctor", *flags + [
+        "--train_data", "./data/low/train"]], capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")))
+    rows = proc.stdout.strip().splitlines()
+    log(f"disk (f): python -m sshslie_torch.doctor exit {proc.returncode} in "
+        f"{time.perf_counter() - t:.2f} s:\n  " + "\n  ".join(rows))
+    device_row = [r for r in rows if r.startswith("[PASS] torch device")]
+    build_row = [r for r in rows if r.startswith("[PASS] kernel build")]
+    if (proc.returncode != 0 or not device_row or torch.cuda.get_device_name(0) not in device_row[0]
+            or not build_row):
+        raise AssertionError(f"disk (f): doctor exit {proc.returncode}: {proc.stdout}{proc.stderr}")
+    log(f"main path 8 (disk-backed data, {card}): {time.perf_counter() - t0:.2f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1546,11 +1789,9 @@ def main() -> int:
             if not all(math.isfinite(v) for v in result["scores"]):
                 raise AssertionError(f"CLI {what}: scores {result['scores']}")
             if sampler:
-                # The run's console log (the runner tees stdout to it) names
-                # the host sampler that the sampler key resolved to.
-                path = os.path.join("logs", f"console_output_{trainer.cfg.full_model_name}.log")
-                with open(path) as fh:
-                    lines = [ln.strip() for ln in fh if ln.startswith("Patch sampler:")]
+                # The run's console log names the host sampler that the sampler
+                # key resolved to.
+                lines = console_lines(trainer.cfg, "Patch sampler:")
                 log(f"CLI {what}: {lines}")
                 if len(lines) != 1 or not lines[0].startswith(f"Patch sampler: {sampler} "):
                     raise AssertionError(f"CLI {what}: sampler lines {lines}, expected {sampler}")
@@ -1577,6 +1818,9 @@ def main() -> int:
             "--phase", "test", "--precision", "bfloat16", "--model_name", "cli_accum",
             "--test_timestamp", accum["trainer"].cfg.timestamp],
             "bfloat16", {"conv9": (2, 2), "conv9_wgrad": (0, 0), "flash_attention": (2, 2)})
+
+        # ---- main path 8: the disk-backed data path (ENVI, lazy store, windows, prefetch) ----
+        disk_counts = run_disk(cfg, test_kw, train_kw, card, [])
 
         # ---- kernels against their plain versions on the card ----
         cube = load_hsi(os.path.join(cfg.test_data, "cube0.mat"), mat_key=cfg.mat_key,
@@ -2325,13 +2569,25 @@ def main() -> int:
             log(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
                 f"bound {bound:.4f} ms ({flops:.3e} FLOP, {nbytes:.3e} B, "
                 f"{exps:.3e} exp)")
+        # Under matmul_precision below float32 the flash kernel runs its
+        # float32 entry (the row above); its yardstick there is SDPA with the
+        # TF32 switches on, on the same inputs.
+        set_matmul_precision(t32cfg)
+        try:
+            sdpa_tf32_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 20)
+        finally:
+            set_matmul_precision(tcfg)
+        check_switches("after the TF32 SDPA timing", False)
+        log(f"flash_attention (1,4,4096,16) float32 under TF32: library SDPA with the TF32 "
+            f"switches on {sdpa_tf32_ms:.4f} ms ({card})")
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
     log(f"launches on the main paths: float32 test {test_counts}, float32 train_and_test "
         f"{train_counts}, float32 engine run {engine_counts}, bfloat16 test {btest_counts}, "
         f"bfloat16 train_and_test {btrain_counts}, serving {served['counts']}, TF32 "
-        f"{tf32_counts}; by (kernel, pass, dtype, shape) {MAIN_SHAPES}")
+        f"{tf32_counts}, disk-backed data {disk_counts}; by (kernel, pass, dtype, shape) "
+        f"{MAIN_SHAPES}")
     # Each row's launches are those the wrappers counted at its shape on the
     # main paths: every row's shape is one the main paths ran, and every shape
     # the main paths ran has its row (held against the plain version above).

@@ -131,14 +131,14 @@ class Config:
     mesh_shape: str = ""                  # JAX key; non-empty raises (not ported yet)
     data_axis: str = "data"               # JAX key; ignored
     space_axis: str = ""                  # JAX key; ignored
-    prefetch_batches: int = 2             # JAX key; speed only, ignored (no prefetch thread)
+    prefetch_batches: int = 2             # host pipeline: batches staged ahead on a worker thread
     data_pattern: str = "*.mat"           # dataset glob per split dir
-    lazy_loading: bool = False            # JAX key; true raises (the disk-backed store, item 9)
-    cube_cache_size: int = 8              # JAX key; ignored
+    lazy_loading: bool = False            # true: the disk-backed LazyCubeStore (an LRU cache)
+    cube_cache_size: int = 8              # cubes the LazyCubeStore keeps in RAM
     fused_pipeline: str = "auto"          # 'auto' | 'on' | 'off': on-device crop + augment
     sampler: str = "auto"                 # 'auto': native if it loads; 'native'; 'python': PatchSampler
     steps_per_dispatch: int = 1           # fused steps a host call
-    fused_window: Any = 0                 # JAX key; non-zero or 'auto' raises on the fused pipeline
+    fused_window: Any = 0                 # fused pipeline: K cubes on the device an epoch; 'auto' sizes K
     grad_accum_steps: int = 1             # micro-batches a step (host pipeline)
     log_every_step: int = 0               # >0: print the loss every N batches
     checkpoint_keep: int = 0              # >0: keep only the newest N model_epoch_N.pth
@@ -281,11 +281,6 @@ def _validate_enums(cfg: "Config") -> None:
 # ROADMAP.md queue-1 item).
 _NOT_PORTED = (
     (True, lambda c: bool(c.mesh_shape), "mesh_shape (multi-GPU)", "item 7"),
-    # JAX acts on fused_window only where it would take the fused pipeline.
-    (False, lambda c: (c.fused_window != 0 and c.fused_pipeline != "off"
-                       and c.grad_accum_steps <= 1),
-     "fused_window (a rotating window of cubes on the device)", "item 9"),
-    (False, lambda c: c.lazy_loading, "lazy_loading (the disk-backed store)", "item 9"),
 )
 # matmul_precision values that run float32 products in TF32 on the card: the
 # TF32 passes XLA takes for them on an NVIDIA GPU (float32 accumulation).
@@ -302,7 +297,7 @@ def matmul_tf32(matmul_precision: str) -> bool:
 
 
 # Training keys that change only speed; training prints them as ignored.
-SPEED_ONLY_KEYS = ("prefetch_batches", "jit_cache_dir")
+SPEED_ONLY_KEYS = ("jit_cache_dir",)
 
 
 def check_ported(cfg: "Config", training: bool) -> None:

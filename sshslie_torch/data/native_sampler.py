@@ -12,9 +12,10 @@ same library with the same seed mixing, so for the same cubes, seed, epoch
 and batch id its batches are the JAX package's byte for byte.
 
 ``make_sampler`` resolves the ``sampler`` key as JAX does: ``native``
-requires the library, ``auto`` takes it when it loads (the port has no
-disk-backed store yet, so every store is in RAM), ``python`` takes
-:class:`~sshslie_torch.data.datasets.PatchSampler` (the numpy PCG64 stream).
+requires the library and an in-RAM store, ``auto`` takes it when it loads
+and the store is in RAM, ``python`` (and ``auto`` on a disk-backed store)
+takes :class:`~sshslie_torch.data.datasets.PatchSampler` (the numpy PCG64
+stream).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
-from sshslie_torch.data.datasets import CubeStore, PatchSampler
+from sshslie_torch.data.datasets import CubeStore, LazyCubeStore, PatchSampler
 
 _LIB_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
@@ -153,17 +154,25 @@ def make_sampler(store: CubeStore, batch_size: int, patch_size: int,
                  seed: int = 41, mode: str = "auto"):
     """The host patch sampler for the ``sampler`` key.
 
-    * ``auto``: NativePatchSampler if the library loads, else PatchSampler.
-      The two draw from other streams, so the caller logs the choice.
-    * ``native``: NativePatchSampler; raises if the library is missing.
+    * ``auto``: NativePatchSampler if the library loads and the store is in
+      RAM, else PatchSampler. The two draw from other streams, so the caller
+      logs the choice.
+    * ``native``: NativePatchSampler; raises if the library is missing or
+      the store is disk-backed (the library holds every cube in RAM, which
+      a ``LazyCubeStore`` exists to avoid).
     * ``python``: PatchSampler (the numpy PCG64 stream).
 
-    Every store of the port is in RAM (the disk-backed one raises), so JAX's
-    lazy-store branch has no counterpart here; nor has its legacy
-    ``prefer_native`` alias of ``mode='python'``, which no caller uses.
+    JAX's legacy ``prefer_native`` alias of ``mode='python'`` has no
+    counterpart: no caller uses it.
     """
     if mode not in ("auto", "native", "python"):
         raise ValueError(f"sampler mode must be auto|native|python, got {mode!r}")
-    if mode == "native" or (mode == "auto" and native_available()):
+    lazy = isinstance(store, LazyCubeStore)
+    if mode == "native":
+        if lazy:
+            raise ValueError("sampler='native' is incompatible with lazy_loading: the "
+                             "native sampler pins every cube in RAM")
+        return NativePatchSampler(store, batch_size, patch_size, seed)
+    if mode == "auto" and native_available() and not lazy:
         return NativePatchSampler(store, batch_size, patch_size, seed)
     return PatchSampler(store, batch_size, patch_size, seed)

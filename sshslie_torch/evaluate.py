@@ -117,7 +117,9 @@ def _inference_stream(infer: Inferencer, store: CubeStore, eval_batch: int,
     for idxs in groups.values():
         for lo in range(0, len(idxs), batch):
             chunk = idxs[lo: lo + batch]
-            stack = np.stack([store[i] for i in chunk])
+            # C order whatever the store's arrays (loadmat's are Fortran-ordered),
+            # so that a cube gives the same S from a .mat file and an ENVI pair.
+            stack = np.ascontiguousarray(np.stack([store[i] for i in chunk]))
             if len(chunk) < batch:
                 # Remainder chunks are zero-padded to the full batch, as in the JAX package.
                 stack = np.concatenate(

@@ -31,12 +31,20 @@
   DecompositionNet's gradients are set to zero, not dropped, so Adam's
   moments and step counts advance as the JAX package's do; Adam is recreated
   at the unfreeze epoch (reference model.py:273-288).
+* :class:`WindowedCubeFeeder` (``fused_window: K``) keeps K of the N cubes
+  on the device an epoch, for datasets too large to stack (or on a
+  disk-backed store): epoch e trains on cubes ``[(e*K + j) % N]``, the next
+  window is read on a worker thread, and the fused step's cube index runs
+  mod K; the draw table is unchanged, so windowing changes only which cube
+  a sample reads. :func:`auto_fused_window` sizes K from the card's free
+  memory (``fused_window: auto``).
 * :class:`Trainer` is ``Trainer.fit``: pipeline selection as JAX (fused on
-  same-shape cubes for ``fused_pipeline: auto|on``, else the host sampler
-  of ``data/native_sampler.py::make_sampler`` for the ``sampler`` key: the
-  native xoshiro256** sampler for ``auto`` when its library loads and for
-  ``native``, ``PatchSampler``'s numpy PCG64 stream for ``python``; one
-  upload a step), per-epoch
+  same-shape cubes for ``fused_pipeline: auto|on``, resident or windowed,
+  else the host sampler of ``data/native_sampler.py::make_sampler`` for the
+  ``sampler`` key: the native xoshiro256** sampler for ``auto`` when its
+  library loads and the store is in RAM and for ``native``,
+  ``PatchSampler``'s numpy PCG64 stream for ``python``; its batches staged
+  onto the device ``prefetch_batches`` ahead by ``datasets.Prefetcher``), per-epoch
   averages of the 7 terms with one device-to-host sync an epoch, eval and
   checkpoint on the ``eval_every_epoch`` cadence, the final-tail checkpoint
   (PARITY #22), resume from ``model_epoch_latest.pth`` with the optimizer
@@ -54,9 +62,8 @@
   the snapshot is released only after every read of it. On the CPU the same
   code runs without streams.
 
-Not ported (ROADMAP.md queue 1): meshes (item 7); ``fused_window`` and the
-disk-backed store of ``lazy_loading`` (item 9); a CUDA graph of a multistep
-chunk (item 11).
+Not ported (ROADMAP.md queue 1): meshes (item 7); a CUDA graph of a
+multistep chunk (item 11).
 """
 
 from __future__ import annotations
@@ -75,7 +82,7 @@ import torch
 from sshslie_torch import checkpoints, interop
 from sshslie_torch.observability import Profiler
 from sshslie_torch.config import SPEED_ONLY_KEYS, Config, check_ported
-from sshslie_torch.data.datasets import CubeStore
+from sshslie_torch.data.datasets import CubeStore, LazyCubeStore, Prefetcher
 from sshslie_torch.data.native_sampler import NativePatchSampler, make_sampler
 from sshslie_torch.device import resolve_device
 from sshslie_torch.models.enhance import LowLightEnhanceNet, build_model
@@ -169,10 +176,119 @@ def accum_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer
 
 def stack_cubes(store: CubeStore, device) -> Optional[torch.Tensor]:
     """The (N, H, W, C) float32 stack of the store's cubes on ``device``, or
-    None when their shapes differ (JAX ``stack_cubes``)."""
-    if len({c.shape for c in store.cubes}) != 1:
+    None when their shapes differ or the store is disk-backed (JAX
+    ``stack_cubes``: a lazy store takes ``fused_window`` instead)."""
+    if isinstance(store, LazyCubeStore) or len({tuple(s) for s in store.shapes}) != 1:
         return None
     return torch.from_numpy(np.stack(store.cubes)).to(device)
+
+
+def device_memory_stats(device: torch.device) -> Optional[Dict[str, int]]:
+    """The card's memory as JAX's ``Device.memory_stats()`` keys, or None on
+    the CPU, which has none. ``bytes_limit`` is the card's total and
+    ``bytes_in_use`` the total less what torch could still take: the
+    driver's free bytes (``torch.cuda.mem_get_info``) plus what the caching
+    allocator holds without handing it out (reserved less allocated)."""
+    if device.type != "cuda":
+        return None
+    free, total = torch.cuda.mem_get_info(device)
+    free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
+    return {"bytes_limit": int(total), "bytes_in_use": int(total - free)}
+
+
+def auto_fused_window(store: CubeStore, batch_size: int, device=None, safety: float = 0.5,
+                      memory_stats: Callable = device_memory_stats) -> int:
+    """``fused_window: auto`` → a window size (JAX ``auto_fused_window``).
+
+    0 when the whole stack fits (no window, the resident fused pipeline); K
+    in [max(2, min(batch, N)), N - 1] when a window fits where the stack does
+    not; -1 when no useful window fits or the shapes differ (the caller
+    takes the host sampler). A window cube is charged twice, JAX's margin
+    for the two windows its epoch boundary holds (the port releases the
+    last window before it uploads the next), against ``safety`` of the free
+    memory, ``bytes_limit - bytes_in_use`` of ``memory_stats``
+    (:func:`device_memory_stats`; a test passes the same numbers as a fake
+    JAX device). Without stats (the CPU) the result is 0, or for a
+    disk-backed store ``min(max(k_min, 2 * batch), N - 1)``: a lazy store
+    always windows, since its stack is never built. K is resolved again in
+    each process, so a resumed run may pick another; pin an integer for a
+    replay-exact resume."""
+    device = resolve_device(device)
+    shapes = {tuple(s) for s in store.shapes}
+    if len(shapes) != 1:
+        return -1
+    h, w, c = next(iter(shapes))
+    cube_bytes = h * w * c * 4
+    n = len(store)
+    lazy = isinstance(store, LazyCubeStore)
+    k_min = max(2, min(batch_size, n))
+    if lazy and n <= k_min:
+        return -1  # a window must be a strict subset
+    stats = memory_stats(device)
+    if not stats or "bytes_limit" not in stats:
+        return int(min(max(k_min, 2 * batch_size), n - 1)) if lazy else 0
+    free = int(stats["bytes_limit"]) - int(stats.get("bytes_in_use", 0))
+    budget = int(free * safety)
+    if n * cube_bytes <= budget and not lazy:
+        return 0
+    k = budget // (2 * cube_bytes)
+    if k < k_min:
+        return -1
+    return int(min(k, n - 1))
+
+
+class WindowedCubeFeeder:
+    """K of the store's N cubes on the device an epoch (JAX
+    ``WindowedCubeFeeder``).
+
+    Epoch e trains on ``indices(e) = [(e*K + j) % N for j < K]``, so every
+    cube comes back every ceil(N/K) epochs and a resumed run replays the
+    same windows. The next epoch's cubes are read on one worker thread (disk
+    loads through the store's cache overlap this epoch's steps), cube by
+    cube, so :meth:`close` can stop it between two loads; :meth:`window`
+    then stacks nothing more and only uploads. No prefetch is started past
+    ``num_epochs``.
+    """
+
+    def __init__(self, store: CubeStore, k: int, device, num_epochs: Optional[int] = None):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.store = store
+        self.n = len(store)
+        self.k = min(int(k), self.n)
+        self.device = device
+        self.num_epochs = num_epochs
+        self._pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="fused-window")
+        self._cancel = threading.Event()
+        self._next = None  # (epoch, Future of the host stack)
+
+    def indices(self, epoch: int) -> list:
+        start = (epoch * self.k) % self.n
+        return [(start + j) % self.n for j in range(self.k)]
+
+    def _host_window(self, epoch: int) -> np.ndarray:
+        cubes = []
+        for i in self.indices(epoch):
+            if self._cancel.is_set():
+                raise RuntimeError("WindowedCubeFeeder closed mid-prefetch")
+            cubes.append(self.store[i])
+        return np.stack(cubes)
+
+    def window(self, epoch: int) -> torch.Tensor:
+        """Epoch ``epoch``'s (K, H, W, C) float32 stack on the device."""
+        if self._next is not None and self._next[0] == epoch:
+            host = self._next[1].result()
+        else:  # the first epoch, or a resume
+            host = self._host_window(epoch)
+        if self.num_epochs is None or epoch + 1 < self.num_epochs:
+            self._next = (epoch + 1, self._pool.submit(self._host_window, epoch + 1))
+        else:
+            self._next = None
+        return torch.from_numpy(host).to(self.device)
+
+    def close(self) -> None:
+        self._cancel.set()
+        self._pool.shutdown(wait=False, cancel_futures=True)
 
 
 def fused_draws(seed: int, epoch: int, num_batches: int, batch_size: int,
@@ -295,8 +411,9 @@ class Trainer:
         self.all_epoch_losses: Dict[str, list] = {k: [] for k in LOSS_KEYS}
         self.eval_metrics: Dict[int, Dict[str, float]] = {}
         self.pipeline = ""           # 'fused' or 'host', set by fit
-        # Per trained epoch: (seconds the host spent sampling and uploading,
-        # or drawing and uploading the fused draws, wall seconds of the
+        # Per trained epoch: (seconds the host waited for the prefetched
+        # batches, or spent drawing and uploading the fused draws and, when
+        # windowed, waiting for and uploading the window; wall seconds of the
         # epoch's steps up to its sync).
         self.epoch_seconds: list = []
 
@@ -310,14 +427,6 @@ class Trainer:
         cfg = self.cfg
         return step_lr(epoch, cfg.start_lr, cfg.lr_update_factor, cfg.lr_update_period,
                        max(self.freeze_decom_epochs, 0))
-
-    def _upload(self, host_batch) -> torch.Tensor:
-        batch = torch.from_numpy(host_batch)
-        if self.device.type == "cuda":
-            # Pinned and asynchronous: the next batch is cropped on the host
-            # while the card runs this step.
-            return batch.pin_memory().to(self.device, non_blocking=True)
-        return batch
 
     def fit(self, train_store: CubeStore, eval_store: Optional[CubeStore] = None,
             evaluator: Optional[Callable] = None, ckpt_dir: Optional[str] = None,
@@ -356,26 +465,56 @@ class Trainer:
         if eval_result_dir:
             os.makedirs(eval_result_dir, exist_ok=True)
 
-        # Pipeline selection (JAX Trainer.fit): the fused pipeline on a stack
-        # of same-shape cubes for 'auto'/'on' without accumulation, else the
-        # host sampler.
+        # Pipeline selection (JAX Trainer.fit): the fused pipeline for
+        # 'auto'/'on' without accumulation on same-shape cubes, on a resident
+        # stack or a rotating window of fused_window cubes; else the host sampler.
         accum = max(int(cfg.grad_accum_steps), 1)
         if accum > 1 and cfg.fused_pipeline == "on":
             raise ValueError("grad_accum_steps > 1 requires the host pipeline; set "
                              "fused_pipeline to 'auto' or 'off'")
-        cubes = sampler = None
-        if accum == 1 and cfg.fused_pipeline in ("auto", "on"):
-            cubes = stack_cubes(train_store, self.device)
-            if cubes is None and cfg.fused_pipeline == "on":
-                raise ValueError("fused_pipeline='on' requires all training cubes to share "
-                                 "one shape; use 'auto' or 'off' for mixed-size datasets")
+        fused_eligible = accum == 1 and cfg.fused_pipeline in ("auto", "on")
+        # 'auto' is resolved only where the fused pipeline would act on it.
+        fused_window = cfg.fused_window if fused_eligible else 0
+        if fused_window == "auto":
+            fused_window = auto_fused_window(train_store, cfg.batch_size, self.device)
+            if fused_window < 0:
+                print("fused_window=auto: no useful window fits the device memory budget "
+                      "(or cube shapes are mixed) — degrading to the host sampler")
+            elif fused_window == 0:
+                print("fused_window=auto: full training stack fits resident (no windowing)")
+            else:
+                print(f"fused_window=auto: window={fused_window}/{len(train_store)} cube(s) "
+                      "from device memory stats (pin an integer fused_window for bit-exact "
+                      "resume across memory-state changes)")
+        cubes = feeder = sampler = None
+        if fused_eligible and fused_window >= 0:
+            uniform = len({tuple(s) for s in shapes}) == 1
+            if 0 < fused_window < len(train_store) and uniform:
+                feeder = WindowedCubeFeeder(train_store, fused_window, self.device,
+                                            num_epochs=cfg.epoch)
+            else:
+                cubes = stack_cubes(train_store, self.device)
+                if cubes is None and fused_window > 0 and uniform:
+                    # fused_window >= N on a lazy store: the window is the whole
+                    # dataset, so its stack is built once.
+                    cubes = torch.from_numpy(np.stack(
+                        [train_store[i] for i in range(len(train_store))])).to(self.device)
+                if cubes is None and cfg.fused_pipeline == "on":
+                    raise ValueError(
+                        "fused_pipeline='on' requires all training cubes to share one shape "
+                        "(or fused_window for lazy stores); use 'auto' or 'off' for "
+                        "mixed-size datasets")
         k_steps = max(int(cfg.steps_per_dispatch), 1)
-        self.pipeline = "host" if cubes is None else "fused"
-        if cubes is not None:
+        self.pipeline = "host" if cubes is None and feeder is None else "fused"
+        rng_text = ("rng=numpy PCG64 table of each epoch's draws from "
+                    "SeedSequence([seed_value, epoch]); not the JAX threefry stream)")
+        if feeder is not None:
+            print(f"Patch sampler: fused on-device pipeline, windowed (window={feeder.k}/"
+                  f"{feeder.n} cubes, fused_pipeline={cfg.fused_pipeline!r}, "
+                  f"steps_per_dispatch={k_steps}, {rng_text}")
+        elif cubes is not None:
             print(f"Patch sampler: fused on-device pipeline (fused_pipeline="
-                  f"{cfg.fused_pipeline!r}, steps_per_dispatch={k_steps}, rng=numpy PCG64 "
-                  "table of each epoch's draws from SeedSequence([seed_value, epoch]); "
-                  "not the JAX threefry stream)")
+                  f"{cfg.fused_pipeline!r}, steps_per_dispatch={k_steps}, {rng_text}")
         else:
             sampler = make_sampler(train_store, cfg.batch_size, cfg.patch_size,
                                    seed=cfg.seed_value, mode=cfg.sampler)
@@ -525,7 +664,8 @@ class Trainer:
             # Trace the first trained epoch, its eval and checkpoint included.
             profiler.start()
             for epoch in range(start_epoch, cfg.epoch):
-                avg, lr = self._train_epoch(epoch, cubes, sampler, num_batches, accum, k_steps)
+                avg, lr = self._train_epoch(epoch, cubes, feeder, sampler, num_batches, accum,
+                                            k_steps)
                 if epoch == start_epoch:
                     report_hbm_pressure(self.device)
                 if (eval_result_dir and self.observer
@@ -571,6 +711,8 @@ class Trainer:
         finally:
             for sig, handler in prev_handlers.items():
                 signal.signal(sig, handler)
+            if feeder is not None:
+                feeder.close()
             if profiler.active:
                 # A raise in the traced epoch still writes its trace.
                 try:
@@ -644,11 +786,12 @@ class Trainer:
 
         return pool, submit
 
-    def _train_epoch(self, epoch: int, cubes: Optional[torch.Tensor], sampler,
-                     num_batches: int, accum: int, k_steps: int):
+    def _train_epoch(self, epoch: int, cubes: Optional[torch.Tensor],
+                     feeder: Optional[WindowedCubeFeeder], sampler, num_batches: int,
+                     accum: int, k_steps: int):
         """One epoch of steps → (the 7 average terms, the epoch's lr), with its
         one device-to-host sync; appends to ``all_epoch_losses`` and
-        ``epoch_seconds``."""
+        ``epoch_seconds``. With ``feeder`` the epoch's window is the stack."""
         cfg = self.cfg
         freeze = 0 < self.freeze_decom_epochs and epoch < self.freeze_decom_epochs
         if self.freeze_decom_epochs > 0:
@@ -664,6 +807,11 @@ class Trainer:
         count = 0
         host_s = 0.0
         start = time.perf_counter()
+        if feeder is not None:
+            # The epoch's window (read ahead on the feeder's thread), uploaded;
+            # rebinding releases the last epoch's.
+            cubes = feeder.window(epoch)
+            host_s += time.perf_counter() - start
         if cubes is not None:
             # The epoch's draws, uploaded once; steps index them on the device.
             t = time.perf_counter()
@@ -683,21 +831,24 @@ class Trainer:
                     print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{ids[-1]+1}/{num_batches}] "
                           f"Loss: {float(terms['total_loss']) / len(ids):.6f}")
         else:
-            batches = sampler.epoch()
-            for batch_id in range(num_batches):
-                t = time.perf_counter()
-                batch = self._upload(next(batches))
-                host_s += time.perf_counter() - t
-                if accum > 1:
-                    terms = accum_train_step(self.model, self.optimizer, batch, self.coeffs,
-                                             accum, freeze)
-                else:
-                    terms = train_step(self.model, self.optimizer, batch, self.coeffs, freeze)
-                sums = _add_terms(sums, terms)
-                count += 1
-                if cfg.log_every_step and (batch_id + 1) % cfg.log_every_step == 0:
-                    print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{batch_id+1}/{num_batches}] "
-                          f"Loss: {float(terms['total_loss']):.6f}")
+            # Batches staged onto the device prefetch_batches ahead; closing
+            # the prefetcher releases its worker if a step raises.
+            with Prefetcher(sampler.epoch(), self.device, depth=cfg.prefetch_batches) as batches:
+                for batch_id in range(num_batches):
+                    t = time.perf_counter()
+                    batch = next(batches)
+                    host_s += time.perf_counter() - t
+                    if accum > 1:
+                        terms = accum_train_step(self.model, self.optimizer, batch, self.coeffs,
+                                                 accum, freeze)
+                    else:
+                        terms = train_step(self.model, self.optimizer, batch, self.coeffs,
+                                           freeze)
+                    sums = _add_terms(sums, terms)
+                    count += 1
+                    if cfg.log_every_step and (batch_id + 1) % cfg.log_every_step == 0:
+                        print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{batch_id+1}/"
+                              f"{num_batches}] Loss: {float(terms['total_loss']):.6f}")
         # The one device-to-host sync of the epoch.
         host_sums = torch.stack([sums[k] for k in LOSS_KEYS]).cpu().tolist()
         self.epoch_seconds.append((host_s, time.perf_counter() - start))

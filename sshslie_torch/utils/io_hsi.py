@@ -1,8 +1,9 @@
 """HSI cube I/O and normalisation (host side, numpy/scipy), as
 ``sshslie_tpu/utils/io_hsi.py``.
 
-* :func:`load_hsi` reads an (H, W, C) float32 cube from a ``.mat`` file: v7
-  through scipy, MATLAB v7.3 (HDF5) through h5py, imported only then. The
+* :func:`load_hsi` reads an (H, W, C) float32 cube from a ``.mat`` file (v7
+  through scipy, MATLAB v7.3 (HDF5) through h5py, imported only then) or
+  from an ENVI ``.hdr`` pair (``utils/io_envi.py``). The
   four normalisations, the clamp of negatives after global normalisation
   and the divide-by-own-max quirk (reference utils.py:36-57, PARITY #1) are
   kept, since the published results depend on them.
@@ -12,14 +13,16 @@
   path's request bodies) and :func:`normalize_like_load_torch` is
   :func:`normalize_like_load` on a tensor, for the serving path's
   device-side decode.
-
-ENVI ``.hdr`` input is not ported yet.
+* :func:`split_cube_spec` and :func:`load_cube_specs` parse the tools'
+  ``'Label=path'`` cube arguments; the three ``inverse_*`` normalisations,
+  :func:`select_hsi_wavelengths`, :func:`adaptive_lr` and
+  :func:`polynomial_decay` are the reference's helpers (utils.py:111-237).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import scipy.io as sio
@@ -69,10 +72,13 @@ def load_hsi(
     min_val: Optional[float] = None,
     rescale_by_max: bool = True,
 ) -> np.ndarray:
-    """Load an (H, W, C) float32 cube from a ``.mat`` file and normalise it."""
+    """Load an (H, W, C) float32 cube from a ``.mat`` file, or from an ENVI
+    pair for a ``.hdr`` path, and normalise it."""
     if file.lower().endswith(".hdr"):
-        raise NotImplementedError(
-            f"{file}: ENVI input is not ported yet (ROADMAP.md queue 1, item 9)")
+        from sshslie_torch.utils.io_envi import load_envi
+
+        return normalize_like_load(load_envi(file), normalization, max_val=max_val,
+                                   min_val=min_val, rescale_by_max=rescale_by_max)
     try:
         mat = sio.loadmat(file)
     except (NotImplementedError, ValueError):
@@ -90,6 +96,33 @@ def load_hsi(
     x = np.asarray(mat[mat_key], dtype=np.float32)
     return normalize_like_load(x, normalization, max_val=max_val, min_val=min_val,
                                rescale_by_max=rescale_by_max)
+
+
+def split_cube_spec(spec: str) -> Tuple[str, str]:
+    """'Label=path' → (label, path); a bare path → ('', path).
+
+    Splits at the first '=': 'GT=runs/x=2/c.mat' has the label 'GT'. A
+    prefix with a path separator is no label but a bare path whose directory
+    holds an '=' (results/run=2/c.mat)."""
+    label, sep, path = spec.partition("=")
+    if not sep or os.sep in label or "/" in label:
+        return "", spec
+    return label, path
+
+
+def load_cube_specs(specs, mat_key: str = "data") -> dict:
+    """The tools' repeatable ``'Label=path'`` / bare-path arguments → an
+    ordered ``{label: float64 cube}``, raw values. A bare path is labelled
+    by its basename; a repeated label gets trailing underscores."""
+    cubes: dict = {}
+    for spec in specs:
+        label, path = split_cube_spec(spec)
+        label = label or os.path.splitext(os.path.basename(path))[0]
+        while label in cubes:
+            label += "_"
+        cubes[label] = np.asarray(load_hsi(path, mat_key=mat_key, normalization=None),
+                                  dtype=np.float64)
+    return cubes
 
 
 def normalize_like_load(
@@ -258,3 +291,48 @@ def per_channel_standardization(x: np.ndarray) -> np.ndarray:
     std_vals = np.std(x, axis=(0, 1), keepdims=True)
     std_vals = np.where(std_vals > 0, std_vals, 1.0)
     return (x - mean_vals) / std_vals
+
+
+# --- inverses (reference utils.py:111-169) ---
+
+def inverse_global_normalization(predictions: np.ndarray, global_min: float,
+                                 global_max: float) -> np.ndarray:
+    return np.asarray(predictions) * (global_max - global_min) + global_min
+
+
+def inverse_per_channel_normalization(predictions: np.ndarray, min_vals: np.ndarray,
+                                      max_vals: np.ndarray) -> np.ndarray:
+    return np.asarray(predictions) * (max_vals - min_vals) + min_vals
+
+
+def inverse_per_channel_standardization(predictions: np.ndarray, mean_vals: np.ndarray,
+                                        std_vals: np.ndarray) -> np.ndarray:
+    return np.asarray(predictions) * std_vals + mean_vals
+
+
+# --- wavelength selection (reference utils.py:208-237) ---
+
+def select_hsi_wavelengths(range_start: float, range_end: float, total_channels: int,
+                           d_head: int, d_tail: int, s: int = 3) -> Tuple[np.ndarray, int]:
+    """Wavelengths (nm) of the bands kept: head and tail dropped, every s-th."""
+    wavelengths = np.linspace(range_start, range_end, total_channels)
+    remaining = wavelengths[d_head:-d_tail] if d_tail > 0 else wavelengths[d_head:]
+    selected = remaining[::s]
+    return selected, len(selected)
+
+
+# --- learning-rate helpers (reference utils.py:180-206) ---
+
+def adaptive_lr(num_epochs: int, divide_period: int, divide_by: float,
+                initial_value: float) -> np.ndarray:
+    """Piecewise-constant learning rates, divided by ``divide_by`` a period."""
+    arr = np.zeros(num_epochs)
+    current = initial_value
+    for i in range(0, num_epochs, divide_period):
+        arr[i:i + divide_period] = current
+        current /= divide_by
+    return arr
+
+
+def polynomial_decay(initial_value: float, decay_rate: float, power: float, step: float) -> float:
+    return initial_value / (1 + decay_rate * step) ** power

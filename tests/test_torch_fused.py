@@ -25,6 +25,14 @@
   kernels may sum in another order on another CPU).
 * Pipeline selection: 'auto' takes the fused pipeline on one shape and the
   host sampler on mixed shapes; 'on' raises on mixed shapes.
+* ``fused_window``: ``WindowedCubeFeeder.indices`` and ``auto_fused_window``
+  (in-RAM and lazy stores, mixed shapes, n <= k_min, no memory stats, and
+  the same fake budgets fed to both) equal JAX's. The windowed trajectory is
+  held to the port's own fused steps, bit for bit on the CPU: a windowed run
+  equals fused steps on each epoch's window stack, its resume equals the
+  uninterrupted run, its multistep equals single steps, and ``fused_window
+  >= N`` on a lazy store equals the resident run. (The JAX and port fused
+  streams differ by design, numpy SeedSequence against threefry.)
 """
 
 import dataclasses
@@ -43,10 +51,11 @@ from sshslie_tpu.train import TrainState, _make_loss_fn, init_params, make_accum
 from sshslie_tpu.train import make_optimizer as jax_make_optimizer
 from sshslie_tpu.utils.augment import augment_batch_jax
 from sshslie_torch.config import load_config
-from sshslie_torch.data.datasets import CubeStore
+from sshslie_torch.data.datasets import CubeStore, LazyCubeStore
 from sshslie_torch.interop import jax_params_to_state_dict
 from sshslie_torch.models.enhance import LowLightEnhanceNet
-from sshslie_torch.train import (LOSS_KEYS, Trainer, accum_train_step, fused_draws,
+from sshslie_torch.train import (LOSS_KEYS, Trainer, WindowedCubeFeeder, accum_train_step,
+                                 auto_fused_window, fused_draws,
                                  fused_train_step, make_optimizer, multistep_train_step,
                                  sample_fused_batch, stack_cubes)
 from sshslie_torch.utils.augment import augment_batch
@@ -273,3 +282,137 @@ def test_pipeline_selection(cube_dir, tmp_path, capsys):
     with pytest.raises(ValueError, match="share one shape"):
         _fresh(load_config(None, dict(KW, epoch=1, fused_pipeline="on"))).fit(
             _store(mixed), ckpt_dir=str(tmp_path / "ck2"))
+
+
+class _Sized:
+    def __init__(self, n):
+        self.n = n
+
+    def __len__(self):
+        return self.n
+
+
+@pytest.mark.parametrize("n,k", [(4, 2), (4, 3), (5, 2), (7, 3), (6, 6), (9, 4)])
+def test_window_indices_equal_jax(n, k):
+    from sshslie_tpu.train import WindowedCubeFeeder as JaxFeeder
+
+    ours, theirs = WindowedCubeFeeder(_Sized(n), k, "cpu"), JaxFeeder(_Sized(n), k, lambda a: a)
+    try:
+        assert ours.k == theirs.k
+        for e in range(11):
+            assert ours.indices(e) == theirs.indices(e), e
+    finally:
+        ours.close()
+        theirs.close()
+
+
+class _FakeJaxDevice:
+    def __init__(self, stats):
+        self.stats = stats
+
+    def memory_stats(self):
+        return self.stats
+
+
+MB = 24 * 24 * 6 * 4  # one float32 24x24x6 cube
+
+
+@pytest.mark.parametrize("lazy,mixed,n,batch,stats,want", [
+    (False, False, 4, 2, None, 0),                                        # no stats: resident
+    (True, False, 4, 2, None, 3),                                         # no stats, lazy: 2*B
+    (True, False, 4, 1, None, 2),
+    (False, True, 4, 2, {"bytes_limit": 10 * MB, "bytes_in_use": 0}, -1),  # mixed shapes
+    (True, False, 2, 2, None, -1),                                        # lazy n <= k_min
+    (False, False, 4, 2, {"bytes_limit": 8 * MB, "bytes_in_use": 0}, 0),   # the stack fits
+    (True, False, 4, 2, {"bytes_limit": 8 * MB, "bytes_in_use": 0}, 2),    # lazy: windows anyway
+    (False, False, 8, 2, {"bytes_limit": 14 * MB, "bytes_in_use": 2 * MB}, 3),  # a window of 3
+    (False, False, 4, 2, {"bytes_limit": 9 * MB, "bytes_in_use": 2 * MB}, -1),  # none fits
+    (True, False, 6, 2, {"bytes_limit": 100 * MB, "bytes_in_use": 0}, 5),  # capped at N - 1
+], ids=["resident", "lazy-2B", "lazy-B1", "mixed", "lazy-small", "fits", "lazy-fits",
+        "window", "no-window", "cap"])
+def test_auto_fused_window_equals_jax(tmp_path, lazy, mixed, n, batch, stats, want):
+    from sshslie_tpu.data.datasets import CubeStore as JaxStore, LazyCubeStore as JaxLazy
+    from sshslie_tpu.train import auto_fused_window as jax_auto
+
+    shapes = [(24, 24, 6)] * n if not mixed else [(24, 24, 6), (20, 24, 6)] * (n // 2)
+    d = _cubes_dir(str(tmp_path / "c"), shapes)
+    ours = (LazyCubeStore if lazy else CubeStore)(d, normalization="self")
+    theirs = (JaxLazy if lazy else JaxStore)(d, normalization="self")
+    got = auto_fused_window(ours, batch, torch.device("cpu"), memory_stats=lambda dev: stats)
+    assert got == jax_auto(theirs, batch, device=_FakeJaxDevice(stats)) == want
+    # The CPU has no memory stats: the same as the no-stats case.
+    if stats is None:
+        assert auto_fused_window(ours, batch, torch.device("cpu")) == got
+
+
+def _window_cfg(**kw):
+    return load_config(None, {**KW, "epoch": 2, "fused_pipeline": "on", **kw})
+
+
+def test_windowed_run_equals_fused_steps_on_each_window(cube_dir, tmp_path, capsys):
+    """Lazy store, window 2 of 4: epoch e trains on cubes {2e, 2e+1} with
+    the resident pipeline's draw table, cube index mod 2."""
+    cfg = _window_cfg(fused_window=2)
+    store = LazyCubeStore(cube_dir, normalization="self", cache_size=2)
+    trainer = _fresh(cfg)
+    trainer.fit(store, ckpt_dir=str(tmp_path / "w"))
+    out = capsys.readouterr().out
+    assert "Patch sampler: fused on-device pipeline, windowed (window=2/4 cubes" in out
+    assert trainer.pipeline == "fused"
+    assert store.load_count == 4  # each cube read once: {0, 1}, then {2, 3}
+
+    ref = _fresh(cfg)
+    stack = stack_cubes(_store(cube_dir), "cpu")
+    want = {k: [] for k in LOSS_KEYS}
+    for epoch, window in enumerate(([0, 1], [2, 3])):
+        for group in ref.optimizer.param_groups:
+            group["lr"] = ref._lr_for_epoch(epoch)
+        draws = torch.from_numpy(fused_draws(41, epoch, 2, 2, (24, 24), 16))
+        terms = [fused_train_step(ref.model, ref.optimizer, stack[window], draws[b], b * 2, 16,
+                                  ref.coeffs) for b in range(2)]
+        for k in LOSS_KEYS:
+            want[k].append(float(terms[0][k] + terms[1][k]) / 2)
+    for k in LOSS_KEYS:
+        assert trainer.all_epoch_losses[k] == want[k], k
+    sd, ref_sd = trainer.model.state_dict(), ref.model.state_dict()
+    for name in ref_sd:
+        assert torch.equal(sd[name], ref_sd[name]), name
+
+
+def test_windowed_resume_and_multistep(cube_dir, tmp_path):
+    """Window 3 of 4 (the windows wrap): 2 epochs then 1 resumed equal 3
+    straight epochs, and 2 steps a dispatch equal 1, bit for bit."""
+    cfg = _window_cfg(fused_window=3, epoch=3)
+    straight = _fresh(cfg)
+    straight.fit(_store(cube_dir), ckpt_dir=str(tmp_path / "straight"))
+    ckpt_dir = str(tmp_path / "resumed")
+    first = _fresh(dataclasses.replace(cfg, epoch=2))
+    first.fit(_store(cube_dir), ckpt_dir=ckpt_dir)
+    resumed = _fresh(dataclasses.replace(cfg, resume=True))
+    resumed.fit(_store(cube_dir), ckpt_dir=ckpt_dir)
+    multi = _fresh(dataclasses.replace(cfg, steps_per_dispatch=2))
+    multi.fit(_store(cube_dir), ckpt_dir=str(tmp_path / "multi"))
+    for k in LOSS_KEYS:
+        assert first.all_epoch_losses[k] + resumed.all_epoch_losses[k] == straight.all_epoch_losses[k]
+        np.testing.assert_allclose(multi.all_epoch_losses[k], straight.all_epoch_losses[k],
+                                   rtol=1e-6, err_msg=k)
+    want = straight.model.state_dict()
+    for other in (resumed, multi):
+        sd = other.model.state_dict()
+        for name in want:
+            assert torch.equal(sd[name], want[name]), name
+
+
+def test_window_covering_a_lazy_store_equals_the_resident_run(cube_dir, tmp_path, capsys):
+    resident = _fresh(_window_cfg())
+    resident.fit(_store(cube_dir), ckpt_dir=str(tmp_path / "r"))
+    lazy = _fresh(_window_cfg(fused_window=4))
+    lazy.fit(LazyCubeStore(cube_dir, normalization="self"), ckpt_dir=str(tmp_path / "l"))
+    assert "windowed" not in capsys.readouterr().out
+    for k in LOSS_KEYS:
+        assert lazy.all_epoch_losses[k] == resident.all_epoch_losses[k], k
+    # On a lazy store the resident stack is never built: fused_pipeline='on'
+    # without a window raises JAX's message.
+    with pytest.raises(ValueError, match="or fused_window for lazy stores"):
+        _fresh(_window_cfg()).fit(LazyCubeStore(cube_dir, normalization="self"),
+                                  ckpt_dir=str(tmp_path / "x"))

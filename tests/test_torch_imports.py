@@ -36,7 +36,10 @@ def _imported_roots(path):
 def test_sources_exist():
     names = {os.path.relpath(p, ROOT) for p in _port_sources()}
     assert {"chip_smoke.py", "sshslie_torch/runner.py", "sshslie_torch/observability.py",
-            "sshslie_torch/serve.py", "sshslie_torch/ops/quant.py"} <= names
+            "sshslie_torch/serve.py", "sshslie_torch/ops/quant.py", "sshslie_torch/utils/io_envi.py",
+            "sshslie_torch/viz.py", "sshslie_torch/inspect_spectra.py", "sshslie_torch/align.py",
+            "sshslie_torch/doctor.py", "sshslie_torch/experiments.py",
+            "sshslie_torch/serve_client.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -54,7 +57,9 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
             "sshslie_torch.interop, sshslie_torch.models.enhance, sshslie_torch.ops.conv9, "
             "sshslie_torch.ops.attention, sshslie_torch.ops.losses, sshslie_torch.train, "
             "sshslie_torch.observability, sshslie_torch.metrics, sshslie_torch.checkpoints, "
-            "sshslie_torch.serve, sshslie_torch.ops.quant\n"
+            "sshslie_torch.serve, sshslie_torch.ops.quant, sshslie_torch.utils.io_envi, "
+            "sshslie_torch.viz, sshslie_torch.inspect_spectra, sshslie_torch.align, "
+            "sshslie_torch.doctor, sshslie_torch.experiments, sshslie_torch.serve_client\n"
             f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "built = list(sshslie_torch.ops._build._libs)\n"
             "print(bad, built); sys.exit(1 if bad or built else 0)")
@@ -82,13 +87,11 @@ def test_entry_point_raises_without_card_unless_cpu_is_asked(tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("phase,unported", [
-    ("train", {"fused_window": 2}),
-    ("train_and_test", {"lazy_loading": True}),
     ("serve", {"mesh_shape": "2"}),
-], ids=["train", "train_and_test", "serve"])
+], ids=["serve"])
 def test_unported_phases_raise(tmp_path, monkeypatch, phase, unported):
-    """Every phase is ported, and raises for what of it is not (the rotating
-    cube window, the disk-backed store, serving on a mesh), before any work."""
+    """Every phase is ported, and raises for what of it is not (serving on a
+    mesh), before any work."""
     from sshslie_torch import runner
     from sshslie_torch.config import load_config
 
@@ -96,6 +99,45 @@ def test_unported_phases_raise(tmp_path, monkeypatch, phase, unported):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         runner.main(load_config(None, {"phase": phase, "device": "cpu", **unported}))
     assert not os.path.exists(tmp_path / "logs")
+
+
+@pytest.mark.parametrize("phase,keys", [
+    ("train", {"fused_window": 2}),
+    ("train_and_test", {"lazy_loading": True, "data_pattern": "*.hdr"}),
+], ids=["train", "train_and_test"])
+def test_formerly_unported_phases_run(tmp_path, monkeypatch, phase, keys):
+    """The rotating cube window and the disk-backed store (here over ENVI
+    pairs) run their phase through the entry point on the CPU."""
+    import numpy as np
+    import scipy.io as sio
+
+    from sshslie_torch import runner
+    from sshslie_torch.config import load_config
+    from sshslie_torch.utils.io_envi import save_envi
+
+    monkeypatch.chdir(tmp_path)
+    rng = np.random.default_rng(3)
+    for sub, names in (("low/train", ("c0", "c1", "c2")), ("low/test", ("t0",)),
+                       ("high/test", ("t0",))):
+        os.makedirs(f"data/{sub}")
+        for name in names:
+            cube = (rng.random((24, 24, 4)) * 3000 + 200).astype(np.float32)
+            sio.savemat(f"data/{sub}/{name}.mat", {"data": cube})
+            if sub.startswith("low"):
+                save_envi(f"data/{sub}/{name}", cube)
+    cfg = load_config(None, {"phase": phase, "device": "cpu", "channels": 4, "batch_size": 2,
+                             "patch_size": 16,
+                             "epoch": 1, "eval_every_epoch": 1, "global_min": 200.0,
+                             "global_max": 3200.0, "train_data": "./data/low/train",
+                             "eval_data": "./data/low/test", "test_data": "./data/low/test",
+                             "label_dir": "./data/high/test", "attention_impl": "dense",
+                             "use_mlflow": False, **keys})
+    result = runner.main(cfg)
+    losses = result["trainer"].all_epoch_losses["total_loss"]
+    assert len(losses) == 1 and np.isfinite(losses[0])
+    if phase == "train_and_test":
+        assert np.isfinite(result["scores"]).all()
+        assert os.path.exists(os.path.join(cfg.test_result_dir, "t0.mat"))
 
 
 def test_chip_smoke_fails_without_card(tmp_path):

@@ -243,10 +243,7 @@ def test_runner_train_and_test_on_cpu(tmp_path, monkeypatch, rng):
         np.testing.assert_array_equal(got[k].numpy(), v.numpy())
 
 
-@pytest.mark.parametrize("key,value", [
-    ("fused_window", 2), ("fused_window", "auto"), ("mesh_shape", "4"), ("lazy_loading", True),
-    ("fused_window", 3),
-])
+@pytest.mark.parametrize("key,value", [("mesh_shape", "4")])
 def test_values_the_port_cannot_honour_raise(tmp_path, monkeypatch, key, value):
     monkeypatch.chdir(tmp_path)
     cfg = load_config(None, {"phase": "train", "device": "cpu", "channels": 6, key: value})
@@ -254,6 +251,28 @@ def test_values_the_port_cannot_honour_raise(tmp_path, monkeypatch, key, value):
         runner.main(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item"):
         Trainer(cfg, 6)
+
+
+@pytest.mark.parametrize("key,value,pipeline,line", [
+    ("fused_window", 2, "fused", "fused on-device pipeline, windowed (window=2/4"),
+    ("fused_window", "auto", "fused", "fused_window=auto: full training stack fits resident"),
+    ("lazy_loading", True, "host", "Patch sampler: PatchSampler (sampler='auto'"),
+    ("fused_window", 3, "fused", "fused on-device pipeline, windowed (window=3/4"),
+])
+def test_disk_and_window_values_build_and_train(golden_dir, tmp_path, capsys, key, value,
+                                                pipeline, line):
+    """The values that raised until the disk-backed data path was ported
+    build a Trainer and train a step on the CPU (batch 4 of 4 cubes: one
+    step an epoch; a lazy store without a window takes the host sampler)."""
+    from sshslie_torch.data.datasets import store_from_config
+
+    cfg = load_config(None, dict(GOLDEN_KW, device="cpu", batch_size=4, epoch=1, sampler="auto",
+                                 fused_pipeline="auto", normalization="self", **{key: value}))
+    trainer = Trainer(cfg, 6)
+    trainer.fit(store_from_config(cfg, golden_dir), ckpt_dir=str(tmp_path))
+    assert line in capsys.readouterr().out
+    assert trainer.pipeline == pipeline
+    assert all(len(v) == 1 and np.isfinite(v).all() for v in trainer.all_epoch_losses.values())
 
 
 @pytest.mark.parametrize("key,value", [
