@@ -186,9 +186,9 @@ def stack_cubes(store: CubeStore, device) -> Optional[torch.Tensor]:
 def device_memory_stats(device: torch.device) -> Optional[Dict[str, int]]:
     """The card's memory as JAX's ``Device.memory_stats()`` keys, or None on
     the CPU, which has none. ``bytes_limit`` is the card's total and
-    ``bytes_in_use`` the total less what torch could still take: the
-    driver's free bytes (``torch.cuda.mem_get_info``) plus what the caching
-    allocator holds without handing it out (reserved less allocated)."""
+    ``bytes_in_use`` the total less what torch could still take: the free
+    bytes ``torch.cuda.mem_get_info`` reports plus what the caching allocator
+    holds without handing it out (reserved less allocated)."""
     if device.type != "cuda":
         return None
     free, total = torch.cuda.mem_get_info(device)
