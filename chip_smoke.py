@@ -24,7 +24,8 @@ bfloat16``.
    128^2 patches, start_lr 1e-3, the six loss weights and both alphas,
    ``fused_pipeline: auto``, which takes the fused pipeline on these
    same-shape cubes), ``epoch: 2`` and ``eval_every_epoch: 1``: 4 steps, 2
-   evals, then the test phase from the checkpoint the run wrote. conv9 at
+   evals, then the test phase from the checkpoint the run wrote; with
+   cuDNN's deterministic algorithms, so that path 9 (a) repeats it bit for bit. conv9 at
    least 3 a step (2 forwards, 1 input gradient) plus one a cube evaluated
    or tested, conv9_wgrad exactly 2 a step, flash at least once, all
    float32. Every epoch's 7 average terms finite; model_epoch_1/2/latest.pth
@@ -124,6 +125,25 @@ bfloat16``.
    one request through ``sshslie_torch.serve_client`` (its ``main``), S
    equal to the service's direct ``enhance`` within 1e-5 of the span,
    launches counted as the other requests'.
+7c. Main path 9, data parallelism on one card (``parallel/``), three
+   processes at once, each reporting its launches by shape: (a) path 2's
+   run through the CLI under ``torchrun --standalone --nproc_per_node 1``
+   with ``--mesh_shape 1``, an NCCL group of one (``chip_smoke.py
+   --cli-worker``: ``runner.main(parse_args(argv))`` with cuDNN's
+   deterministic algorithms, as path 2 runs): epoch terms, launches by shape
+   and saved S equal path 2's bit for bit (a one-rank ``all_reduce`` is the
+   identity); (b) two gloo ranks sharing the card on CUDA tensors
+   (``--rank-worker``, ``initialize_distributed(backend="gloo")``, ``device:
+   cuda:0``): two fused data-parallel steps at global batch 2, b = 1 a rank
+   (conv9 (1, 128, 128, 64) forward 2 and dgrad 1, conv9_wgrad 2 a step on
+   each rank, exact), the ranks' terms equal, and step 1's terms and
+   gradients within PERF.md's float32 step gates of a one-process b2 step;
+   (c) the band-sharded test phase (``mesh_shape: "2"``, ``eval_sharded``,
+   ``eval_shard_mode: band``) on the two 512^2 cubes through ``runner.main``
+   on both ranks: conv9 (1, 512, 512, 64) and flash (1, 4, 4096, 16) once a
+   cube on each rank, exact; rank 0 alone scores and saves, its S within
+   1e-5 of the span of path 1's. Two ranks of NCCL need two cards and are
+   not run.
 8. Kernels against their plain versions on the card, each dtype with its
    stated tolerance (float32 conv9 and flash also at the micro-batched
    serving shapes (4, 512, 512, 64) and (4, 4, 4096, 16); the bfloat16 conv9, its dgrad and conv9_wgrad also at
@@ -165,7 +185,7 @@ bfloat16``.
 Prints one JSON line of kernels, then the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. A row's "launches" are the launches
 the wrappers counted at its (pass, dtype or "tf32", shape) over the main
-paths' reads (4, 5, 5b, 6, 6b, 6c, 7, 7b); a row with none fails the run. Any failure exits non-zero before
+paths' reads (4, 5, 5b, 6, 6b, 6c, 7, 7b, 7c, every process of 7c); a row with none fails the run. Any failure exits non-zero before
 the last line. Needs one CUDA card, nvcc and the repository's files.
 """
 
@@ -334,13 +354,30 @@ def zero_counts(conv9, attention) -> None:
 MAIN_SHAPES: dict = {}
 
 
-def tally_shapes(conv9, attention) -> None:
-    """Add the launches counted since the last zero_counts to MAIN_SHAPES."""
+def shape_counts(conv9, attention) -> dict:
+    """The launches counted since the last zero_counts by (kernel, pass,
+    dtype or "tf32", shape)."""
+    out = {}
     for name, wrapper in (("conv9", conv9.conv9_fwd), ("conv9_wgrad", conv9.conv9_wgrad),
                           ("flash_attention", attention.flash_attention)):
         for (role, dt, shape), n in wrapper.launches_by_shape.items():
-            key = (name, role, str(dt).replace("torch.", ""), shape)
-            MAIN_SHAPES[key] = MAIN_SHAPES.get(key, 0) + n
+            out[(name, role, str(dt).replace("torch.", ""), tuple(shape))] = n
+    return out
+
+
+def tally_shapes(conv9, attention, counts: dict = None) -> None:
+    """Add the launches counted since the last zero_counts (or ``counts``,
+    another process's shape_counts) to MAIN_SHAPES."""
+    for key, n in (shape_counts(conv9, attention) if counts is None else counts).items():
+        MAIN_SHAPES[key] = MAIN_SHAPES.get(key, 0) + n
+
+
+def counts_to_json(counts: dict) -> list:
+    return [[*key[:3], list(key[3]), n] for key, n in counts.items()]
+
+
+def counts_from_json(rows: list) -> dict:
+    return {(name, role, label, tuple(shape)): n for name, role, label, shape, n in rows}
 
 
 def check_launches(what: str, counts: dict, dtype: str, want: dict) -> None:
@@ -1643,6 +1680,247 @@ def run_disk(cfg, test_kw: dict, train_kw: dict, card: str, doctor_flags: list) 
     return total
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def cli_worker(out: str, argv: list) -> int:
+    """Path 9 (a), under ``torchrun``: the CLI's ``runner.main(parse_args(argv))``
+    with cuDNN's deterministic algorithms (as path 2 ran), then its epoch
+    terms, launches by shape and output directories written to ``out``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from sshslie_torch import runner
+    from sshslie_torch.config import parse_args
+    from sshslie_torch.ops import attention, conv9
+
+    torch.backends.cudnn.deterministic = True
+    zero_counts(conv9, attention)
+    result = runner.main(parse_args(argv))
+    torch.cuda.synchronize()
+    trainer = result["trainer"]
+    with open(out, "w") as fh:
+        json.dump({"losses": trainer.all_epoch_losses, "mesh": str(trainer.mesh),
+                   "backend": trainer.mesh.backend, "device": str(trainer.device),
+                   "test_result_dir": trainer.cfg.test_result_dir,
+                   "test_model_dir": trainer.cfg.test_model_dir,
+                   "counts": counts_to_json(shape_counts(conv9, attention))}, fh)
+    return 0
+
+
+def rank_worker(rank: int, port: int, out: str) -> int:
+    """Path 9 (b) and (c), one of two gloo ranks sharing the card: two fused
+    data-parallel steps at global batch 2 (rank 0 then holds the first
+    against a one-process b2 step), then the band-sharded test phase through
+    ``runner.main``; launches by shape around each, written to ``out``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    from sshslie_torch import runner
+    from sshslie_torch.config import load_config
+    from sshslie_torch.data.datasets import CubeStore
+    from sshslie_torch.device import set_matmul_precision
+    from sshslie_torch.models.enhance import LowLightEnhanceNet
+    from sshslie_torch.ops import attention, conv9
+    from sshslie_torch.parallel import distributed
+    from sshslie_torch.parallel.mesh import make_mesh
+    from sshslie_torch.train import (LOSS_KEYS, fused_draws, fused_train_step, loss_coeffs,
+                                     make_optimizer, stack_cubes)
+
+    with open(os.path.join(os.path.dirname(out), "path9.json")) as fh:
+        kw = json.load(fh)
+    tcfg = load_config(None, kw["train"])
+    set_matmul_precision(tcfg)
+    distributed.initialize_distributed(backend="gloo", init_method=f"tcp://127.0.0.1:{port}",
+                                       world_size=2, rank=rank)
+    dev = torch.device("cuda:0")
+    mesh = make_mesh("2")
+    coeffs = loss_coeffs(tcfg)
+    store = CubeStore(tcfg.train_data, normalization=tcfg.normalization,
+                      global_min=tcfg.global_min, global_max=tcfg.global_max)
+    cubes = stack_cubes(store, dev)
+    b, p = tcfg.batch_size, tcfg.patch_size
+    draws = torch.from_numpy(fused_draws(tcfg.seed_value, 0, 2, b, (SIZE, SIZE), p)).to(dev)
+
+    def fresh():
+        model = LowLightEnhanceNet(BANDS, generator=torch.Generator().manual_seed(SEED))
+        model = model.to(dev).train()
+        return model, make_optimizer(model, tcfg.start_lr)
+
+    report = {"rank": rank, "mesh": str(mesh)}
+    model, opt = fresh()
+    zero_counts(conv9, attention)
+    t = time.perf_counter()
+    terms = [fused_train_step(model, opt, cubes, draws[0], 0, p, coeffs, mesh=mesh)]
+    grads = {n: q.grad.clone() for n, q in model.named_parameters()}
+    terms.append(fused_train_step(model, opt, cubes, draws[1], b, p, coeffs, mesh=mesh))
+    torch.cuda.synchronize()
+    report["steps_s"] = time.perf_counter() - t
+    report["steps_counts"] = counts_to_json(shape_counts(conv9, attention))
+    report["terms"] = [[float(tt[k]) for k in LOSS_KEYS] for tt in terms]
+    if rank == 0:
+        # The one-process b2 step on the same draws and weights (not counted).
+        ref, ref_opt = fresh()
+        ref_terms = fused_train_step(ref, ref_opt, cubes, draws[0], 0, p, coeffs)
+        got = torch.tensor(report["terms"][0], dtype=torch.float64)
+        want = torch.tensor([float(ref_terms[k]) for k in LOSS_KEYS], dtype=torch.float64)
+        report["terms_rel"] = float(((got - want).abs() / want.abs()).max())
+        # Each gradient's scale, floored at 1e-8 of the largest (grad_errors'
+        # floor: k_linear's bias has an exact gradient of zero).
+        gmax = max(float(q.grad.abs().max()) for q in ref.parameters())
+        report["grad_rel"] = max(
+            float((grads[n] - q.grad).abs().max()) / max(float(q.grad.abs().max()), 1e-8 * gmax)
+            for n, q in ref.named_parameters())
+        # PERF.md section 2's float32 step gates: terms 2e-5 relative,
+        # gradients 2e-2 of each one's scale.
+        if not (report["terms_rel"] <= 2e-5 and report["grad_rel"] <= 2e-2):
+            raise AssertionError(f"path 9 (b): dp step against the one-process b2 step: terms "
+                                 f"{report['terms_rel']:.3e}, gradients {report['grad_rel']:.3e}")
+    del cubes, model, opt
+    zero_counts(conv9, attention)
+    t = time.perf_counter()
+    cfg = load_config(None, kw["test"])
+    result = runner.main(cfg)
+    torch.cuda.synchronize()
+    report["test_s"] = time.perf_counter() - t
+    report["test_result_dir"] = cfg.test_result_dir
+    report["test_counts"] = counts_to_json(shape_counts(conv9, attention))
+    report["scores"] = result.get("scores")
+    report["seconds"] = result["seconds"]
+    report["backend"] = mesh.backend
+    distributed.leave()
+    with open(out, "w") as fh:
+        json.dump(report, fh)
+    return 0
+
+
+def run_multi(work: str, test_kw: dict, train_kw: dict, path1_cfg, path2: dict) -> dict:
+    """Main path 9, data parallel on one card: (a) path 2's run through the
+    CLI under ``torchrun`` with ``--mesh_shape 1`` (an NCCL group of one),
+    equal to path 2 bit for bit; (b) and (c) two gloo ranks sharing the
+    card (``rank_worker``). The three processes run at once. Returns the
+    launches by shape of every process, summed."""
+    import numpy as np
+
+    from sshslie_torch.utils.io_hsi import load_hsi
+
+    t0 = time.perf_counter()
+    out = os.path.join(work, "path9")
+    os.makedirs(out)
+    test = dict(test_kw, model_name=path1_cfg.model_name, precision="float32", mesh_shape="2",
+                eval_sharded=True, eval_shard_mode="band", device="cuda:0")
+    train = dict(train_kw, train_data="./data/low/train")
+    with open(os.path.join(out, "path9.json"), "w") as fh:
+        json.dump({"test": test, "train": train}, fh)
+    argv = ["--config", "", "--mesh_shape", "1", "--model_name", "chip_smoke_nccl",
+            "--train_data", "./data/low/train"]
+    for key, val in train_kw.items():
+        argv += [f"--{key}", str(val)]
+    script = os.path.join(ROOT, "chip_smoke.py")
+    procs = {"(a)": subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         script, "--cli-worker", os.path.join(out, "cli.json"), *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)}
+    port = free_port()
+    for r in range(2):
+        procs[f"rank {r}"] = subprocess.Popen(
+            [sys.executable, script, "--rank-worker", str(r), str(port),
+             os.path.join(out, f"rank{r}.json")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    logs = {}
+    try:
+        for what, proc in procs.items():
+            logs[what] = proc.communicate(timeout=300)[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    for what, proc in procs.items():
+        if proc.returncode != 0:
+            raise AssertionError(f"path 9 {what} exited {proc.returncode}:\n{logs[what][-6000:]}")
+    with open(os.path.join(out, "cli.json")) as fh:
+        a = json.load(fh)
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as fh:
+            ranks.append(json.load(fh))
+
+    # (a): an NCCL group of one through the CLI = path 2, bit for bit.
+    log(f"path 9 (a): {a['mesh']} on {a['device']}")
+    if a["backend"] != "nccl":
+        raise AssertionError(f"path 9 (a): backend {a['backend']}")
+    if a["losses"] != path2["losses"]:
+        raise AssertionError(f"path 9 (a): epoch terms {a['losses']} != path 2's {path2['losses']}")
+    a_counts = counts_from_json(a["counts"])
+    if a_counts != path2["counts"]:
+        raise AssertionError(f"path 9 (a): launches {a_counts} != path 2's {path2['counts']}")
+    for i in range(2):
+        got = load_hsi(os.path.join(a["test_result_dir"], f"cube{i}.mat"), mat_key="data")
+        want = load_hsi(os.path.join(path2["test_result_dir"], f"cube{i}.mat"), mat_key="data")
+        if not np.array_equal(got, want):
+            raise AssertionError(f"path 9 (a): saved S of cube{i} differs from path 2's by "
+                                 f"{float(np.abs(got - want).max()):.3e}")
+    log("path 9 (a): epoch terms, launches by shape and saved S = path 2's, bit for bit")
+
+    # (b): two fused dp steps, b = 1 a rank.
+    f32 = (1, train_kw["patch_size"], train_kw["patch_size"], BANDS)
+    want_b = {("conv9", "forward", "float32", f32): 4, ("conv9", "dgrad", "float32", f32): 2,
+              ("conv9_wgrad", "wgrad", "float32", f32): 4}
+    for rep in ranks:
+        got = counts_from_json(rep["steps_counts"])
+        if got != want_b:
+            raise AssertionError(f"path 9 (b) rank {rep['rank']}: launches {got}, expected {want_b}")
+    if ranks[0]["terms"] != ranks[1]["terms"]:
+        raise AssertionError(f"path 9 (b): the ranks' terms differ: {ranks[0]['terms']} "
+                             f"{ranks[1]['terms']}")
+    log(f"path 9 (b): {ranks[0]['mesh']}; 2 fused dp steps in {ranks[0]['steps_s']:.2f} s, terms "
+        f"equal on both ranks; step 1 against the one-process b2 step: terms "
+        f"{ranks[0]['terms_rel']:.3e} relative (gate 2e-5), gradients {ranks[0]['grad_rel']:.3e} of "
+        f"their scale (gate 2e-2); launches a rank {want_b}")
+
+    # (c): the band-sharded test phase, rank 0 the writer.
+    want_c = {("conv9", "forward", "float32", (1, SIZE, SIZE, BANDS)): 2,
+              ("flash_attention", "forward", "float32", (1, 4, (SIZE // 8) ** 2, 16)): 2}
+    for rep in ranks:
+        got = counts_from_json(rep["test_counts"])
+        if got != want_c:
+            raise AssertionError(f"path 9 (c) rank {rep['rank']}: launches {got}, expected {want_c}")
+    scores = ranks[0]["scores"]
+    if scores is None or not all(math.isfinite(v) for v in scores) or ranks[1]["scores"] is not None:
+        raise AssertionError(f"path 9 (c): scores {scores}, rank 1's {ranks[1]['scores']}")
+    errs = []
+    for i in range(2):
+        got = load_hsi(os.path.join(ranks[0]["test_result_dir"], f"cube{i}.mat"), mat_key="data")
+        want = load_hsi(os.path.join(path1_cfg.test_result_dir, f"cube{i}.mat"), mat_key="data")
+        span = float(want.max() - want.min())
+        errs.append(float(np.abs(got.astype(np.float64) - want).max()))
+        if not errs[-1] <= 1e-5 * span:
+            raise AssertionError(f"path 9 (c): S of cube{i} {errs[-1]:.3e} from path 1's, over "
+                                 f"1e-5 of its span {span:.1f}")
+    log(f"path 9 (c): band-sharded test phase in {ranks[0]['test_s']:.2f} s (per-cube seconds "
+        f"{ranks[0]['seconds']}); S against path 1's: max|d| {errs} (gate 1e-5 of the span); "
+        f"PSNR {scores[0]!r}; launches a rank {want_c}")
+    total = dict(a_counts)
+    for rep in ranks:
+        for key, n in {**counts_from_json(rep["steps_counts"]),
+                       **counts_from_json(rep["test_counts"])}.items():
+            total[key] = total.get(key, 0) + n
+    log(f"main path 9: {time.perf_counter() - t0:.2f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -1737,7 +2015,7 @@ def main() -> int:
                 "conv9": (3 * steps + cubes_run, 3 * steps + cubes_run),
                 "conv9_wgrad": (2 * steps, 2 * steps), "flash_attention": (1, cubes_run)})
             check_training(what, trainer, tcfg, tresult, math, np, torch, load_hsi, LOSS_KEYS)
-            return counts
+            return counts, trainer
 
         # ---- main path 1: the float32 test phase, launch counts read around it ----
         test_counts = run_test_phase("float32 test", cfg, "float32")
@@ -1747,7 +2025,14 @@ def main() -> int:
                     "eval_data": "./data/low/test", "eval_every_epoch": 1, "epoch": 2}
         tcfg = load_config(None, {**train_kw, "train_data": "./data/low/train",
                                   "model_name": "chip_smoke_train"})
-        train_counts = run_training("float32 train_and_test", tcfg, "float32")
+        # cuDNN's deterministic algorithms, so that path 9 (a) can repeat it bit for bit.
+        torch.backends.cudnn.deterministic = True
+        try:
+            train_counts, path2_trainer = run_training("float32 train_and_test", tcfg, "float32")
+        finally:
+            torch.backends.cudnn.deterministic = False
+        path2 = {"losses": path2_trainer.all_epoch_losses, "test_result_dir": tcfg.test_result_dir,
+                 "counts": shape_counts(conv9, attention)}
 
         # ---- main path 5b: the rest of the stock run (tracking, async eval, best, trace, SIGTERM) ----
         engine_counts = run_engine(train_kw, common)
@@ -1768,7 +2053,7 @@ def main() -> int:
                                 "model_name": "chip_smoke_train_bf16", "batch_size": 8,
                                 "precision": "bfloat16", "fused_pipeline": "on",
                                 "steps_per_dispatch": 2})
-        btrain_counts = run_training("bfloat16 train_and_test", bt, "bfloat16")
+        btrain_counts, _ = run_training("bfloat16 train_and_test", bt, "bfloat16")
 
         # ---- the CLI's parser, as a user runs it: the other training variants ----
         def cli_run(what, argv, dtype, want, pipeline=None, sampler=None):
@@ -1822,6 +2107,10 @@ def main() -> int:
         # ---- main path 8: the disk-backed data path (ENVI, lazy store, windows, prefetch) ----
         disk_counts = run_disk(cfg, test_kw, train_kw, card, [])
 
+        # ---- main path 9: data parallel on one card (NCCL of one via torchrun; two gloo ranks) ----
+        multi_counts = run_multi(work, test_kw, train_kw, cfg, path2)
+        tally_shapes(conv9, attention, multi_counts)
+
         # ---- kernels against their plain versions on the card ----
         cube = load_hsi(os.path.join(cfg.test_data, "cube0.mat"), mat_key=cfg.mat_key,
                         normalization=cfg.normalization, max_val=GLOBAL_MAX, min_val=GLOBAL_MIN)
@@ -1844,8 +2133,15 @@ def main() -> int:
                                   ("dgrad_128", "conv9 dgrad (2, 128, 128, 64) k9", gt, wd)):
             err = check_rel(what, conv9.conv9_fwd(xx, ww), conv9.conv9_plain(xx, ww), 2e-5)
             errs[key] = max(err, errs.get(key, 0.0))
+        # Path 9 (b)'s shape: one sample a rank of the b2 batch.
+        x1, g1 = xt[:1].contiguous(), gt[:1].contiguous()
+        errs["conv9_128_b1"] = check_rel("conv9 (1, 128, 128, 64) k9", conv9.conv9_fwd(x1, w9),
+                                         conv9.conv9_plain(x1, w9), 2e-5)
+        errs["dgrad_128_b1"] = check_rel("conv9 dgrad (1, 128, 128, 64) k9", conv9.conv9_fwd(g1, wd),
+                                         conv9.conv9_plain(g1, wd), 2e-5)
         # Sums over up to 262,144 pixels, in slices, in another order: 5e-5 of the scale.
         for key, what, xx, dy in (
+                ("wgrad_128_b1", "(1, 128, 128, 64)", x1, g1),
                 ("wgrad_128", "(2, 128, 128, 64)", xt, gt),
                 ("wgrad_512", "(1, 512, 512, 64)", x, torch.randn(x.shape, generator=g).to(dev)),
                 ("odd", "(1, 37, 53, 64)", x_odd, torch.randn(x_odd.shape, generator=g).to(dev))):
@@ -2435,6 +2731,7 @@ def main() -> int:
         xc, wc = x.permute(0, 3, 1, 2), w9.permute(3, 2, 0, 1).contiguous()
         x4c, x2c, x1024c = x4.permute(0, 3, 1, 2), x2.permute(0, 3, 1, 2), x1024.permute(0, 3, 1, 2)
         xtc, gtc = xt.permute(0, 3, 1, 2), gt.permute(0, 3, 1, 2)
+        x1c, g1c = x1.permute(0, 3, 1, 2), g1.permute(0, 3, 1, 2)
         wdc = wd.permute(3, 2, 0, 1).contiguous()
         cl = torch.channels_last
         xcb, xcb1024 = xb.permute(0, 3, 1, 2), xb1024.permute(0, 3, 1, 2)
@@ -2464,6 +2761,21 @@ def main() -> int:
                  lambda: conv9.conv9_wgrad(xt, gt, 9), lambda: conv9.conv9_wgrad_plain(xt, gt, 9),
                  lambda: torch.nn.grad.conv2d_weight(xtc, wc.shape, gtc, padding=4), conv_bound(xt),
                  PEAK_F32_FLOPS),
+                # b = 1 a rank: data-parallel training over two ranks (path 9 (b)).
+                ("conv9 (1,128,128,64) forward, data parallel", conv9_src, conv9_rep, "conv9_128_b1",
+                 ("conv9", "forward", x1), lambda: conv9.conv9_fwd(x1, w9),
+                 lambda: conv9.conv9_plain(x1, w9), lambda: F.conv2d(x1c, wc, padding=4),
+                 conv_bound(x1), PEAK_F32_FLOPS),
+                ("conv9 (1,128,128,64) dgrad, data parallel", conv9_src, conv9_rep, "dgrad_128_b1",
+                 ("conv9", "dgrad", g1), lambda: conv9.conv9_fwd(g1, wd),
+                 lambda: conv9.conv9_plain(g1, wd),
+                 lambda: torch.nn.grad.conv2d_input(x1c.shape, wc, g1c, padding=4), conv_bound(g1),
+                 PEAK_F32_FLOPS),
+                ("conv9_wgrad (1,128,128,64), data parallel", wgrad_src, wgrad_rep, "wgrad_128_b1",
+                 ("conv9_wgrad", "wgrad", x1), lambda: conv9.conv9_wgrad(x1, g1, 9),
+                 lambda: conv9.conv9_wgrad_plain(x1, g1, 9),
+                 lambda: torch.nn.grad.conv2d_weight(x1c, wc.shape, g1c, padding=4),
+                 wgrad_bound(x1), PEAK_F32_FLOPS),
                 ("flash_attention (1,4,4096,16)", flash_src, flash_rep, "flash", ("flash_attention", "forward", q),
                  lambda: attention.flash_attention(q, k, v), lambda: attention.sdpa_chunked(q, k, v),
                  lambda: F.scaled_dot_product_attention(q, k, v), flash_bound(q), PEAK_F32_FLOPS),
@@ -2586,7 +2898,8 @@ def main() -> int:
     log(f"launches on the main paths: float32 test {test_counts}, float32 train_and_test "
         f"{train_counts}, float32 engine run {engine_counts}, bfloat16 test {btest_counts}, "
         f"bfloat16 train_and_test {btrain_counts}, serving {served['counts']}, TF32 "
-        f"{tf32_counts}, disk-backed data {disk_counts}; by (kernel, pass, dtype, shape) "
+        f"{tf32_counts}, disk-backed data {disk_counts}, path 9 (every rank) {multi_counts}; by "
+        f"(kernel, pass, dtype, shape) "
         f"{MAIN_SHAPES}")
     # Each row's launches are those the wrappers counted at its shape on the
     # main paths: every row's shape is one the main paths ran, and every shape
@@ -2605,4 +2918,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-worker"]:
+        sys.exit(cli_worker(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -40,11 +40,17 @@ thread and a side stream, from a snapshot of the weights), ``checkpoint_best``,
 ``profile_dir`` (a ``torch.profiler`` Chrome trace of the first trained
 epoch) and ``eval_metric_source``.
 
+``mesh_shape: "N"`` is data parallelism over a ``torch.distributed`` group
+of N processes, one per GPU (``parallel/``; ``torchrun --nproc_per_node N``),
+and ``eval_sharded`` with ``eval_shard_mode: band`` splits the eval and test
+forwards' bands across them (``evaluate.py::BandShardedInferencer``).
+``device`` also takes 'cuda:N', a card named explicitly.
+
 Every key loads. A value that asks for behaviour the port lacks raises
-``NotImplementedError`` naming its ROADMAP.md item (:func:`check_ported`);
-keys that only change speed (``prefetch_batches``, ``jit_cache_dir``) or only
-the JAX package's sharded eval are ignored, and training prints the
-speed-only ones.
+``NotImplementedError`` naming its ROADMAP.md item (:func:`check_ported`):
+the space axis (a 2-D ``mesh_shape``, ``space_axis``), the spatially sharded
+eval and serving on a mesh. Keys that only change speed (``jit_cache_dir``)
+are ignored, and training prints them.
 """
 
 from __future__ import annotations
@@ -52,6 +58,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import re
 from datetime import datetime
 from typing import Any, Optional
 
@@ -118,7 +125,7 @@ class Config:
     resume: bool = False
 
     # --- framework keys ---
-    device: str = ""                      # '' = the CUDA card; 'cpu' only when asked for
+    device: str = ""                      # '' = the CUDA card (of this rank); 'cuda:N'; 'cpu' only when asked for
     test_timestamp: str = ""              # timestamp of the checkpoint to test
     mat_key_prediction: str = "data"      # key used when reading predictions back for metrics
     precision: str = "float32"            # 'float32' | 'bfloat16': the layers' compute dtype
@@ -128,9 +135,9 @@ class Config:
     remat: bool = False                   # recompute each sub-network's activations in the backward
     use_attention: bool = False           # SEBlock variant (reference model.py:122,130-131)
     use_transformer: bool = True          # TransformerBlock variant (reference default)
-    mesh_shape: str = ""                  # JAX key; non-empty raises (not ported yet)
-    data_axis: str = "data"               # JAX key; ignored
-    space_axis: str = ""                  # JAX key; ignored
+    mesh_shape: str = ""                  # "N": data parallelism over N processes (torchrun)
+    data_axis: str = "data"               # the mesh's data axis name
+    space_axis: str = ""                  # dp x sp: non-empty raises (not ported yet)
     prefetch_batches: int = 2             # host pipeline: batches staged ahead on a worker thread
     data_pattern: str = "*.mat"           # dataset glob per split dir
     lazy_loading: bool = False            # true: the disk-backed LazyCubeStore (an LRU cache)
@@ -148,8 +155,8 @@ class Config:
     profile_dir: str = ""                 # non-empty: torch.profiler trace of the first epoch
     eval_pad_multiple: int = 1            # >1: edge-pad H,W to a multiple before the forward
     eval_batch: int = 1                   # >1: stack same-shape cubes into one forward
-    eval_sharded: bool = False            # JAX key; ignored
-    eval_shard_mode: str = "spatial"      # JAX key; ignored
+    eval_sharded: bool = False            # with a mesh: eval/test forwards sharded over the ranks
+    eval_shard_mode: str = "spatial"      # 'band' (ported) | 'spatial' (raises with a mesh)
     async_eval: bool = False              # true: evals on a worker thread and a side stream
     eval_metric_source: str = "memory"    # 'memory' | 'disk': score S in memory or the saved files
     checkpoint_async: bool = True         # write checkpoints on a background thread
@@ -243,6 +250,8 @@ def _validate_enums(cfg: "Config") -> None:
         setattr(cfg, key, aliases.get(val, val))
     for key, choices in _ENUM_FIELDS.items():
         val = getattr(cfg, key)
+        if key == "device" and isinstance(val, str) and re.fullmatch(r"cuda:\d+", val):
+            continue
         if val not in choices:
             shown = [c for c in choices if c not in (None, "")]
             raise ValueError(
@@ -278,9 +287,13 @@ def _validate_enums(cfg: "Config") -> None:
 
 
 # Values the port cannot honour yet: (applies to the test phase too, what,
-# ROADMAP.md queue-1 item).
+# ROADMAP.md queue-1 item). Serving on a mesh is checked apart (check_ported).
 _NOT_PORTED = (
-    (True, lambda c: bool(c.mesh_shape), "mesh_shape (multi-GPU)", "item 7"),
+    (True, lambda c: "x" in str(c.mesh_shape).lower(),
+     "a 2-D mesh_shape (data x space, dp x sp)", "item 7"),
+    (True, lambda c: bool(c.space_axis), "space_axis (dp x sp)", "item 7"),
+    (True, lambda c: bool(c.mesh_shape) and c.eval_sharded and c.eval_shard_mode == "spatial",
+     "eval_shard_mode: spatial (the height-sharded ShardedInferencer)", "item 7"),
 )
 # matmul_precision values that run float32 products in TF32 on the card: the
 # TF32 passes XLA takes for them on an NVIDIA GPU (float32 accumulation).
@@ -300,9 +313,13 @@ def matmul_tf32(matmul_precision: str) -> bool:
 SPEED_ONLY_KEYS = ("jit_cache_dir",)
 
 
-def check_ported(cfg: "Config", training: bool) -> None:
+def check_ported(cfg: "Config", training: bool, serving: bool = False) -> None:
     """Raise NotImplementedError for a value whose behaviour the port lacks, so
-    that no ignored key changes results."""
+    that no ignored key changes results. ``serving`` (or ``phase: serve``)
+    also refuses a mesh."""
+    if (serving or cfg.phase == "serve") and cfg.mesh_shape:
+        raise NotImplementedError("serving on a mesh (mesh_shape) is not ported yet "
+                                  "(ROADMAP.md queue 1, item 7)")
     for always, asks, what, item in _NOT_PORTED:
         if (always or training) and asks(cfg):
             raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, {item})")

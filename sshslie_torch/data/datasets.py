@@ -265,11 +265,17 @@ class Prefetcher:
     an abandoned consumer left blocked on a full queue; the worker ends with
     one ``_DONE`` sentinel, after which ``__next__`` raises the worker's
     error, if any, and StopIteration ever after.
+
+    Data parallel: ``process_slice`` (this rank's sample range,
+    ``parallel.distributed.process_batch_slice``) keeps only those samples
+    of each batch. Every rank draws the same stream of global batches, so
+    the ranks' slices together are the one-process batch.
     """
 
     _DONE = object()
 
-    def __init__(self, iterator, device=None, depth: int = 2):
+    def __init__(self, iterator, device=None, depth: int = 2,
+                 process_slice: Optional[slice] = None):
         self._queue: queue.Queue = queue.Queue(maxsize=max(int(depth), 1))
         self._device = torch.device("cpu") if device is None else torch.device(device)
         self._err: Optional[BaseException] = None
@@ -288,6 +294,8 @@ class Prefetcher:
             return False
 
         def stage(batch):
+            if process_slice is not None:
+                batch = batch[process_slice]
             host = torch.from_numpy(np.ascontiguousarray(batch))
             if not cuda:
                 return host, None

@@ -8,6 +8,7 @@ from typing import Optional, Union
 import torch
 
 from sshslie_torch.config import Config, matmul_tf32
+from sshslie_torch.parallel import distributed
 
 
 def resolve_device(device: Union[None, str, torch.device] = None) -> torch.device:
@@ -15,11 +16,16 @@ def resolve_device(device: Union[None, str, torch.device] = None) -> torch.devic
 
     '' / None / 'cuda' / 'gpu' mean the first CUDA card and raise when there is
     none; 'cpu' (or a CPU ``torch.device``) is the only way onto the CPU.
+    Under a process group (``parallel/distributed.py``) they mean the card of
+    this rank, ``cuda:LOCAL_RANK``, made the current card; a rank without a
+    card of its own raises. An explicit 'cuda:N' is taken as it is.
     """
     if isinstance(device, torch.device):
         dev = device
-    elif device in (None, "", "gpu"):
+    elif device in (None, "", "gpu", "cuda"):
         dev = torch.device("cuda")
+        if distributed.active():
+            dev = torch.device("cuda", distributed.local_rank())
     else:
         dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -29,6 +35,12 @@ def resolve_device(device: Union[None, str, torch.device] = None) -> torch.devic
         )
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is not None and distributed.active():
+        if dev.index >= torch.cuda.device_count():
+            raise RuntimeError(
+                f"rank {distributed.rank()} has no card of its own: {dev} asked for, "
+                f"{torch.cuda.device_count()} card(s) visible (one process per GPU)")
+        torch.cuda.set_device(dev)
     return dev
 
 

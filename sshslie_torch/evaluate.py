@@ -27,7 +27,14 @@
   across epochs (``trainer.eval_saver``), drained before disk metrics, at
   the end of ``fit`` and so before the test phase reads anything.
 
-The sharded inferencers are not ported yet (ROADMAP.md queue 1, item 7).
+* :class:`BandShardedInferencer` (``eval_sharded: true`` and
+  ``eval_shard_mode: band`` with a mesh; :func:`_make_inferencer`) splits the
+  cube's bands across the ranks of the process group. Under a mesh rank 0
+  alone saves and scores (JAX's single writer); every rank runs the
+  forward, which a sharded eval needs.
+
+The height-sharded ``ShardedInferencer`` is not ported yet (ROADMAP.md
+queue 1, item 7).
 """
 
 from __future__ import annotations
@@ -46,6 +53,8 @@ from sshslie_torch import checkpoints, interop
 from sshslie_torch import metrics as metrics_mod
 from sshslie_torch.config import Config
 from sshslie_torch.data.datasets import CubeStore
+from sshslie_torch.ops import at_least_float32
+from sshslie_torch.parallel import distributed
 from sshslie_torch.utils.io_hsi import load_hsi, save_hsi
 
 
@@ -101,6 +110,102 @@ class Inferencer:
         with torch.inference_mode():
             x = torch.as_tensor(cube, dtype=torch.float32).to(self.device)
             return pad_forward_crop(self._fn(weights), x, m, m)
+
+
+class BandShardedInferencer(Inferencer):
+    """Band-sharded whole-cube inference over the ranks of a mesh (JAX
+    ``BandShardedInferencer``).
+
+    Rank r of n owns bands ``[r*C/n, (r+1)*C/n)``: it uploads only those of
+    the input and computes only those of R (recon's output channels), of the
+    sigmoid split and of S. The fixed-width trunk (32 to 64 channels), I_low
+    and I_delta are computed on every rank (replicated). The collectives sit
+    at the three convs that mix all bands:
+
+    * the decomposition's ``conv0`` and ``shallow_conv`` read every band of
+      x: x's bands are gathered once (``all_gather``, C bands of H*W) and
+      both run on the whole input, so the shallow conv keeps its CUDA kernel
+      (the kernel takes 64 input channels only; JAX's ``pallas_call``, which
+      GSPMD cannot partition, runs on the whole input too);
+    * recon emits this rank's C/n bands of R plus the illumination channel
+      (its weight's and bias's rows), no collective;
+    * the illumination ``conv0`` on concat(R, I) is summed from partial
+      products: each rank convolves its R bands with its slice of the
+      weight's input channels, rank 0 adds I's channel and the bias once,
+      and one ``all_reduce`` sums the 64-channel output before the trunk.
+
+    R and S are gathered (``all_gather``) so that rank 0 holds them whole to
+    save and score (JAX replicates its outputs for its single writer); I_low
+    and I_delta are replicated already. H and W are edge-padded to a
+    multiple of 8, as JAX's. Without a process group (a 1-process mesh) it
+    is the whole forward.
+    """
+
+    def __init__(self, model: torch.nn.Module, mesh, band_axis: str = "data"):
+        n = mesh.shape[band_axis]
+        if model.input_channels % n != 0:
+            raise ValueError(
+                f"band sharding needs channels ({model.input_channels}) divisible "
+                f"by the '{band_axis}' mesh axis ({n}); the spatial ShardedInferencer "
+                "is not ported yet (ROADMAP.md queue 1, item 7)")
+        super().__init__(model, pad_multiple=8)
+        per = model.input_channels // n
+        self.bands = slice(mesh.rank * per, (mesh.rank + 1) * per)
+        self.rank = mesh.rank
+
+    def _forward(self, x: torch.Tensor):
+        """This rank's bands (B, H, W, C/n) → (R, I_low, I_delta, S), NHWC,
+        R and S with every band."""
+        m, bands = self.model, self.bands
+        dn, il = m.decomposition_net, m.illum_adjust_net
+        c_all = m.input_channels
+        own = list(range(bands.start, bands.stop))
+        x = distributed.all_gather_cat(x, dim=3).permute(0, 3, 1, 2)
+        recon_conv = dn.recon
+        recon = at_least_float32(recon_conv.conv_with(
+            dn.features(x), recon_conv.weight[own + [c_all]], recon_conv.bias[own + [c_all]]))
+        R = torch.sigmoid(recon[:, :len(own)])
+        L = torch.sigmoid(recon[:, len(own):])
+        conv0 = il.conv0[0]
+        w = conv0.weight
+        if self.rank == 0:
+            part = conv0.conv_with(torch.cat([R, L], dim=1),
+                                   torch.cat([w[:, own], w[:, c_all:]], dim=1), conv0.bias)
+        else:
+            part = conv0.conv_with(R, w[:, own], None)
+        # Summed in float32 at least, whatever the compute dtype.
+        I_delta = il.adjust(distributed.all_sum_(part.float()).to(part.dtype))
+        S = R * I_delta + R * L
+        R, L, I_delta, S = (t.permute(0, 2, 3, 1) for t in (R, L, I_delta, S))
+        return (distributed.all_gather_cat(R, dim=3), L, I_delta,
+                distributed.all_gather_cat(S, dim=3))
+
+    def batched(self, stack, weights: Optional[Dict[str, torch.Tensor]] = None):
+        """(N, H, W, C) stack of same-shape cubes in one band-sharded forward;
+        only this rank's bands are uploaded."""
+        if weights is not None:
+            raise ValueError("BandShardedInferencer runs the model's own weights")
+        with torch.inference_mode():
+            x = torch.as_tensor(stack, dtype=torch.float32)[..., self.bands]
+            return pad_forward_crop_batch(self._forward, x.contiguous().to(self.device), 8, 8)
+
+    def __call__(self, weights: Optional[Dict[str, torch.Tensor]], cube):
+        R, I, Id, S = self.batched(torch.as_tensor(cube)[None], weights)
+        return R[0], I[0], Id[0], S[0]
+
+
+def _make_inferencer(model: torch.nn.Module, cfg: Config, mesh=None) -> Inferencer:
+    """Inferencer selection for eval/test (JAX ``_make_inferencer``):
+    ``eval_sharded: true`` with a mesh and ``eval_shard_mode: band`` →
+    :class:`BandShardedInferencer`; else the one-device forward. Opt-in, as
+    in JAX: its pad to a multiple of 8 perturbs every output pixel of a cube
+    whose H or W it pads, through the global attention."""
+    if mesh is not None and cfg.eval_sharded:
+        if cfg.eval_shard_mode != "band":
+            raise NotImplementedError("eval_shard_mode: spatial is not ported yet "
+                                      "(ROADMAP.md queue 1, item 7)")
+        return BandShardedInferencer(model, mesh, cfg.data_axis)
+    return Inferencer(model, cfg.eval_pad_multiple)
 
 
 def _inference_stream(infer: Inferencer, store: CubeStore, eval_batch: int,
@@ -263,17 +368,25 @@ def evaluate_model(trainer, eval_store: CubeStore, eval_result_dir: str, epoch: 
     if len(eval_store) == 0:
         print(f"--- No files found for evaluation. Skipping evaluation for epoch {epoch} ---")
         return None
-    print(f"--- Running evaluation for epoch {epoch} ---")
+    # Under a mesh every rank runs a sharded eval's forward (a collective);
+    # rank 0 alone saves and scores. An eval that is not sharded reaches
+    # here on rank 0 only (Trainer.fit).
+    is_writer = distributed.rank() == 0
+    if is_writer:
+        print(f"--- Running evaluation for epoch {epoch} ---")
     cfg = trainer.cfg
     epoch_dir = os.path.join(eval_result_dir, f"epoch_{epoch}")
-    os.makedirs(epoch_dir, exist_ok=True)
-    infer = Inferencer(trainer.model, cfg.eval_pad_multiple)
+    if is_writer:
+        os.makedirs(epoch_dir, exist_ok=True)
+    infer = _make_inferencer(trainer.model, cfg, getattr(trainer, "mesh", None))
     from_memory = cfg.eval_metric_source != "disk"
     persistent = getattr(trainer, "eval_saver", None)
     saver = persistent if persistent is not None else _OverlappedSaver()
     per_file: Dict[str, tuple] = {}
     with contextlib.nullcontext() if persistent is not None else saver:
         for idx, R, I, Id, S, _sec in _inference_stream(infer, eval_store, cfg.eval_batch):
+            if not is_writer:
+                continue
             filename = os.path.basename(eval_store.files[idx])
             if from_memory and label_dir:
                 sc = _score_in_memory(filename, S, cfg, label_dir)
@@ -281,6 +394,8 @@ def evaluate_model(trainer, eval_store: CubeStore, eval_result_dir: str, epoch: 
                     per_file[filename] = sc
             saver.submit(_save_outputs, cfg, epoch_dir, filename, S, R, I, Id, _ready_event(S))
     scores = None
+    if not is_writer:
+        return None
     if label_dir and from_memory:
         if per_file:
             scores = _average_scores(per_file)
@@ -304,14 +419,18 @@ def evaluate_model(trainer, eval_store: CubeStore, eval_result_dir: str, epoch: 
 
 
 def test_model(model: torch.nn.Module, cfg: Config, model_dir: str, test_store: CubeStore,
-               save_dir: str, timings: Optional[Dict[str, float]] = None) -> float:
+               save_dir: str, timings: Optional[Dict[str, float]] = None, mesh=None) -> float:
     """Test phase (reference model.py:406-443): load the latest checkpoint,
     run every cube timed, save the outputs on the background saver (outside
     the timed window). Returns the mean seconds a cube;
-    ``timings``, when given, receives each file's seconds."""
+    ``timings``, when given, receives each file's seconds. Under a mesh
+    every rank loads the checkpoint and runs the forward (band-sharded with
+    ``eval_sharded``); rank 0 alone saves (JAX's single writer)."""
     interop.load_checkpoint(checkpoints.latest_path(model_dir), model)
-    os.makedirs(save_dir, exist_ok=True)
-    infer = Inferencer(model, cfg.eval_pad_multiple)
+    is_writer = distributed.rank() == 0
+    if is_writer:
+        os.makedirs(save_dir, exist_ok=True)
+    infer = _make_inferencer(model, cfg, mesh)
     total = 0.0
     with _OverlappedSaver() as saver:
         for idx, R, I, Id, S, run_time in _inference_stream(infer, test_store, cfg.eval_batch,
@@ -321,7 +440,9 @@ def test_model(model: torch.nn.Module, cfg: Config, model_dir: str, test_store: 
             total += run_time
             if timings is not None:
                 timings[filename] = run_time
-            saver.submit(_save_outputs, cfg, save_dir, filename, S, R, I, Id, _ready_event(S))
+            if is_writer:
+                saver.submit(_save_outputs, cfg, save_dir, filename, S, R, I, Id,
+                             _ready_event(S))
             print(f"Processed {filename} in {run_time:.4f} seconds.")
     n = len(test_store)
     avg = total / n if n else 0.0

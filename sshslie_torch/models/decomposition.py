@@ -49,6 +49,14 @@ class DecompositionNet(nn.Module):
         self.recon = Conv2d(ch, in_channels + 1, k, generator=g)
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        # Sigmoid in float32 at least, whatever the compute type.
+        recon = at_least_float32(self.recon(self.features(x)))
+        R = torch.sigmoid(recon[:, : self.in_channels])
+        L = torch.sigmoid(recon[:, self.in_channels:])
+        return R, L
+
+    def features(self, x: torch.Tensor) -> torch.Tensor:
+        """conv0 to conv7: the (B, channel, H, W) features that recon reads."""
         conv0 = self.conv0(x)
         conv1 = self.conv1(self.shallow_conv(x))
         conv3 = self.conv3(self.conv2(conv1))
@@ -56,9 +64,4 @@ class DecompositionNet(nn.Module):
         # inputs work, as the JAX package does (no-op for even sizes).
         deconv = self.deconv(conv3)[:, :, : conv1.shape[2], : conv1.shape[3]]
         conv5 = self.conv5(torch.cat([deconv, conv1], dim=1))
-        conv7 = self.conv7(torch.cat([conv5, conv0], dim=1))
-        # Sigmoid in float32 at least, whatever the compute type.
-        recon = at_least_float32(self.recon(conv7))
-        R = torch.sigmoid(recon[:, : self.in_channels])
-        L = torch.sigmoid(recon[:, self.in_channels:])
-        return R, L
+        return self.conv7(torch.cat([conv5, conv0], dim=1))

@@ -105,7 +105,10 @@ class IllumAdjustmentNet(nn.Module):
         if R.shape[1] != self.in_channels:
             raise ValueError(f"IllumAdjustmentNet built for {self.in_channels}-band R, "
                              f"got {R.shape[1]}")
-        conv0 = self.conv0(torch.cat([R, I], dim=1))
+        return self.adjust(self.conv0(torch.cat([R, I], dim=1)))
+
+    def adjust(self, conv0: torch.Tensor) -> torch.Tensor:
+        """Everything after conv0: conv0's (B, channel, H, W) output -> I_delta."""
         conv1 = self.conv1(conv0)
         conv2 = self.conv2(conv1)
         conv3 = self.conv3(conv2)

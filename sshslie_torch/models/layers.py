@@ -68,22 +68,29 @@ class Conv2d(nn.Module):
         _uniform_(self.weight, fan_in, generator)
         _uniform_(self.bias, fan_in, generator)
 
-    def _use_kernel(self, x: torch.Tensor) -> bool:
+    def _use_kernel(self, x: torch.Tensor, w: Optional[torch.Tensor] = None) -> bool:
         if self.impl == "torch" or (self.impl == "auto" and not x.is_cuda):
             return False
-        out_ch, in_ch = self.weight.shape[:2]
+        out_ch, in_ch = (self.weight if w is None else w).shape[:2]
         return conv9.conv9_supported((x.shape[0], x.shape[2], x.shape[3], in_ch),
                                      self.k, in_ch, out_ch, self.stride)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
-        if self._use_kernel(x):
+        return self.conv_with(x, self.weight, self.bias)
+
+    def conv_with(self, x: torch.Tensor, weight: torch.Tensor,
+                  bias: Optional[torch.Tensor]) -> torch.Tensor:
+        """This conv with ``weight`` (OIHW) and ``bias`` (None: no bias) in its
+        parameters' place: the band-sharded forward's slices of them."""
+        x, w = _cast(self.compute_dtype, x, weight)
+        b = bias if bias is None else _cast(self.compute_dtype, bias)[0]
+        if b is not None and self._use_kernel(x, w):
             y = conv9.shallow_conv(x.permute(0, 2, 3, 1).contiguous(),
                                    w.permute(2, 3, 1, 0).contiguous(), b,
                                    self.tf32 and x.is_cuda and x.dtype == torch.float32)
             return y.permute(0, 3, 1, 2)
         p = (self.k - 1) // 2
-        if self.compute_dtype is None:
+        if self.compute_dtype is None or b is None:
             return F.conv2d(x, w, b, stride=self.stride, padding=p)
         return F.conv2d(x, w, None, stride=self.stride, padding=p) + b[:, None, None]
 

@@ -21,6 +21,19 @@ the data directories, the trainer's params and epoch metrics, the test
 phase's ``PSNR_dB``/``SSIM``/``SAM`` and the console log under
 ``run_logs``; without mlflow, as files under ``runs/<experiment>/``.
 
+With ``mesh_shape: "N"`` the run is data parallel over N processes, one per
+GPU, as the JAX runner's mesh: ``torchrun --nproc_per_node N -m
+sshslie_torch --config cfg.yml --mesh_shape N``. ``main`` joins the group
+(``parallel.distributed.initialize_distributed``: NCCL on the card, gloo
+with ``device: cpu``), builds the mesh (``parallel.mesh.make_mesh``; N must
+be the world size) and prints it, and takes rank 0's run names
+(``timestamp`` and the directories derived from it), so that every rank
+reads what rank 0 writes. Rank 0 alone tracks, tees to
+``logs/console_output_<run>.log`` (rank r > 0 to ``..._rank<r>.log``) and
+scores the test phase; every rank trains, and every rank runs the test
+phase's forward (band-sharded with ``eval_sharded`` and ``eval_shard_mode:
+band``). A group that ``main`` joined is left when it returns.
+
 A config value the port cannot honour raises (``config.check_ported``).
 """
 
@@ -35,7 +48,7 @@ from glob import glob
 import numpy as np
 import torch
 
-from sshslie_torch.config import Config, check_ported, parse_args
+from sshslie_torch.config import _DERIVED_FIELDS, Config, check_ported, parse_args
 from sshslie_torch.device import resolve_device, set_matmul_precision
 from sshslie_torch.observability import Logger, MLflowShim, RunObserver
 
@@ -78,10 +91,12 @@ def run_train(trainer, cfg: Config) -> None:
                 label_dir=cfg.label_dir)
 
 
-def _build_trainer(cfg: Config, channels: int, device: torch.device, mlflow: MLflowShim):
+def _build_trainer(cfg: Config, channels: int, device: torch.device, mlflow: MLflowShim,
+                   mesh=None, writer: bool = True):
     from sshslie_torch.train import Trainer
 
-    trainer = Trainer(cfg, channels, device, mlflow=mlflow, observer=RunObserver())
+    trainer = Trainer(cfg, channels, device, mlflow=mlflow,
+                      observer=RunObserver() if writer else None, mesh=mesh)
     if cfg.pretrained_model and not os.path.exists(cfg.pretrained_model):
         raise FileNotFoundError(f"pretrained_model {cfg.pretrained_model!r} does not exist")
     if cfg.pretrained_model:
@@ -99,7 +114,7 @@ def _build_trainer(cfg: Config, channels: int, device: torch.device, mlflow: MLf
     return trainer
 
 
-def run_test(model: torch.nn.Module, cfg: Config) -> dict:
+def run_test(model: torch.nn.Module, cfg: Config, mesh=None) -> dict:
     """Test every cube of ``cfg.test_data``; returns each file's seconds."""
     from sshslie_torch.data.datasets import store_from_config
     from sshslie_torch.evaluate import test_model
@@ -110,7 +125,8 @@ def run_test(model: torch.nn.Module, cfg: Config) -> dict:
     test_store = store_from_config(cfg, cfg.test_data, pattern="*.*" if default_pat else None)
     print("Found test files:", test_store.files)
     seconds: dict = {}
-    test_model(model, cfg, cfg.test_model_dir, test_store, cfg.test_result_dir, timings=seconds)
+    test_model(model, cfg, cfg.test_model_dir, test_store, cfg.test_result_dir, timings=seconds,
+               mesh=mesh)
     return seconds
 
 
@@ -141,11 +157,35 @@ def main(cfg: Config):
     """Run ``cfg.phase``. Returns a dict: ``"trainer"`` (the fitted Trainer:
     ``all_epoch_losses``, ``eval_metrics``, ``model``) when the phase trains,
     and ``"scores"`` (psnr, ssim, sam) and ``"seconds"`` ({file: seconds})
-    when it tests; None when there are no training cubes to take the channel
-    count from. ``serve`` returns {} once the server stops."""
+    when it tests (on rank 0 under a mesh); None when there are no training
+    cubes to take the channel count from. ``serve`` returns {} once the
+    server stops."""
     check_ported(cfg, training=cfg.phase in _TRAINING)
-    device = resolve_device(cfg.device)
-    log_filepath = os.path.join("logs", "console_output_" + cfg.full_model_name + ".log")
+    mesh, joined = None, False
+    if cfg.mesh_shape:
+        from sshslie_torch.parallel import distributed
+        from sshslie_torch.parallel.mesh import make_mesh
+
+        joined = not distributed.active() and distributed.initialize_distributed(
+            device=cfg.device)
+    try:
+        device = resolve_device(cfg.device)
+        if cfg.mesh_shape:
+            mesh = make_mesh(cfg.mesh_shape, axis_names=(cfg.data_axis,))
+            names = distributed.broadcast_object(
+                {k: getattr(cfg, k) for k in sorted(_DERIVED_FIELDS)}, device)
+            for k, v in names.items():
+                setattr(cfg, k, v)
+        return _run(cfg, device, mesh)
+    finally:
+        if joined:
+            distributed.leave()
+
+
+def _run(cfg: Config, device: torch.device, mesh):
+    writer = mesh is None or mesh.rank == 0
+    suffix = "" if writer else f"_rank{mesh.rank}"
+    log_filepath = os.path.join("logs", "console_output_" + cfg.full_model_name + suffix + ".log")
     original_stdout = sys.stdout
     logger = Logger(log_filepath)
     sys.stdout = logger
@@ -164,6 +204,8 @@ def main(cfg: Config):
               + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
         print(f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}, "
               f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}")
+        if mesh is not None:
+            print("Mesh:", mesh)
 
         channels = cfg.channels
         if channels is None:
@@ -176,8 +218,9 @@ def main(cfg: Config):
             channels = load_hsi(train_files[0], mat_key=cfg.mat_key).shape[-1]
             cfg.channels = channels
 
-        mlflow = MLflowShim(enabled=cfg.use_mlflow)
-        trainer = _build_trainer(cfg, channels, device, mlflow) if cfg.phase in _TRAINING else None
+        mlflow = MLflowShim(enabled=cfg.use_mlflow and writer)
+        trainer = (_build_trainer(cfg, channels, device, mlflow, mesh, writer)
+                   if cfg.phase in _TRAINING else None)
         mlflow.set_experiment(cfg.full_model_name)
         result: dict = {}
         with mlflow.start_run():
@@ -207,8 +250,9 @@ def main(cfg: Config):
 
                 model = build_model(cfg, channels, device)
             if cfg.phase in ("test", "train_and_test"):
-                result["seconds"] = run_test(model, cfg)
-                result["scores"] = run_eval_metrics(cfg, device, mlflow)
+                result["seconds"] = run_test(model, cfg, mesh)
+                if writer:
+                    result["scores"] = run_eval_metrics(cfg, device, mlflow)
             elif cfg.phase == "serve":
                 from sshslie_torch.serve import serve_from_config
 

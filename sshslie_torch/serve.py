@@ -361,7 +361,7 @@ class EnhanceService:
         # Before any weight is touched, as in JAX.
         if cfg.mesh_shape and self.quantize:
             raise ValueError("serve_quantize is single-chip only")
-        check_ported(cfg, training=False)
+        check_ported(cfg, training=False, serving=True)
         self.device = resolve_device(cfg.device)
         self.model = self._new_model()
         if state_dict is not None:
@@ -914,7 +914,7 @@ def build_server_from_config(cfg: Config) -> EnhanceServer:
     switches are set from ``matmul_precision``, as the runner sets them."""
     if cfg.channels is None:
         raise ValueError("phase=serve requires an explicit 'channels' config")
-    check_ported(cfg, training=False)
+    check_ported(cfg, training=False, serving=True)
     ckpt = checkpoints.latest_path(cfg.test_model_dir)
     if not os.path.exists(ckpt):
         raise FileNotFoundError(f"no checkpoint at {ckpt}; train first or set test_timestamp")

@@ -62,8 +62,30 @@
   the snapshot is released only after every read of it. On the CPU the same
   code runs without streams.
 
-Not ported (ROADMAP.md queue 1): meshes (item 7); a CUDA graph of a
-multistep chunk (item 11).
+* Data parallelism (``mesh``, a ``parallel.mesh.Mesh`` of N processes, one
+  per GPU; JAX's ``mesh=`` of the step builders and of ``Trainer``): every
+  rank holds the whole model and Adam's state, and computes its slice of
+  the global batch; after its backward, on the current stream, one
+  ``all_reduce`` over one flat buffer of every gradient and the step's
+  terms, divided by the world size (:func:`_mean_over_ranks`), comes before
+  the freeze mask and Adam. Every term is a mean over equally sized items
+  and nothing in the model couples samples (no batch statistics), so the
+  mean over ranks of the ranks' means is the global batch's mean, and every
+  rank logs JAX's global terms. The accumulating step reduces once, after
+  its last micro-batch; the fused step crops this rank's rows ``[r*b,
+  (r+1)*b)`` of each step's global draws from the whole (replicated) stack,
+  so the ranks' batches together are the one-process batch bit for bit;
+  the host pipeline's ``Prefetcher`` keeps this rank's slice of each global
+  batch. In ``fit`` rank 0 alone writes checkpoints, the best copy, tracking
+  and plots, prints the memory line and runs an eval that is not sharded;
+  a band-sharded eval (``eval_sharded``, ``eval_shard_mode: band``) runs on
+  every rank, and never on the async worker (two threads issuing
+  collectives in different orders would deadlock). A SIGTERM on any rank
+  stops every rank after the same epoch. Checkpoints do not depend on the
+  mesh: a run resumes on another number of ranks.
+
+Not ported (ROADMAP.md queue 1): the space axis (dp x sp, item 7); a CUDA
+graph of a multistep chunk (item 11).
 """
 
 from __future__ import annotations
@@ -87,6 +109,8 @@ from sshslie_torch.data.native_sampler import NativePatchSampler, make_sampler
 from sshslie_torch.device import resolve_device
 from sshslie_torch.models.enhance import LowLightEnhanceNet, build_model
 from sshslie_torch.ops.losses import total_loss
+from sshslie_torch.parallel import distributed
+from sshslie_torch.parallel.mesh import Mesh, shard_batch_size
 from sshslie_torch.utils.augment import NUM_MODES, augment_batch
 from sshslie_torch.utils.schedule import step_lr
 
@@ -138,6 +162,18 @@ def _update(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
     optimizer.step()
 
 
+def _mean_over_ranks(model: LowLightEnhanceNet, terms: Dict[str, torch.Tensor],
+                     mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+    """Data parallel: the rank's gradients and terms replaced by their means
+    over the ranks (one ``all_reduce`` of one flat buffer, after the backward
+    on the current stream) → the global terms. Without a mesh, ``terms``."""
+    if mesh is None:
+        return terms
+    stacked = torch.stack([terms[k] for k in LOSS_KEYS])
+    distributed.all_mean_([p.grad for p in model.parameters()] + [stacked])
+    return dict(zip(LOSS_KEYS, stacked.unbind()))
+
+
 def _add_terms(sums: Optional[Dict[str, torch.Tensor]],
                terms: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return terms if sums is None else {k: sums[k] + terms[k] for k in LOSS_KEYS}
@@ -145,21 +181,24 @@ def _add_terms(sums: Optional[Dict[str, torch.Tensor]],
 
 def train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
                batch: torch.Tensor, coeffs: Dict[str, float],
-               freeze_decom: bool = False) -> Dict[str, torch.Tensor]:
-    """One update on an NHWC batch → {LOSS_KEYS name: detached scalar tensor}."""
+               freeze_decom: bool = False, mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+    """One update on an NHWC batch (with ``mesh``, this rank's slice of the
+    global batch) → {LOSS_KEYS name: detached scalar tensor}."""
     optimizer.zero_grad(set_to_none=True)
-    terms = _backward(model, batch, coeffs)
+    terms = _mean_over_ranks(model, _backward(model, batch, coeffs), mesh)
     _update(model, optimizer, freeze_decom)
     return terms
 
 
 def accum_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
                      batch: torch.Tensor, coeffs: Dict[str, float], accum_steps: int,
-                     freeze_decom: bool = False) -> Dict[str, torch.Tensor]:
+                     freeze_decom: bool = False,
+                     mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One update from ``accum_steps`` consecutive micro-batches of ``batch``:
     the gradients and terms summed in micro-batch order and scaled by
     1/accum_steps (every term is a mean over the batch, so this is the
-    full-batch update up to rounding)."""
+    full-batch update up to rounding); with ``mesh``, averaged over the
+    ranks once, after the last micro-batch."""
     b = batch.shape[0]
     if b % accum_steps != 0:
         raise ValueError(f"batch {b} not divisible by grad_accum_steps {accum_steps}")
@@ -170,8 +209,9 @@ def accum_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer
     inv = 1.0 / accum_steps
     for p in model.parameters():
         p.grad.mul_(inv)
+    terms = _mean_over_ranks(model, {k: sums[k] * inv for k in LOSS_KEYS}, mesh)
     _update(model, optimizer, freeze_decom)
-    return {k: sums[k] * inv for k in LOSS_KEYS}
+    return terms
 
 
 def stack_cubes(store: CubeStore, device) -> Optional[torch.Tensor]:
@@ -322,24 +362,31 @@ def sample_fused_batch(cubes: torch.Tensor, draws: torch.Tensor, batch_start: in
 def fused_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
                      cubes: torch.Tensor, draws: torch.Tensor, batch_start: int,
                      patch_size: int, coeffs: Dict[str, float],
-                     freeze_decom: bool = False) -> Dict[str, torch.Tensor]:
-    """One fused step: the batch sampled on the device, then :func:`train_step`."""
+                     freeze_decom: bool = False,
+                     mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+    """One fused step: the batch sampled on the device, then :func:`train_step`.
+    ``draws`` are the step's global rows; with ``mesh`` this rank crops its
+    own, ``[r*b, (r+1)*b)``, which are samples ``batch_start + r*b`` on."""
+    if mesh is not None:
+        rows = distributed.process_batch_slice(draws.shape[0])
+        draws, batch_start = draws[rows], batch_start + rows.start
     batch = sample_fused_batch(cubes, draws, batch_start, patch_size)
-    return train_step(model, optimizer, batch, coeffs, freeze_decom)
+    return train_step(model, optimizer, batch, coeffs, freeze_decom, mesh)
 
 
 def multistep_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
                          cubes: torch.Tensor, epoch_draws: torch.Tensor,
                          batch_ids: Iterable[int], batch_size: int, patch_size: int,
-                         coeffs: Dict[str, float],
-                         freeze_decom: bool = False) -> Dict[str, torch.Tensor]:
+                         coeffs: Dict[str, float], freeze_decom: bool = False,
+                         mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """The fused steps ``batch_ids`` of an epoch in one host call, each
-    exactly as :func:`fused_train_step` → their terms summed in step order."""
+    exactly as :func:`fused_train_step` → their terms summed in step order.
+    ``batch_size`` is the global batch."""
     sums = None
     for batch_id in batch_ids:
         sums = _add_terms(sums, fused_train_step(
             model, optimizer, cubes, epoch_draws[batch_id], batch_id * batch_size,
-            patch_size, coeffs, freeze_decom))
+            patch_size, coeffs, freeze_decom, mesh))
     return sums
 
 
@@ -388,14 +435,16 @@ class Trainer:
 
     The initial weights are drawn from a ``torch.Generator`` seeded with
     ``cfg.seed_value``, or taken from ``state_dict`` (the tests pass JAX
-    ``init_params`` through ``interop.jax_params_to_state_dict``).
+    ``init_params`` through ``interop.jax_params_to_state_dict``). ``mesh``
+    (``parallel.mesh.make_mesh``) trains data parallel over its ranks.
     """
 
     def __init__(self, cfg: Config, channels: int, device=None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
-                 mlflow=None, observer=None):
+                 mlflow=None, observer=None, mesh: Optional[Mesh] = None):
         check_ported(cfg, training=True)
         self.cfg = cfg
+        self.mesh = mesh              # evaluate._make_inferencer dispatches on it
         self.mlflow = mlflow          # observability.MLflowShim or None
         self.observer = observer      # observability.RunObserver or None
         self.eval_saver = None        # evaluate._OverlappedSaver while fit runs a sync eval
@@ -453,15 +502,27 @@ class Trainer:
                 "reduce batch_size")
         ckpt_dir = ckpt_dir or os.path.join(cfg.model_ckpt_dir, "Decomposition_" + cfg.timestamp)
         os.makedirs(ckpt_dir, exist_ok=True)
+        # Data parallel: rank 0 alone writes files and tracks (JAX's single
+        # writer); a band-sharded eval is collective and runs on every rank.
+        mesh = self.mesh
+        writer = distributed.rank() == 0
+        mlflow, observer = (self.mlflow, self.observer) if writer else (None, None)
+        eval_sharded = mesh is not None and cfg.eval_sharded
+        if mesh is not None:
+            shard_batch_size(cfg.batch_size, mesh, cfg.data_axis)
 
         start_epoch = 0
         if cfg.resume:
+            # Every rank loads the latest checkpoint: it does not depend on the mesh.
             latest = checkpoints.latest_path(ckpt_dir)
             if os.path.exists(latest):
                 start_epoch = interop.load_checkpoint(latest, self.model, self.optimizer) or 0
                 print(f"Resuming training from epoch {start_epoch}")
             else:
                 print(f"resume requested but no checkpoint at {latest}; starting fresh")
+        if mesh is not None:
+            # Replicated weights: rank 0's, whatever each rank was given.
+            distributed.broadcast_(list(self.model.parameters()))
         if eval_result_dir:
             os.makedirs(eval_result_dir, exist_ok=True)
 
@@ -477,6 +538,12 @@ class Trainer:
         fused_window = cfg.fused_window if fused_eligible else 0
         if fused_window == "auto":
             fused_window = auto_fused_window(train_store, cfg.batch_size, self.device)
+            if mesh is not None:
+                # Each rank reads its own card; all take the smallest demand
+                # (-1 none, then K cubes, then 0: the whole stack of N).
+                n = len(train_store)
+                k = -int(distributed.all_max(-(fused_window or n), self.device))
+                fused_window = 0 if k == n else k
             if fused_window < 0:
                 print("fused_window=auto: no useful window fits the device memory budget "
                       "(or cube shapes are mixed) — degrading to the host sampler")
@@ -528,21 +595,22 @@ class Trainer:
         print("Ignored (speed only): "
               + ", ".join(f"{k}={getattr(cfg, k)!r}" for k in SPEED_ONLY_KEYS))
         num_batches = len(train_store) // cfg.batch_size
-        if self.mlflow:
-            self.mlflow.log_params({
+        if mlflow:
+            mlflow.log_params({
                 "epochs": cfg.epoch,
                 "start_lr": cfg.start_lr,
                 "adaptive_lr": abs(cfg.lr_update_factor - 1) > 1e-6,
                 "batch_size": cfg.batch_size,
                 "optimizer": "Adam",
             })
-        if self.observer:
-            self.observer.log_model_summary(self.model, ckpt_dir, self.mlflow)
+        if observer:
+            observer.log_model_summary(self.model, ckpt_dir, mlflow)
 
-        run_evals = evaluator is not None and eval_store is not None and bool(eval_result_dir)
+        run_evals = (evaluator is not None and eval_store is not None and bool(eval_result_dir)
+                     and (writer or eval_sharded))
         eval_pool = None
         pending_evals: list = []
-        if cfg.async_eval and run_evals:
+        if cfg.async_eval and run_evals and not eval_sharded:
             eval_pool, eval_snapshot = self._async_evaluator(
                 evaluator, eval_store, eval_result_dir, label_dir)
         # The sync eval's saver lives across epochs: an eval epoch's copies and
@@ -552,7 +620,7 @@ class Trainer:
             from sshslie_torch.evaluate import _OverlappedSaver
 
             self.eval_saver = _OverlappedSaver()
-        ckpt_writer = checkpoints.AsyncWriter() if cfg.checkpoint_async else None
+        ckpt_writer = checkpoints.AsyncWriter() if cfg.checkpoint_async and writer else None
 
         # checkpoint_best: per fit run, so a resumed run starts its best afresh
         # (the epoch files stay the durable record).
@@ -564,15 +632,16 @@ class Trainer:
             self.eval_metrics[ep] = scores
             if cfg.checkpoint_best and "psnr" in scores and scores["psnr"] > best["psnr"]:
                 best["psnr"], best["ep"] = scores["psnr"], ep
-            if self.observer and eval_result_dir:
-                self.observer.plot_eval_metrics(
+            if observer and eval_result_dir:
+                observer.plot_eval_metrics(
                     self.eval_metrics, os.path.join(eval_result_dir, "eval_metrics.png"))
 
         def _sync_best() -> None:
             """Copy the winning epoch file to model_epoch_best, FIFO behind the
             epoch save on the writer. The candidate is read here, on the
             training thread, where its epoch's save is already queued."""
-            if not cfg.checkpoint_best or best["ep"] is None or best["ep"] == best["written_ep"]:
+            if (not writer or not cfg.checkpoint_best or best["ep"] is None
+                    or best["ep"] == best["written_ep"]):
                 return
             ep, psnr = best["ep"], best["psnr"]
 
@@ -604,7 +673,10 @@ class Trainer:
             """Epoch file, latest byte-copy, retention prune. With
             checkpoint_async the weights and the Adam state are copied to the
             host now (the next step updates them in place) and the rest runs
-            on the writer."""
+            on the writer. Rank 0 only."""
+            if not writer:
+                return
+
             def _write(state_dict, opt_state) -> None:
                 saved = interop.save_checkpoint(checkpoints.epoch_path(ckpt_dir, ep),
                                                 state_dict, ep, opt_state)
@@ -666,11 +738,11 @@ class Trainer:
             for epoch in range(start_epoch, cfg.epoch):
                 avg, lr = self._train_epoch(epoch, cubes, feeder, sampler, num_batches, accum,
                                             k_steps)
-                if epoch == start_epoch:
+                if epoch == start_epoch and writer:
                     report_hbm_pressure(self.device)
-                if (eval_result_dir and self.observer
+                if (eval_result_dir and observer
                         and (epoch + 1) % cfg.plot_every_epoch == 0):
-                    self.observer.plot_loss_curve(
+                    observer.plot_loss_curve(
                         self.all_epoch_losses, os.path.join(eval_result_dir, "loss_curves.png"))
                 if (epoch + 1) % cfg.eval_every_epoch == 0:
                     if eval_pool is not None:
@@ -684,21 +756,27 @@ class Trainer:
                     _sync_best()
                 if profiler.active:
                     print(f"Profiler trace written to {profiler.stop()}")
-                if self.mlflow:
-                    self.mlflow.log_metric("learning_rate", lr, step=epoch)
-                    self.mlflow.log_metrics(avg, step=epoch)
+                if mlflow:
+                    mlflow.log_metric("learning_rate", lr, step=epoch)
+                    mlflow.log_metrics(avg, step=epoch)
                 print(f"Epoch [{epoch+1}/{cfg.epoch}] Average Loss: {avg['total_loss']:.6f} "
                       f"(host sampling {self.epoch_seconds[-1][0]:.3f} s of "
                       f"{self.epoch_seconds[-1][1]:.3f} s)")
                 if eval_pool is not None:
                     _drain_evals(block=False)
+                if mesh is not None:
+                    # A signal on any rank stops every rank after this epoch.
+                    self._stop_requested = bool(distributed.all_max(self._stop_requested,
+                                                                    self.device))
                 if self._stop_requested:
                     # Queued saves also copy into latest: drain first, so the
                     # preemption write is the newest.
                     if ckpt_writer is not None:
                         ckpt_writer.drain()
-                    interop.save_checkpoint(checkpoints.latest_path(ckpt_dir),
-                                            self.model.state_dict(), epoch + 1, self.optimizer)
+                    if writer:
+                        interop.save_checkpoint(checkpoints.latest_path(ckpt_dir),
+                                                self.model.state_dict(), epoch + 1,
+                                                self.optimizer)
                     print(f"Preemption checkpoint written at epoch {epoch+1}; "
                           "stopping (resume with resume: true)")
                     break
@@ -740,11 +818,14 @@ class Trainer:
                     if not in_flight:
                         raise
                     print(f"{name} failed during teardown: {type(e).__name__}: {e}")
-            if self.observer is not None:
-                self.observer.drain()
+            if observer is not None:
+                observer.drain()
 
-        if self.mlflow:
-            self.mlflow.log_param("model_path",
+        if mesh is not None:
+            # The checkpoints are on disk before any rank reads them.
+            distributed.barrier(self.device)
+        if mlflow:
+            mlflow.log_param("model_path",
                                   os.path.normpath(checkpoints.latest_path(ckpt_dir)))
 
     def _async_evaluator(self, evaluator: Callable, eval_store: CubeStore,
@@ -822,7 +903,8 @@ class Trainer:
             for chunk_start in range(0, num_batches, k_steps):
                 ids = range(chunk_start, min(chunk_start + k_steps, num_batches))
                 terms = multistep_train_step(self.model, self.optimizer, cubes, draws, ids,
-                                             cfg.batch_size, cfg.patch_size, self.coeffs, freeze)
+                                             cfg.batch_size, cfg.patch_size, self.coeffs, freeze,
+                                             self.mesh)
                 sums = _add_terms(sums, terms)
                 count += len(ids)
                 # log_every_step's cadence: print when the chunk crossed an N boundary.
@@ -831,19 +913,23 @@ class Trainer:
                     print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{ids[-1]+1}/{num_batches}] "
                           f"Loss: {float(terms['total_loss']) / len(ids):.6f}")
         else:
-            # Batches staged onto the device prefetch_batches ahead; closing
-            # the prefetcher releases its worker if a step raises.
-            with Prefetcher(sampler.epoch(), self.device, depth=cfg.prefetch_batches) as batches:
+            # Batches staged onto the device prefetch_batches ahead (each
+            # rank's slice of the global batch); closing the prefetcher
+            # releases its worker if a step raises.
+            rows = (distributed.process_batch_slice(cfg.batch_size) if self.mesh is not None
+                    else None)
+            with Prefetcher(sampler.epoch(), self.device, depth=cfg.prefetch_batches,
+                            process_slice=rows) as batches:
                 for batch_id in range(num_batches):
                     t = time.perf_counter()
                     batch = next(batches)
                     host_s += time.perf_counter() - t
                     if accum > 1:
                         terms = accum_train_step(self.model, self.optimizer, batch, self.coeffs,
-                                                 accum, freeze)
+                                                 accum, freeze, self.mesh)
                     else:
                         terms = train_step(self.model, self.optimizer, batch, self.coeffs,
-                                           freeze)
+                                           freeze, self.mesh)
                     sums = _add_terms(sums, terms)
                     count += 1
                     if cfg.log_every_step and (batch_id + 1) % cfg.log_every_step == 0:

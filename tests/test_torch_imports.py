@@ -39,7 +39,8 @@ def test_sources_exist():
             "sshslie_torch/serve.py", "sshslie_torch/ops/quant.py", "sshslie_torch/utils/io_envi.py",
             "sshslie_torch/viz.py", "sshslie_torch/inspect_spectra.py", "sshslie_torch/align.py",
             "sshslie_torch/doctor.py", "sshslie_torch/experiments.py",
-            "sshslie_torch/serve_client.py"} <= names
+            "sshslie_torch/serve_client.py", "sshslie_torch/parallel/mesh.py",
+            "sshslie_torch/parallel/distributed.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -59,7 +60,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
             "sshslie_torch.observability, sshslie_torch.metrics, sshslie_torch.checkpoints, "
             "sshslie_torch.serve, sshslie_torch.ops.quant, sshslie_torch.utils.io_envi, "
             "sshslie_torch.viz, sshslie_torch.inspect_spectra, sshslie_torch.align, "
-            "sshslie_torch.doctor, sshslie_torch.experiments, sshslie_torch.serve_client\n"
+            "sshslie_torch.doctor, sshslie_torch.experiments, sshslie_torch.serve_client, "
+            "sshslie_torch.parallel.mesh, sshslie_torch.parallel.distributed\n"
             f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "built = list(sshslie_torch.ops._build._libs)\n"
             "print(bad, built); sys.exit(1 if bad or built else 0)")

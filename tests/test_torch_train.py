@@ -243,7 +243,7 @@ def test_runner_train_and_test_on_cpu(tmp_path, monkeypatch, rng):
         np.testing.assert_array_equal(got[k].numpy(), v.numpy())
 
 
-@pytest.mark.parametrize("key,value", [("mesh_shape", "4")])
+@pytest.mark.parametrize("key,value", [("mesh_shape", "2x2"), ("space_axis", "space")])
 def test_values_the_port_cannot_honour_raise(tmp_path, monkeypatch, key, value):
     monkeypatch.chdir(tmp_path)
     cfg = load_config(None, {"phase": "train", "device": "cpu", "channels": 6, key: value})
