@@ -142,8 +142,15 @@ bfloat16``.
    ``eval_shard_mode: band``) on the two 512^2 cubes through ``runner.main``
    on both ranks: conv9 (1, 512, 512, 64) and flash (1, 4, 4096, 16) once a
    cube on each rank, exact; rank 0 alone scores and saves, its S within
-   1e-5 of the span of path 1's. Two ranks of NCCL need two cards and are
-   not run.
+   1e-5 of the span of path 1's; (d) the space axis: two fused dp x sp steps
+   on a ``1x2`` mesh (``shard_space`` on the mesh's space shard), each rank
+   64 of the 128 rows, conv9 (2, 72, 128, 64) forward 2 and dgrad 1 and
+   conv9_wgrad 2 a step on each rank (the shallow conv's kernel on the
+   rank's rows plus a 4-row halo each side), exact, with (b)'s checks; (e)
+   the height-sharded test phase (``mesh_shape: "2"``, ``eval_sharded``, the
+   default ``eval_shard_mode: spatial``) as (c): conv9 (1, 264, 512, 64) and
+   flash (1, 4, 4096, 16), the whole gathered sequence, once a cube on each
+   rank, exact. Two ranks of NCCL need two cards and are not run.
 8. Kernels against their plain versions on the card, each dtype with its
    stated tolerance (float32 conv9 and flash also at the micro-batched
    serving shapes (4, 512, 512, 64) and (4, 4, 4096, 16); the bfloat16 conv9, its dgrad and conv9_wgrad also at
@@ -1717,10 +1724,13 @@ def cli_worker(out: str, argv: list) -> int:
 
 
 def rank_worker(rank: int, port: int, out: str) -> int:
-    """Path 9 (b) and (c), one of two gloo ranks sharing the card: two fused
+    """Path 9 (b) to (e), one of two gloo ranks sharing the card: two fused
     data-parallel steps at global batch 2 (rank 0 then holds the first
-    against a one-process b2 step), then the band-sharded test phase through
-    ``runner.main``; launches by shape around each, written to ``out``."""
+    against a one-process b2 step), the band-sharded test phase through
+    ``runner.main``, two fused dp x sp steps on a 1x2 mesh (each rank 64 of
+    the 128 rows; rank 0 holds the first against the same one-process step),
+    and the height-sharded test phase through ``runner.main``; launches by
+    shape around each, written to ``out``."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1731,7 +1741,7 @@ def rank_worker(rank: int, port: int, out: str) -> int:
     from sshslie_torch.config import load_config
     from sshslie_torch.data.datasets import CubeStore
     from sshslie_torch.device import set_matmul_precision
-    from sshslie_torch.models.enhance import LowLightEnhanceNet
+    from sshslie_torch.models.enhance import LowLightEnhanceNet, shard_space
     from sshslie_torch.ops import attention, conv9
     from sshslie_torch.parallel import distributed
     from sshslie_torch.parallel.mesh import make_mesh
@@ -1759,45 +1769,70 @@ def rank_worker(rank: int, port: int, out: str) -> int:
         return model, make_optimizer(model, tcfg.start_lr)
 
     report = {"rank": rank, "mesh": str(mesh)}
-    model, opt = fresh()
-    zero_counts(conv9, attention)
-    t = time.perf_counter()
-    terms = [fused_train_step(model, opt, cubes, draws[0], 0, p, coeffs, mesh=mesh)]
-    grads = {n: q.grad.clone() for n, q in model.named_parameters()}
-    terms.append(fused_train_step(model, opt, cubes, draws[1], b, p, coeffs, mesh=mesh))
-    torch.cuda.synchronize()
-    report["steps_s"] = time.perf_counter() - t
-    report["steps_counts"] = counts_to_json(shape_counts(conv9, attention))
-    report["terms"] = [[float(tt[k]) for k in LOSS_KEYS] for tt in terms]
-    if rank == 0:
-        # The one-process b2 step on the same draws and weights (not counted).
-        ref, ref_opt = fresh()
-        ref_terms = fused_train_step(ref, ref_opt, cubes, draws[0], 0, p, coeffs)
-        got = torch.tensor(report["terms"][0], dtype=torch.float64)
-        want = torch.tensor([float(ref_terms[k]) for k in LOSS_KEYS], dtype=torch.float64)
-        report["terms_rel"] = float(((got - want).abs() / want.abs()).max())
+    ref = None
+
+    def two_steps(part, on, shard=None):
+        """Two fused steps on ``on`` from the seeded weights (the model's height
+        split over ``shard``); rank 0 holds step 1 against the one-process b2
+        step on the same draws and weights (not counted)."""
+        nonlocal ref
+        model, opt = fresh()
+        if shard is not None:
+            shard_space(model, shard)
+        zero_counts(conv9, attention)
+        t = time.perf_counter()
+        terms = [fused_train_step(model, opt, cubes, draws[0], 0, p, coeffs, mesh=on)]
+        grads = {n: q.grad.clone() for n, q in model.named_parameters()}
+        terms.append(fused_train_step(model, opt, cubes, draws[1], b, p, coeffs, mesh=on))
+        torch.cuda.synchronize()
+        report[f"{part}_s"] = time.perf_counter() - t
+        report[f"{part}_counts"] = counts_to_json(shape_counts(conv9, attention))
+        report[f"{part}_terms"] = [[float(tt[k]) for k in LOSS_KEYS] for tt in terms]
+        if rank != 0:
+            return
+        if ref is None:
+            ref_model, ref_opt = fresh()
+            ref_terms = fused_train_step(ref_model, ref_opt, cubes, draws[0], 0, p, coeffs)
+            ref = ([float(ref_terms[k]) for k in LOSS_KEYS],
+                   {n: q.grad for n, q in ref_model.named_parameters()})
+        got = torch.tensor(report[f"{part}_terms"][0], dtype=torch.float64)
+        want = torch.tensor(ref[0], dtype=torch.float64)
+        report[f"{part}_terms_rel"] = float(((got - want).abs() / want.abs()).max())
         # Each gradient's scale, floored at 1e-8 of the largest (grad_errors'
         # floor: k_linear's bias has an exact gradient of zero).
-        gmax = max(float(q.grad.abs().max()) for q in ref.parameters())
-        report["grad_rel"] = max(
-            float((grads[n] - q.grad).abs().max()) / max(float(q.grad.abs().max()), 1e-8 * gmax)
-            for n, q in ref.named_parameters())
+        gmax = max(float(g.abs().max()) for g in ref[1].values())
+        report[f"{part}_grad_rel"] = max(
+            float((grads[n] - g).abs().max()) / max(float(g.abs().max()), 1e-8 * gmax)
+            for n, g in ref[1].items())
         # PERF.md section 2's float32 step gates: terms 2e-5 relative,
         # gradients 2e-2 of each one's scale.
-        if not (report["terms_rel"] <= 2e-5 and report["grad_rel"] <= 2e-2):
-            raise AssertionError(f"path 9 (b): dp step against the one-process b2 step: terms "
-                                 f"{report['terms_rel']:.3e}, gradients {report['grad_rel']:.3e}")
-    del cubes, model, opt
-    zero_counts(conv9, attention)
-    t = time.perf_counter()
-    cfg = load_config(None, kw["test"])
-    result = runner.main(cfg)
-    torch.cuda.synchronize()
-    report["test_s"] = time.perf_counter() - t
-    report["test_result_dir"] = cfg.test_result_dir
-    report["test_counts"] = counts_to_json(shape_counts(conv9, attention))
-    report["scores"] = result.get("scores")
-    report["seconds"] = result["seconds"]
+        if not (report[f"{part}_terms_rel"] <= 2e-5 and report[f"{part}_grad_rel"] <= 2e-2):
+            raise AssertionError(
+                f"path 9 ({part}): step 1 against the one-process b2 step: terms "
+                f"{report[f'{part}_terms_rel']:.3e}, gradients {report[f'{part}_grad_rel']:.3e}")
+
+    def test_phase(part, test_kw):
+        zero_counts(conv9, attention)
+        t = time.perf_counter()
+        cfg = load_config(None, test_kw)
+        # Each test phase saves to its own directory (the names are from rank 0).
+        cfg.test_result_dir += f"_{part}"
+        result = runner.main(cfg)
+        torch.cuda.synchronize()
+        report[f"{part}_s"] = time.perf_counter() - t
+        report[f"{part}_result_dir"] = cfg.test_result_dir
+        report[f"{part}_counts"] = counts_to_json(shape_counts(conv9, attention))
+        report[f"{part}_scores"] = result.get("scores")
+        report[f"{part}_seconds"] = result["seconds"]
+
+    two_steps("b", mesh)
+    test_phase("c", kw["test"])
+    # (d): the patch height split over a 1x2 mesh's space axis, 64 rows a rank.
+    sp_mesh = make_mesh("1x2")
+    report["sp_mesh"] = str(sp_mesh)
+    two_steps("d", sp_mesh, sp_mesh.shard("space"))
+    del cubes
+    test_phase("e", dict(kw["test"], eval_shard_mode="spatial"))
     report["backend"] = mesh.backend
     distributed.leave()
     with open(out, "w") as fh:
@@ -1808,8 +1843,8 @@ def rank_worker(rank: int, port: int, out: str) -> int:
 def run_multi(work: str, test_kw: dict, train_kw: dict, path1_cfg, path2: dict) -> dict:
     """Main path 9, data parallel on one card: (a) path 2's run through the
     CLI under ``torchrun`` with ``--mesh_shape 1`` (an NCCL group of one),
-    equal to path 2 bit for bit; (b) and (c) two gloo ranks sharing the
-    card (``rank_worker``). The three processes run at once. Returns the
+    equal to path 2 bit for bit; (b) to (e) two gloo ranks sharing the card
+    (``rank_worker``). The three processes run at once. Returns the
     launches by shape of every process, summed."""
     import numpy as np
 
@@ -1874,49 +1909,61 @@ def run_multi(work: str, test_kw: dict, train_kw: dict, path1_cfg, path2: dict) 
                                  f"{float(np.abs(got - want).max()):.3e}")
     log("path 9 (a): epoch terms, launches by shape and saved S = path 2's, bit for bit")
 
-    # (b): two fused dp steps, b = 1 a rank.
-    f32 = (1, train_kw["patch_size"], train_kw["patch_size"], BANDS)
-    want_b = {("conv9", "forward", "float32", f32): 4, ("conv9", "dgrad", "float32", f32): 2,
-              ("conv9_wgrad", "wgrad", "float32", f32): 4}
-    for rep in ranks:
-        got = counts_from_json(rep["steps_counts"])
-        if got != want_b:
-            raise AssertionError(f"path 9 (b) rank {rep['rank']}: launches {got}, expected {want_b}")
-    if ranks[0]["terms"] != ranks[1]["terms"]:
-        raise AssertionError(f"path 9 (b): the ranks' terms differ: {ranks[0]['terms']} "
-                             f"{ranks[1]['terms']}")
-    log(f"path 9 (b): {ranks[0]['mesh']}; 2 fused dp steps in {ranks[0]['steps_s']:.2f} s, terms "
-        f"equal on both ranks; step 1 against the one-process b2 step: terms "
-        f"{ranks[0]['terms_rel']:.3e} relative (gate 2e-5), gradients {ranks[0]['grad_rel']:.3e} of "
-        f"their scale (gate 2e-2); launches a rank {want_b}")
+    # (b) and (d): two fused steps at b2, dp (b = 1 a rank) and dp x sp (each
+    # rank 64 of the 128 rows plus a 4-row halo each side at the shallow conv).
+    p = train_kw["patch_size"]
+    f32 = (1, p, p, BANDS)
+    sp = (2, p // 2 + 8, p, BANDS)
+    for part, what, shape in (("b", "dp", f32), ("d", "dp x sp", sp)):
+        want = {("conv9", "forward", "float32", shape): 4, ("conv9", "dgrad", "float32", shape): 2,
+                ("conv9_wgrad", "wgrad", "float32", shape): 4}
+        for rep in ranks:
+            got = counts_from_json(rep[f"{part}_counts"])
+            if got != want:
+                raise AssertionError(f"path 9 ({part}) rank {rep['rank']}: launches {got}, "
+                                     f"expected {want}")
+        if ranks[0][f"{part}_terms"] != ranks[1][f"{part}_terms"]:
+            raise AssertionError(f"path 9 ({part}): the ranks' terms differ: "
+                                 f"{ranks[0][f'{part}_terms']} {ranks[1][f'{part}_terms']}")
+        log(f"path 9 ({part}): {ranks[0]['mesh' if part == 'b' else 'sp_mesh']}; 2 fused {what} "
+            f"steps in {ranks[0][f'{part}_s']:.2f} s, terms equal on both ranks; step 1 against "
+            f"the one-process b2 step: terms {ranks[0][f'{part}_terms_rel']:.3e} relative (gate "
+            f"2e-5), gradients {ranks[0][f'{part}_grad_rel']:.3e} of their scale (gate 2e-2); "
+            f"launches a rank {want}")
 
-    # (c): the band-sharded test phase, rank 0 the writer.
-    want_c = {("conv9", "forward", "float32", (1, SIZE, SIZE, BANDS)): 2,
-              ("flash_attention", "forward", "float32", (1, 4, (SIZE // 8) ** 2, 16)): 2}
-    for rep in ranks:
-        got = counts_from_json(rep["test_counts"])
-        if got != want_c:
-            raise AssertionError(f"path 9 (c) rank {rep['rank']}: launches {got}, expected {want_c}")
-    scores = ranks[0]["scores"]
-    if scores is None or not all(math.isfinite(v) for v in scores) or ranks[1]["scores"] is not None:
-        raise AssertionError(f"path 9 (c): scores {scores}, rank 1's {ranks[1]['scores']}")
-    errs = []
-    for i in range(2):
-        got = load_hsi(os.path.join(ranks[0]["test_result_dir"], f"cube{i}.mat"), mat_key="data")
-        want = load_hsi(os.path.join(path1_cfg.test_result_dir, f"cube{i}.mat"), mat_key="data")
-        span = float(want.max() - want.min())
-        errs.append(float(np.abs(got.astype(np.float64) - want).max()))
-        if not errs[-1] <= 1e-5 * span:
-            raise AssertionError(f"path 9 (c): S of cube{i} {errs[-1]:.3e} from path 1's, over "
-                                 f"1e-5 of its span {span:.1f}")
-    log(f"path 9 (c): band-sharded test phase in {ranks[0]['test_s']:.2f} s (per-cube seconds "
-        f"{ranks[0]['seconds']}); S against path 1's: max|d| {errs} (gate 1e-5 of the span); "
-        f"PSNR {scores[0]!r}; launches a rank {want_c}")
+    # (c) and (e): the band- and height-sharded test phases, rank 0 the writer.
+    flash = ("flash_attention", "forward", "float32", (1, 4, (SIZE // 8) ** 2, 16))
+    for part, what, conv in (("c", "band", (1, SIZE, SIZE, BANDS)),
+                             ("e", "height", (1, SIZE // 2 + 8, SIZE, BANDS))):
+        want = {("conv9", "forward", "float32", conv): 2, flash: 2}
+        for rep in ranks:
+            got = counts_from_json(rep[f"{part}_counts"])
+            if got != want:
+                raise AssertionError(f"path 9 ({part}) rank {rep['rank']}: launches {got}, "
+                                     f"expected {want}")
+        scores = ranks[0][f"{part}_scores"]
+        if (scores is None or not all(math.isfinite(v) for v in scores)
+                or ranks[1][f"{part}_scores"] is not None):
+            raise AssertionError(f"path 9 ({part}): scores {scores}, rank 1's "
+                                 f"{ranks[1][f'{part}_scores']}")
+        errs = []
+        for i in range(2):
+            got = load_hsi(os.path.join(ranks[0][f"{part}_result_dir"], f"cube{i}.mat"),
+                           mat_key="data")
+            ref = load_hsi(os.path.join(path1_cfg.test_result_dir, f"cube{i}.mat"), mat_key="data")
+            span = float(ref.max() - ref.min())
+            errs.append(float(np.abs(got.astype(np.float64) - ref).max()))
+            if not errs[-1] <= 1e-5 * span:
+                raise AssertionError(f"path 9 ({part}): S of cube{i} {errs[-1]:.3e} from path "
+                                     f"1's, over 1e-5 of its span {span:.1f}")
+        log(f"path 9 ({part}): {what}-sharded test phase in {ranks[0][f'{part}_s']:.2f} s "
+            f"(per-cube seconds {ranks[0][f'{part}_seconds']}); S against path 1's: max|d| {errs} "
+            f"(gate 1e-5 of the span); PSNR {scores[0]!r}; launches a rank {want}")
     total = dict(a_counts)
     for rep in ranks:
-        for key, n in {**counts_from_json(rep["steps_counts"]),
-                       **counts_from_json(rep["test_counts"])}.items():
-            total[key] = total.get(key, 0) + n
+        for part in "bcde":
+            for key, n in counts_from_json(rep[f"{part}_counts"]).items():
+                total[key] = total.get(key, 0) + n
     log(f"main path 9: {time.perf_counter() - t0:.2f} s")
     return total
 
@@ -2139,9 +2186,20 @@ def main() -> int:
                                          conv9.conv9_plain(x1, w9), 2e-5)
         errs["dgrad_128_b1"] = check_rel("conv9 dgrad (1, 128, 128, 64) k9", conv9.conv9_fwd(g1, wd),
                                          conv9.conv9_plain(g1, wd), 2e-5)
+        # Path 9 (d)'s shape: a rank's 64 rows of the b2 batch plus a 4-row
+        # halo each side; (e)'s: a rank's 256 rows of the test cube plus its halo.
+        xs, gs = xt[:, :72].contiguous(), gt[:, :72].contiguous()
+        x264 = x[:, :264].contiguous()
+        errs["conv9_72"] = check_rel("conv9 (2, 72, 128, 64) k9", conv9.conv9_fwd(xs, w9),
+                                     conv9.conv9_plain(xs, w9), 2e-5)
+        errs["dgrad_72"] = check_rel("conv9 dgrad (2, 72, 128, 64) k9", conv9.conv9_fwd(gs, wd),
+                                     conv9.conv9_plain(gs, wd), 2e-5)
+        errs["conv9_264"] = check_rel("conv9 (1, 264, 512, 64) k9", conv9.conv9_fwd(x264, w9),
+                                      conv9.conv9_plain(x264, w9), 2e-5)
         # Sums over up to 262,144 pixels, in slices, in another order: 5e-5 of the scale.
         for key, what, xx, dy in (
                 ("wgrad_128_b1", "(1, 128, 128, 64)", x1, g1),
+                ("wgrad_72", "(2, 72, 128, 64)", xs, gs),
                 ("wgrad_128", "(2, 128, 128, 64)", xt, gt),
                 ("wgrad_512", "(1, 512, 512, 64)", x, torch.randn(x.shape, generator=g).to(dev)),
                 ("odd", "(1, 37, 53, 64)", x_odd, torch.randn(x_odd.shape, generator=g).to(dev))):
@@ -2732,6 +2790,7 @@ def main() -> int:
         x4c, x2c, x1024c = x4.permute(0, 3, 1, 2), x2.permute(0, 3, 1, 2), x1024.permute(0, 3, 1, 2)
         xtc, gtc = xt.permute(0, 3, 1, 2), gt.permute(0, 3, 1, 2)
         x1c, g1c = x1.permute(0, 3, 1, 2), g1.permute(0, 3, 1, 2)
+        xsc, gsc, x264c = xs.permute(0, 3, 1, 2), gs.permute(0, 3, 1, 2), x264.permute(0, 3, 1, 2)
         wdc = wd.permute(3, 2, 0, 1).contiguous()
         cl = torch.channels_last
         xcb, xcb1024 = xb.permute(0, 3, 1, 2), xb1024.permute(0, 3, 1, 2)
@@ -2776,6 +2835,26 @@ def main() -> int:
                  lambda: conv9.conv9_wgrad_plain(x1, g1, 9),
                  lambda: torch.nn.grad.conv2d_weight(x1c, wc.shape, g1c, padding=4),
                  wgrad_bound(x1), PEAK_F32_FLOPS),
+                # A rank's rows plus the halo: dp x sp training over two ranks
+                # (path 9 (d)) and the height-sharded test phase (path 9 (e)).
+                ("conv9 (2,72,128,64) forward, dp x sp", conv9_src, conv9_rep, "conv9_72",
+                 ("conv9", "forward", xs), lambda: conv9.conv9_fwd(xs, w9),
+                 lambda: conv9.conv9_plain(xs, w9), lambda: F.conv2d(xsc, wc, padding=4),
+                 conv_bound(xs), PEAK_F32_FLOPS),
+                ("conv9 (2,72,128,64) dgrad, dp x sp", conv9_src, conv9_rep, "dgrad_72",
+                 ("conv9", "dgrad", gs), lambda: conv9.conv9_fwd(gs, wd),
+                 lambda: conv9.conv9_plain(gs, wd),
+                 lambda: torch.nn.grad.conv2d_input(xsc.shape, wc, gsc, padding=4), conv_bound(gs),
+                 PEAK_F32_FLOPS),
+                ("conv9_wgrad (2,72,128,64), dp x sp", wgrad_src, wgrad_rep, "wgrad_72",
+                 ("conv9_wgrad", "wgrad", xs), lambda: conv9.conv9_wgrad(xs, gs, 9),
+                 lambda: conv9.conv9_wgrad_plain(xs, gs, 9),
+                 lambda: torch.nn.grad.conv2d_weight(xsc, wc.shape, gsc, padding=4),
+                 wgrad_bound(xs), PEAK_F32_FLOPS),
+                ("conv9 (1,264,512,64) forward, height-sharded test", conv9_src, conv9_rep,
+                 "conv9_264", ("conv9", "forward", x264), lambda: conv9.conv9_fwd(x264, w9),
+                 lambda: conv9.conv9_plain(x264, w9), lambda: F.conv2d(x264c, wc, padding=4),
+                 conv_bound(x264), PEAK_F32_FLOPS),
                 ("flash_attention (1,4,4096,16)", flash_src, flash_rep, "flash", ("flash_attention", "forward", q),
                  lambda: attention.flash_attention(q, k, v), lambda: attention.sdpa_chunked(q, k, v),
                  lambda: F.scaled_dot_product_attention(q, k, v), flash_bound(q), PEAK_F32_FLOPS),

@@ -41,16 +41,17 @@ thread and a side stream, from a snapshot of the weights), ``checkpoint_best``,
 epoch) and ``eval_metric_source``.
 
 ``mesh_shape: "N"`` is data parallelism over a ``torch.distributed`` group
-of N processes, one per GPU (``parallel/``; ``torchrun --nproc_per_node N``),
-and ``eval_sharded`` with ``eval_shard_mode: band`` splits the eval and test
-forwards' bands across them (``evaluate.py::BandShardedInferencer``).
+of N processes, one per GPU (``parallel/``; ``torchrun --nproc_per_node N``);
+``mesh_shape: "DxS"`` with ``space_axis`` also splits the patch height over
+S of them (dp×sp). ``eval_sharded`` splits the eval and test forwards'
+height (``eval_shard_mode: spatial``, ``evaluate.py::ShardedInferencer``)
+or bands (``band``, ``BandShardedInferencer``) across the data axis.
 ``device`` also takes 'cuda:N', a card named explicitly.
 
 Every key loads. A value that asks for behaviour the port lacks raises
 ``NotImplementedError`` naming its ROADMAP.md item (:func:`check_ported`):
-the space axis (a 2-D ``mesh_shape``, ``space_axis``), the spatially sharded
-eval and serving on a mesh. Keys that only change speed (``jit_cache_dir``)
-are ignored, and training prints them.
+serving on a mesh. Keys that only change speed (``jit_cache_dir``) are
+ignored, and training prints them.
 """
 
 from __future__ import annotations
@@ -135,9 +136,9 @@ class Config:
     remat: bool = False                   # recompute each sub-network's activations in the backward
     use_attention: bool = False           # SEBlock variant (reference model.py:122,130-131)
     use_transformer: bool = True          # TransformerBlock variant (reference default)
-    mesh_shape: str = ""                  # "N": data parallelism over N processes (torchrun)
+    mesh_shape: str = ""                  # "N" or "DxS": one process a GPU (torchrun)
     data_axis: str = "data"               # the mesh's data axis name
-    space_axis: str = ""                  # dp x sp: non-empty raises (not ported yet)
+    space_axis: str = ""                  # dp x sp: the 2-D mesh's axis the patch height splits on
     prefetch_batches: int = 2             # host pipeline: batches staged ahead on a worker thread
     data_pattern: str = "*.mat"           # dataset glob per split dir
     lazy_loading: bool = False            # true: the disk-backed LazyCubeStore (an LRU cache)
@@ -156,7 +157,7 @@ class Config:
     eval_pad_multiple: int = 1            # >1: edge-pad H,W to a multiple before the forward
     eval_batch: int = 1                   # >1: stack same-shape cubes into one forward
     eval_sharded: bool = False            # with a mesh: eval/test forwards sharded over the ranks
-    eval_shard_mode: str = "spatial"      # 'band' (ported) | 'spatial' (raises with a mesh)
+    eval_shard_mode: str = "spatial"      # 'spatial' (height) | 'band' (spectral)
     async_eval: bool = False              # true: evals on a worker thread and a side stream
     eval_metric_source: str = "memory"    # 'memory' | 'disk': score S in memory or the saved files
     checkpoint_async: bool = True         # write checkpoints on a background thread
@@ -286,15 +287,6 @@ def _validate_enums(cfg: "Config") -> None:
             )
 
 
-# Values the port cannot honour yet: (applies to the test phase too, what,
-# ROADMAP.md queue-1 item). Serving on a mesh is checked apart (check_ported).
-_NOT_PORTED = (
-    (True, lambda c: "x" in str(c.mesh_shape).lower(),
-     "a 2-D mesh_shape (data x space, dp x sp)", "item 7"),
-    (True, lambda c: bool(c.space_axis), "space_axis (dp x sp)", "item 7"),
-    (True, lambda c: bool(c.mesh_shape) and c.eval_sharded and c.eval_shard_mode == "spatial",
-     "eval_shard_mode: spatial (the height-sharded ShardedInferencer)", "item 7"),
-)
 # matmul_precision values that run float32 products in TF32 on the card: the
 # TF32 passes XLA takes for them on an NVIDIA GPU (float32 accumulation).
 TF32_PRECISIONS = ("default", "bfloat16", "high", "tensorfloat32")
@@ -313,16 +305,13 @@ def matmul_tf32(matmul_precision: str) -> bool:
 SPEED_ONLY_KEYS = ("jit_cache_dir",)
 
 
-def check_ported(cfg: "Config", training: bool, serving: bool = False) -> None:
+def check_ported(cfg: "Config", serving: bool = False) -> None:
     """Raise NotImplementedError for a value whose behaviour the port lacks, so
-    that no ignored key changes results. ``serving`` (or ``phase: serve``)
-    also refuses a mesh."""
+    that no ignored key changes results: a mesh when ``serving`` (or
+    ``phase: serve``). Serving on a mesh is item 7's last part."""
     if (serving or cfg.phase == "serve") and cfg.mesh_shape:
         raise NotImplementedError("serving on a mesh (mesh_shape) is not ported yet "
-                                  "(ROADMAP.md queue 1, item 7)")
-    for always, asks, what, item in _NOT_PORTED:
-        if (always or training) and asks(cfg):
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue 1, {item})")
+                                  "(ROADMAP.md queue 1, item 7: serving)")
 
 
 def _coerce(value: str, target_type: type) -> Any:

@@ -8,8 +8,7 @@
   JAX one. ``inf(weights, cube)`` (JAX ``Inferencer(params, cube)``) runs
   one cube with explicit weights, a state dict on the device, through
   ``torch.func.functional_call``: the serving path's hot reload swaps them
-  without touching the module. :func:`pad_forward_crop` is the one-cube form
-  of :func:`pad_forward_crop_batch`.
+  without touching the module.
 * :func:`test_model` loads ``model_epoch_latest.pth``, runs every test cube
   through the model with per-cube timing (host clock, ending in
   ``torch.cuda.synchronize()`` on the card), and saves the denormalised S,
@@ -27,14 +26,16 @@
   across epochs (``trainer.eval_saver``), drained before disk metrics, at
   the end of ``fit`` and so before the test phase reads anything.
 
-* :class:`BandShardedInferencer` (``eval_sharded: true`` and
-  ``eval_shard_mode: band`` with a mesh; :func:`_make_inferencer`) splits the
-  cube's bands across the ranks of the process group. Under a mesh rank 0
-  alone saves and scores (JAX's single writer); every rank runs the
-  forward, which a sharded eval needs.
+* :class:`ShardedInferencer` (``eval_sharded: true`` with a mesh, the
+  default ``eval_shard_mode: spatial``; :func:`_make_inferencer`) splits the
+  cube's height across the ranks of the mesh's data axis, and
+  :class:`BandShardedInferencer` (``eval_shard_mode: band``) its bands.
+  Under a mesh rank 0 alone saves and scores (JAX's single writer); every
+  rank runs the forward, which a sharded eval needs.
 
-The height-sharded ``ShardedInferencer`` is not ported yet (ROADMAP.md
-queue 1, item 7).
+Every inferencer runs the model under its own height split (None but for
+the ``ShardedInferencer``), whatever split a trainer gave the model for its
+steps (``models/enhance.py::sharded``).
 """
 
 from __future__ import annotations
@@ -53,8 +54,9 @@ from sshslie_torch import checkpoints, interop
 from sshslie_torch import metrics as metrics_mod
 from sshslie_torch.config import Config
 from sshslie_torch.data.datasets import CubeStore
+from sshslie_torch.models.enhance import sharded
 from sshslie_torch.ops import at_least_float32
-from sshslie_torch.parallel import distributed
+from sshslie_torch.parallel import distributed, spatial
 from sshslie_torch.utils.io_hsi import load_hsi, save_hsi
 
 
@@ -73,17 +75,12 @@ def pad_forward_crop_batch(fn: Callable, stack: torch.Tensor, mh: int, mw: int):
     return R, I, Id, S
 
 
-def pad_forward_crop(fn: Callable, cube: torch.Tensor, mh: int, mw: int):
-    """One (H, W, C) cube through :func:`pad_forward_crop_batch`; outputs
-    without the batch dim."""
-    R, I, Id, S = pad_forward_crop_batch(fn, cube[None], mh, mw)
-    return R[0], I[0], Id[0], S[0]
-
-
 class Inferencer:
     """(R_low, I_low, I_delta, S) forward over host (H, W, C) cubes, with the
     model's own weights or explicit ones (a state dict on ``device``, the
     model's device unless given)."""
+
+    shard: Optional[spatial.Shard] = None    # the height split of its forwards
 
     def __init__(self, model: torch.nn.Module, pad_multiple: int = 1,
                  device: Optional[torch.device] = None):
@@ -99,24 +96,63 @@ class Inferencer:
     def batched(self, stack, weights: Optional[Dict[str, torch.Tensor]] = None):
         """(N, H, W, C) stack of same-shape cubes in one forward."""
         m = self.pad_multiple
-        with torch.inference_mode():
+        with torch.inference_mode(), sharded(self.model, self.shard):
             x = torch.as_tensor(stack, dtype=torch.float32).to(self.device)
             return pad_forward_crop_batch(self._fn(weights), x, m, m)
 
     def __call__(self, weights: Optional[Dict[str, torch.Tensor]], cube):
         """One (H, W, C) cube (host array or tensor) with ``weights`` (None:
-        the model's own)."""
-        m = self.pad_multiple
-        with torch.inference_mode():
-            x = torch.as_tensor(cube, dtype=torch.float32).to(self.device)
-            return pad_forward_crop(self._fn(weights), x, m, m)
+        the model's own); outputs without the batch dim."""
+        R, I, Id, S = self.batched(torch.as_tensor(cube)[None], weights)
+        return R[0], I[0], Id[0], S[0]
+
+
+class ShardedInferencer(Inferencer):
+    """Height-sharded whole-cube inference over the ranks of a mesh's data
+    axis (JAX ``ShardedInferencer``; on a 2-D mesh the space ranks compute
+    replicas, as JAX's ``P(None, data_axis)`` leaves them).
+
+    H is edge-padded to a multiple of 8·n and W to a multiple of 8, so that
+    every rank's share of the stride-2 pyramid stays even; the pad is
+    cropped from the outputs. Rank i uploads only its rows ``[i*H/n,
+    (i+1)*H/n)`` of the padded cube and runs the model under a split of its
+    height (``parallel/spatial.py``: halo rows at every conv, the attention
+    on the gathered sequence). R, I_low, I_delta and S are gathered (one
+    ``all_gather``), so that rank 0 holds them whole to save and score, as
+    JAX replicates its outputs for its single writer. Without a process
+    group (a 1-process mesh) it is the whole forward.
+    """
+
+    def __init__(self, model: torch.nn.Module, mesh, data_axis: str = "data"):
+        super().__init__(model, pad_multiple=8)
+        self.shard = mesh.shard(data_axis)
+        self.n = self.shard.size
+
+    def batched(self, stack, weights: Optional[Dict[str, torch.Tensor]] = None):
+        """(N, H, W, C) stack of same-shape cubes in one height-sharded
+        forward; only this rank's rows are uploaded."""
+        if weights is not None:
+            raise ValueError("ShardedInferencer runs the model's own weights")
+        with torch.inference_mode(), sharded(self.model, self.shard):
+            x = torch.as_tensor(stack, dtype=torch.float32)
+            _, h, w, _ = x.shape
+            ph, pw = (-h) % (8 * self.n), (-w) % 8
+            if ph or pw:
+                x = F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph),
+                          mode="replicate").permute(0, 2, 3, 1)
+            x = spatial.take_rows(x, self.shard, dim=1).contiguous().to(self.device)
+            outs = self.model(x)
+            sizes = [t.shape[-1] for t in outs]
+            whole = distributed.all_gather_cat(torch.cat(outs, dim=-1), 1, self.shard.group)
+            return tuple(t[:, :h, :w] for t in whole.split(sizes, dim=-1))
 
 
 class BandShardedInferencer(Inferencer):
     """Band-sharded whole-cube inference over the ranks of a mesh (JAX
     ``BandShardedInferencer``).
 
-    Rank r of n owns bands ``[r*C/n, (r+1)*C/n)``: it uploads only those of
+    Rank r of n on the data axis owns bands ``[r*C/n, (r+1)*C/n)`` (on a 2-D
+    mesh the space ranks compute replicas): it uploads only those of
     the input and computes only those of R (recon's output channels), of the
     sigmoid split and of S. The fixed-width trunk (32 to 64 channels), I_low
     and I_delta are computed on every rank (replicated). The collectives sit
@@ -146,12 +182,13 @@ class BandShardedInferencer(Inferencer):
         if model.input_channels % n != 0:
             raise ValueError(
                 f"band sharding needs channels ({model.input_channels}) divisible "
-                f"by the '{band_axis}' mesh axis ({n}); the spatial ShardedInferencer "
-                "is not ported yet (ROADMAP.md queue 1, item 7)")
+                f"by the '{band_axis}' mesh axis ({n}); use the spatial "
+                "ShardedInferencer (eval_shard_mode: spatial)")
         super().__init__(model, pad_multiple=8)
+        axis = mesh.shard(band_axis)
         per = model.input_channels // n
-        self.bands = slice(mesh.rank * per, (mesh.rank + 1) * per)
-        self.rank = mesh.rank
+        self.bands = slice(axis.index * per, (axis.index + 1) * per)
+        self.rank, self.group = axis.index, axis.group
 
     def _forward(self, x: torch.Tensor):
         """This rank's bands (B, H, W, C/n) → (R, I_low, I_delta, S), NHWC,
@@ -160,7 +197,7 @@ class BandShardedInferencer(Inferencer):
         dn, il = m.decomposition_net, m.illum_adjust_net
         c_all = m.input_channels
         own = list(range(bands.start, bands.stop))
-        x = distributed.all_gather_cat(x, dim=3).permute(0, 3, 1, 2)
+        x = distributed.all_gather_cat(x, 3, self.group).permute(0, 3, 1, 2)
         recon_conv = dn.recon
         recon = at_least_float32(recon_conv.conv_with(
             dn.features(x), recon_conv.weight[own + [c_all]], recon_conv.bias[own + [c_all]]))
@@ -174,37 +211,33 @@ class BandShardedInferencer(Inferencer):
         else:
             part = conv0.conv_with(R, w[:, own], None)
         # Summed in float32 at least, whatever the compute dtype.
-        I_delta = il.adjust(distributed.all_sum_(part.float()).to(part.dtype))
+        I_delta = il.adjust(distributed.all_sum_(part.float(), self.group).to(part.dtype))
         S = R * I_delta + R * L
         R, L, I_delta, S = (t.permute(0, 2, 3, 1) for t in (R, L, I_delta, S))
-        return (distributed.all_gather_cat(R, dim=3), L, I_delta,
-                distributed.all_gather_cat(S, dim=3))
+        return (distributed.all_gather_cat(R, 3, self.group), L, I_delta,
+                distributed.all_gather_cat(S, 3, self.group))
 
     def batched(self, stack, weights: Optional[Dict[str, torch.Tensor]] = None):
         """(N, H, W, C) stack of same-shape cubes in one band-sharded forward;
         only this rank's bands are uploaded."""
         if weights is not None:
             raise ValueError("BandShardedInferencer runs the model's own weights")
-        with torch.inference_mode():
+        with torch.inference_mode(), sharded(self.model, None):
             x = torch.as_tensor(stack, dtype=torch.float32)[..., self.bands]
             return pad_forward_crop_batch(self._forward, x.contiguous().to(self.device), 8, 8)
-
-    def __call__(self, weights: Optional[Dict[str, torch.Tensor]], cube):
-        R, I, Id, S = self.batched(torch.as_tensor(cube)[None], weights)
-        return R[0], I[0], Id[0], S[0]
 
 
 def _make_inferencer(model: torch.nn.Module, cfg: Config, mesh=None) -> Inferencer:
     """Inferencer selection for eval/test (JAX ``_make_inferencer``):
-    ``eval_sharded: true`` with a mesh and ``eval_shard_mode: band`` →
-    :class:`BandShardedInferencer`; else the one-device forward. Opt-in, as
-    in JAX: its pad to a multiple of 8 perturbs every output pixel of a cube
-    whose H or W it pads, through the global attention."""
+    ``eval_sharded: true`` with a mesh → :class:`BandShardedInferencer` for
+    ``eval_shard_mode: band``, else :class:`ShardedInferencer`; without, the
+    one-device forward. Opt-in, as in JAX: the pad to a multiple of 8 (8·n
+    in height) perturbs every output pixel of a cube whose H or W it pads,
+    through the global attention."""
     if mesh is not None and cfg.eval_sharded:
-        if cfg.eval_shard_mode != "band":
-            raise NotImplementedError("eval_shard_mode: spatial is not ported yet "
-                                      "(ROADMAP.md queue 1, item 7)")
-        return BandShardedInferencer(model, mesh, cfg.data_axis)
+        if cfg.eval_shard_mode == "band":
+            return BandShardedInferencer(model, mesh, cfg.data_axis)
+        return ShardedInferencer(model, mesh, cfg.data_axis)
     return Inferencer(model, cfg.eval_pad_multiple)
 
 

@@ -61,7 +61,8 @@ class DecompositionNet(nn.Module):
         conv1 = self.conv1(self.shallow_conv(x))
         conv3 = self.conv3(self.conv2(conv1))
         # The transpose conv yields 2·ceil(H/2); crop to the skip's size so odd
-        # inputs work, as the JAX package does (no-op for even sizes).
+        # inputs work, as the JAX package does (no-op for even sizes, and for
+        # a rank's even share of the height).
         deconv = self.deconv(conv3)[:, :, : conv1.shape[2], : conv1.shape[3]]
         conv5 = self.conv5(torch.cat([deconv, conv1], dim=1))
         return self.conv7(torch.cat([conv5, conv0], dim=1))

@@ -17,10 +17,14 @@ backward instead of kept. It changes neither the result nor the state-dict
 keys. ``tf32`` (``matmul_precision`` below float32) sets every Conv2d's
 ``tf32`` flag, as ``dtype`` sets their compute dtype: the shallow conv's
 kernels then take their TF32 entries for float32 operands on the card.
+:func:`shard_space` gives every layer that reads across rows a height
+split (``parallel/spatial.py``): the forward then takes and returns the
+rank's rows of each NHWC tensor.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple, Union
 
 import torch
@@ -30,14 +34,17 @@ from torch.utils.checkpoint import checkpoint
 from sshslie_torch.config import matmul_tf32
 from sshslie_torch.device import resolve_device
 from sshslie_torch.models.decomposition import DecompositionNet
-from sshslie_torch.models.illum_adjust import IllumAdjustmentNet
+from sshslie_torch.models.illum_adjust import IllumAdjustmentNet, SEBlock, TransformerBlock
 from sshslie_torch.models.layers import Conv2d, ConvTranspose2d, Dense
+from sshslie_torch.parallel.spatial import Shard
 
 PRECISIONS = {"float32": None, "bfloat16": torch.bfloat16}
 
 
 class LowLightEnhanceNet(nn.Module):
     """Retinex decomposition + illumination adjustment (reference model.py:177-234)."""
+
+    space: Optional[Shard] = None
 
     def __init__(self, input_channels: int = 64, channel: int = 64,
                  use_attention: bool = False, use_transformer: bool = True,
@@ -80,6 +87,34 @@ class LowLightEnhanceNet(nn.Module):
         R_low, I_low, I_delta, S = self(input_low)
         R_enh, _ = self._apply_net(self.decomposition_net, S.permute(0, 3, 1, 2))
         return R_low, I_low, I_delta, S, R_enh.permute(0, 2, 3, 1)
+
+
+def shard_space(model: LowLightEnhanceNet, shard: Optional[Shard]) -> Optional[Shard]:
+    """Split the model's height over ``shard`` (None: whole), as ``tf32`` is
+    set: an attribute of every layer that reads across rows, so that
+    ``remat``'s recomputation in the backward runs the same collectives.
+    Returns the split it replaces."""
+    previous = model.space
+    for m in model.modules():
+        if isinstance(m, (LowLightEnhanceNet, Conv2d, ConvTranspose2d, TransformerBlock,
+                          SEBlock)):
+            m.space = shard
+    return previous
+
+
+@contextlib.contextmanager
+def sharded(model: nn.Module, shard: Optional[Shard]):
+    """The model's height split set to ``shard`` inside the block and put
+    back after it (nothing is touched when it is ``shard`` already)."""
+    previous = getattr(model, "space", None)
+    if previous == shard:
+        yield
+        return
+    shard_space(model, shard)
+    try:
+        yield
+    finally:
+        shard_space(model, previous)
 
 
 def build_model(cfg, channels: int, device: Union[None, str, torch.device] = None,

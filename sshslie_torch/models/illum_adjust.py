@@ -5,6 +5,14 @@ TransformerBlock quirks kept on purpose (reference model.py:99-119, PARITY
 #9): no positional encoding, no LayerNorm, and the residual adds the FF output
 to the *input* tokens (the attention output reaches the residual only through
 the FF). NCHW-shaped tensors with channels_last memory (see ``layers.py``).
+
+Height sharding (``space`` set, see ``layers.py``): the TransformerBlock
+gathers its input's rows from every rank (``gather_rows``), runs Q/K/V, the
+attention and the FF over the whole H·W sequence, as on one device (so
+``multi_head_attention``'s ``auto`` rule decides on the whole S), and keeps
+its own rows: what GSPMD does with JAX's ``pallas_call``, which it cannot
+partition. The SEBlock's squeeze is the mean over the ranks' means
+(``space_mean``).
 """
 
 from __future__ import annotations
@@ -17,10 +25,13 @@ import torch.nn as nn
 from sshslie_torch.models.layers import Conv2d, Dense, conv_block, nearest_resize
 from sshslie_torch.ops import at_least_float32
 from sshslie_torch.ops.attention import multi_head_attention
+from sshslie_torch.parallel.spatial import Shard, gather_rows, space_mean
 
 
 class SEBlock(nn.Module):
     """Squeeze-and-excitation channel gate (reference model.py:72-85)."""
+
+    space: Optional[Shard] = None
 
     def __init__(self, channels: int, reduction: int = 16,
                  generator: Optional[torch.Generator] = None):
@@ -30,12 +41,16 @@ class SEBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         squeeze = x.mean(dim=(2, 3))
+        if self.space is not None:
+            squeeze = space_mean(squeeze, self.space)
         excitation = torch.sigmoid(self.fc2(torch.relu(self.fc1(squeeze))))
         return x * excitation[:, :, None, None]
 
 
 class TransformerBlock(nn.Module):
     """Self-attention over the flattened H·W pixels (reference model.py:87-119)."""
+
+    space: Optional[Shard] = None
 
     def __init__(self, channels: int, num_heads: int = 4, head_dim: int = 16,
                  ff_dim: int = 64, attention_impl: str = "auto",
@@ -51,9 +66,16 @@ class TransformerBlock(nn.Module):
         self.ff_linear2 = Dense(ff_dim, channels, generator=g)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[1] != self.channels:
+            raise ValueError(f"TransformerBlock built for {self.channels} channels, "
+                             f"got {x.shape[1]}")
+        if self.space is None:
+            return self._attend(x)
+        rows = self.space.rows(self.space.size * x.shape[2])
+        return self._attend(gather_rows(x, self.space))[:, :, rows]
+
+    def _attend(self, x: torch.Tensor) -> torch.Tensor:
         b, c, h, w = x.shape
-        if c != self.channels:
-            raise ValueError(f"TransformerBlock built for {self.channels} channels, got {c}")
         s = h * w
         x_flat = x.permute(0, 2, 3, 1).reshape(b, s, c)
 

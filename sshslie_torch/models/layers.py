@@ -21,6 +21,23 @@ keep torch's own layouts and names (Conv2d OIHW, ConvTranspose2d IOHW, Linear
 * :func:`nearest_resize`: ``F.interpolate(mode='nearest')`` index math,
   src = floor(dst * in/out) in float32, written out as the JAX package does.
 
+Height sharding (the space axis, ``parallel/spatial.py``): a Conv2d or
+ConvTranspose2d whose ``space`` is set (a ``Shard``, set like ``tf32`` by
+``models/enhance.py::shard_space``) holds only its rank's rows of the
+height and computes only its rank's rows of the output. It takes the rows
+its taps read beyond the share from its neighbours (``halo_rows``) and pads
+only the width:
+
+* k x k, stride 1: (k-1)/2 rows each side; on the CUDA kernel, which pads
+  SAME, the kernel runs on the rows plus the halo and (k-1)/2 rows are
+  cropped each side;
+* stride s, padding p: output row i reads input rows s*i - p .. s*i - p + k - 1,
+  so the rank needs p rows from the previous rank and k - s - p from the
+  next (1 and 0 at k 3, s 2);
+* the transposed conv (k 3, s 2, p 1, op 1): its output rows [2a, 2b) read
+  input rows a .. b, one row from the next rank; the rows past 2b are
+  cropped.
+
 Every layer draws its initial weights and biases from U(-1/sqrt(fan_in),
 1/sqrt(fan_in)), PyTorch's default envelope, from an explicit generator.
 
@@ -44,6 +61,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from sshslie_torch.ops import conv9
+from sshslie_torch.parallel.spatial import Shard, halo_rows
 
 
 def _uniform_(t: torch.Tensor, fan_in: int, generator: Optional[torch.Generator]) -> None:
@@ -57,6 +75,7 @@ class Conv2d(nn.Module):
 
     compute_dtype: Optional[torch.dtype] = None
     tf32: bool = False
+    space: Optional[Shard] = None
 
     def __init__(self, in_ch: int, out_ch: int, k: int, stride: int = 1,
                  impl: str = "torch", generator: Optional[torch.Generator] = None):
@@ -84,21 +103,29 @@ class Conv2d(nn.Module):
         parameters' place: the band-sharded forward's slices of them."""
         x, w = _cast(self.compute_dtype, x, weight)
         b = bias if bias is None else _cast(self.compute_dtype, bias)[0]
+        p = (self.k - 1) // 2
+        halo = self.space is not None and p > 0
+        if halo:
+            # The rows beyond this rank's share come from its neighbours.
+            x = halo_rows(x, self.space, p, max(self.k - self.stride - p, 0))
         if b is not None and self._use_kernel(x, w):
             y = conv9.shallow_conv(x.permute(0, 2, 3, 1).contiguous(),
                                    w.permute(2, 3, 1, 0).contiguous(), b,
                                    self.tf32 and x.is_cuda and x.dtype == torch.float32)
-            return y.permute(0, 3, 1, 2)
-        p = (self.k - 1) // 2
+            y = y.permute(0, 3, 1, 2)
+            # The kernel pads SAME: on a halo'd share its edge rows are cropped.
+            return y[:, :, p:y.shape[2] - p] if halo else y
+        pad = (0, p) if halo else p
         if self.compute_dtype is None or b is None:
-            return F.conv2d(x, w, b, stride=self.stride, padding=p)
-        return F.conv2d(x, w, None, stride=self.stride, padding=p) + b[:, None, None]
+            return F.conv2d(x, w, b, stride=self.stride, padding=pad)
+        return F.conv2d(x, w, None, stride=self.stride, padding=pad) + b[:, None, None]
 
 
 class ConvTranspose2d(nn.Module):
     """``nn.ConvTranspose2d(k, stride, padding=(k-1)//2, output_padding)``, IOHW weight."""
 
     compute_dtype: Optional[torch.dtype] = None
+    space: Optional[Shard] = None
 
     def __init__(self, in_ch: int, out_ch: int, k: int = 3, stride: int = 2,
                  output_padding: int = 1, generator: Optional[torch.Generator] = None):
@@ -113,10 +140,18 @@ class ConvTranspose2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x, w, b = _cast(self.compute_dtype, x, self.weight, self.bias)
-        kw = dict(stride=self.stride, padding=(self.k - 1) // 2, output_padding=self.output_padding)
+        p, s = (self.k - 1) // 2, self.stride
+        kw = dict(stride=s, padding=p, output_padding=self.output_padding)
+        rows = None
+        if self.space is not None:
+            # Output rows [s*a, s*b) read input rows a - (k-1-p)//s .. b - 1 + (p-1)//s + 1.
+            up, rows = (self.k - 1 - p) // s, s * x.shape[2]
+            x = halo_rows(x, self.space, up, (p - 1) // s + 1)
         if self.compute_dtype is None:
-            return F.conv_transpose2d(x, w, b, **kw)
-        return F.conv_transpose2d(x, w, None, **kw) + b[:, None, None]
+            y = F.conv_transpose2d(x, w, b, **kw)
+        else:
+            y = F.conv_transpose2d(x, w, None, **kw) + b[:, None, None]
+        return y if rows is None else y[:, :, s * up: s * up + rows]
 
 
 class Dense(nn.Module):

@@ -8,22 +8,25 @@
   environment is present a failed init raises (JAX's rule): a rank that
   carried on alone would disagree with the others on the world size and
   hang them in their first collective.
-* :func:`process_batch_slice` is this rank's sample range of a global batch.
-* The collectives the port runs, each on the default group and each a no-op
-  without a group (a 1-process mesh): :func:`all_mean_` (every tensor
-  replaced by its mean over the ranks, one ``all_reduce`` over one flat
-  buffer: a step's gradients and terms), :func:`all_sum_`, :func:`all_max`,
-  :func:`broadcast_` and :func:`broadcast_object` (from rank 0),
-  :func:`all_gather_cat`, :func:`barrier`. They
-  use only ``all_reduce``, ``broadcast`` and ``all_gather``, which NCCL and
-  gloo both run on CUDA tensors. A failed collective raises.
+* :func:`process_batch_slice` is this rank's sample range of a global batch:
+  by its index on a mesh's data axis, else by its rank.
+* The collectives the port runs, each a no-op without a group (a 1-process
+  mesh): :func:`all_mean_` (every tensor replaced by its sum over the ranks
+  divided by the world size or by its own divisor, one ``all_reduce`` over
+  one flat buffer: a step's gradients and terms), :func:`all_sum_`,
+  :func:`all_max`, :func:`broadcast_` and :func:`broadcast_object` (from
+  rank 0), :func:`all_gather` and :func:`all_gather_cat`, :func:`barrier`.
+  ``all_mean_``, ``all_sum_`` and the gathers take a ``group`` (a
+  ``dist.new_group`` of a mesh axis; None, the default group). They use only
+  ``all_reduce``, ``broadcast`` and ``all_gather``, which NCCL and gloo both
+  run on CUDA tensors. A failed collective raises.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -97,36 +100,40 @@ def leave() -> None:
         dist.destroy_process_group()
 
 
-def process_batch_slice(global_batch: int) -> slice:
-    """The [start, stop) sample range this process should load/crop."""
-    n = world_size()
+def process_batch_slice(global_batch: int, mesh=None) -> slice:
+    """The [start, stop) sample range this process should load/crop: its
+    share by its index on ``mesh``'s data axis (the ranks of a space group
+    share one), or by its rank without a mesh."""
+    n, i = (world_size(), rank()) if mesh is None else (mesh.data_size, mesh.data_index)
     if global_batch % n != 0:
         raise ValueError(f"global batch {global_batch} not divisible by {n} processes")
     per = global_batch // n
-    i = rank()
     return slice(i * per, (i + 1) * per)
 
 
-def all_mean_(tensors: Sequence[torch.Tensor]) -> None:
-    """Replace each tensor (all on one device) by its mean over the ranks:
-    one ``all_reduce`` over one flat float32 buffer, then a division by the
-    world size."""
+def all_mean_(tensors: Sequence[torch.Tensor], divisors: Optional[Sequence[float]] = None,
+              group=None) -> None:
+    """Replace each tensor (all on one device) by its sum over the ranks of
+    ``group`` divided by its divisor (default: the group's size, the mean):
+    one ``all_reduce`` over one flat float32 buffer."""
     if not active() or not tensors:
         return
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat)
-    flat.div_(world_size())
+    dist.all_reduce(flat, group=group)
+    if divisors is None:
+        flat.div_(dist.get_world_size(group))
     offset = 0
-    for t in tensors:
+    for i, t in enumerate(tensors):
         n = t.numel()
-        t.copy_(flat[offset:offset + n].view_as(t))
+        part = flat[offset:offset + n]
+        t.copy_((part if divisors is None else part / divisors[i]).view_as(t))
         offset += n
 
 
-def all_sum_(tensor: torch.Tensor) -> torch.Tensor:
-    """``tensor`` summed over the ranks, in place."""
+def all_sum_(tensor: torch.Tensor, group=None) -> torch.Tensor:
+    """``tensor`` summed over the ranks of ``group``, in place."""
     if active():
-        dist.all_reduce(tensor)
+        dist.all_reduce(tensor, group=group)
     return tensor
 
 
@@ -169,15 +176,27 @@ def broadcast_object(obj, device):
     return obj if rank() == 0 else pickle.loads(buf.cpu().numpy().tobytes())
 
 
-def all_gather_cat(tensor: torch.Tensor, dim: int) -> torch.Tensor:
-    """Every rank's ``tensor`` (one shape on every rank) concatenated along
-    ``dim`` in rank order, on every rank."""
+def all_gather(tensor: torch.Tensor, group=None) -> List[torch.Tensor]:
+    """Every rank's ``tensor`` (one shape on every rank of ``group``), in the
+    group's rank order, on every rank. 16-bit floats travel as their bit
+    patterns, which every backend gathers."""
+    if not active():
+        return [tensor]
+    t = tensor.contiguous()
+    bits = t.dtype in (torch.bfloat16, torch.float16)
+    if bits:
+        t = t.view(torch.int16)
+    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, t, group=group)
+    return [p.view(tensor.dtype) for p in parts] if bits else parts
+
+
+def all_gather_cat(tensor: torch.Tensor, dim: int, group=None) -> torch.Tensor:
+    """Every rank's ``tensor`` (one shape on every rank of ``group``)
+    concatenated along ``dim`` in rank order, on every rank."""
     if not active():
         return tensor
-    t = tensor.contiguous()
-    parts = [torch.empty_like(t) for _ in range(world_size())]
-    dist.all_gather(parts, t)
-    return torch.cat(parts, dim=dim)
+    return torch.cat(all_gather(tensor, group), dim=dim)
 
 
 def barrier(device) -> None:

@@ -23,16 +23,19 @@ phase's ``PSNR_dB``/``SSIM``/``SAM`` and the console log under
 
 With ``mesh_shape: "N"`` the run is data parallel over N processes, one per
 GPU, as the JAX runner's mesh: ``torchrun --nproc_per_node N -m
-sshslie_torch --config cfg.yml --mesh_shape N``. ``main`` joins the group
+sshslie_torch --config cfg.yml --mesh_shape N``; with ``mesh_shape: "DxS"``
+and ``space_axis`` (``--nproc_per_node`` D·S) the patch height is also split
+over S of them (dp×sp). ``main`` joins the group
 (``parallel.distributed.initialize_distributed``: NCCL on the card, gloo
-with ``device: cpu``), builds the mesh (``parallel.mesh.make_mesh``; N must
-be the world size) and prints it, and takes rank 0's run names
+with ``device: cpu``), builds the mesh (``parallel.mesh.make_mesh`` with the
+axes ``(data_axis, space_axis or "space")``; its size must be the world
+size) and prints it, and takes rank 0's run names
 (``timestamp`` and the directories derived from it), so that every rank
 reads what rank 0 writes. Rank 0 alone tracks, tees to
 ``logs/console_output_<run>.log`` (rank r > 0 to ``..._rank<r>.log``) and
 scores the test phase; every rank trains, and every rank runs the test
-phase's forward (band-sharded with ``eval_sharded`` and ``eval_shard_mode:
-band``). A group that ``main`` joined is left when it returns.
+phase's forward (height- or band-sharded with ``eval_sharded``). A group
+that ``main`` joined is left when it returns.
 
 A config value the port cannot honour raises (``config.check_ported``).
 """
@@ -160,18 +163,21 @@ def main(cfg: Config):
     when it tests (on rank 0 under a mesh); None when there are no training
     cubes to take the channel count from. ``serve`` returns {} once the
     server stops."""
-    check_ported(cfg, training=cfg.phase in _TRAINING)
+    check_ported(cfg)
     mesh, joined = None, False
     if cfg.mesh_shape:
         from sshslie_torch.parallel import distributed
-        from sshslie_torch.parallel.mesh import make_mesh
+        from sshslie_torch.parallel.mesh import make_mesh, parse_mesh_shape
 
         joined = not distributed.active() and distributed.initialize_distributed(
             device=cfg.device)
     try:
         device = resolve_device(cfg.device)
         if cfg.mesh_shape:
-            mesh = make_mesh(cfg.mesh_shape, axis_names=(cfg.data_axis,))
+            # The config's axis names, as JAX's runner passes them.
+            two_d = len(parse_mesh_shape(cfg.mesh_shape)) == 2
+            mesh = make_mesh(cfg.mesh_shape, axis_names=(
+                (cfg.data_axis, cfg.space_axis or "space") if two_d else (cfg.data_axis,)))
             names = distributed.broadcast_object(
                 {k: getattr(cfg, k) for k in sorted(_DERIVED_FIELDS)}, device)
             for k, v in names.items():

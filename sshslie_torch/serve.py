@@ -39,8 +39,9 @@ card and passed to the wire as it is (:func:`encode_cube_prequantized`).
 Body, declared shape and deflate output are capped (``_MAX_BODY_BYTES``).
 
 CLI: ``python -m sshslie_torch.serve --config cfg.yml --test_timestamp TS``,
-or ``python -m sshslie_torch --config cfg.yml --phase serve``. A mesh
-(``mesh_shape``) is not ported (ROADMAP.md queue 1, item 7) and raises.
+or ``python -m sshslie_torch --config cfg.yml --phase serve``. Serving on a
+mesh (``mesh_shape``) is not ported (ROADMAP.md queue 1, item 7: serving) and
+raises.
 """
 
 from __future__ import annotations
@@ -361,7 +362,7 @@ class EnhanceService:
         # Before any weight is touched, as in JAX.
         if cfg.mesh_shape and self.quantize:
             raise ValueError("serve_quantize is single-chip only")
-        check_ported(cfg, training=False, serving=True)
+        check_ported(cfg, serving=True)
         self.device = resolve_device(cfg.device)
         self.model = self._new_model()
         if state_dict is not None:
@@ -914,7 +915,7 @@ def build_server_from_config(cfg: Config) -> EnhanceServer:
     switches are set from ``matmul_precision``, as the runner sets them."""
     if cfg.channels is None:
         raise ValueError("phase=serve requires an explicit 'channels' config")
-    check_ported(cfg, training=False, serving=True)
+    check_ported(cfg, serving=True)
     ckpt = checkpoints.latest_path(cfg.test_model_dir)
     if not os.path.exists(ckpt):
         raise FileNotFoundError(f"no checkpoint at {ckpt}; train first or set test_timestamp")

@@ -14,8 +14,14 @@ when smaller), 2 epochs of one step with an eval each, and ``eval_sharded: true`
 ``eval_shard_mode: band`` (the mesh run's evals and test phase split the
 bands across the ranks; the one-process run ignores the key, as JAX does
 without a mesh). Every process writes its epoch terms, its launches by
-shape and its test output directory. Last, one process runs the test phase
-on the mesh run's checkpoint without a mesh.
+shape, its test output directory and seconds. Then one process runs the
+test phase on the mesh run's checkpoint without a mesh, and N ranks run it
+with ``eval_sharded`` in the default mode (the height split over the N
+ranks, ``ShardedInferencer``). Last, the space axis (N = 2 or 4): one step
+at the stock global batch 2 (two training cubes, one epoch of ``phase:
+train`` with the height-sharded eval) on one process and under ``torchrun``
+with ``--mesh_shape (N/2)x2 --space_axis space`` (dp x sp: the patch height
+split over two ranks).
 
 Checks: the ranks' epoch terms are equal; epoch 1, the first step from the
 same weights, within 2e-5 of each term of the one-process run's (PERF.md's
@@ -24,7 +30,12 @@ step's rounding into a drift that says nothing of the reduction); on a card
 each rank launched exactly its share (conv9 (1, p, p, 64) forward 2, dgrad 1
 and conv9_wgrad 2 a step at N = global batch; conv9 (1, size, size, 64) and
 flash once a cube evaluated or tested); rank 0's band-sharded test S within
-1e-5 of the span of the one-process test phase's S on the same checkpoint.
+1e-5 of the span of the one-process test phase's S on the same checkpoint,
+and so is the height-sharded test S (its s/cube reported beside one
+process's); the dp x sp step: the ranks' terms equal, each term within 2e-5
+of the one-process step's, launches exact a rank (conv9 (1, p/2 + 8, p, 64)
+forward 2 and dgrad 1 and conv9_wgrad 2 at b = 1 a data rank, conv9 (1,
+size/2 + 8, size, 64) and flash once a cube evaluated).
 Prints one JSON line with every number and the failed checks, then the card
 line; exits 1 when a check failed. No part of the port imports it.
 """
@@ -56,11 +67,13 @@ def _worker(out: str, argv: list) -> int:
 
     zero_counts(conv9, attention)
     cfg = parse_args(argv)
-    trainer = runner.main(cfg).get("trainer")
+    result = runner.main(cfg)
+    trainer = result.get("trainer")
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     rank = int(os.environ.get("RANK", "0"))
     report = {"rank": rank, "timestamp": cfg.timestamp, "test_result_dir": cfg.test_result_dir,
+              "seconds": result.get("seconds"),
               "counts": counts_to_json(shape_counts(conv9, attention))}
     if trainer is not None:
         report.update(losses=trainer.all_epoch_losses, mesh=str(trainer.mesh),
@@ -74,7 +87,8 @@ def _write_data(root: str, n_train: int, size: int, bands: int, lo: float, hi: f
     import scipy.io as sio
 
     rng = np.random.default_rng(SEED)
-    for sub, n, side in (("train", n_train, size // 2), ("test", 2, size), ("label", 2, size)):
+    for sub, n, side in (("train", n_train, size // 2), ("test", 2, size), ("label", 2, size),
+                         ("train_b2", 2, size // 2)):
         os.makedirs(os.path.join(root, sub))
         for i in range(n):
             cube = lo + (hi - lo) * rng.random((side, side, bands), dtype=np.float32)
@@ -124,13 +138,13 @@ def main(argv=None) -> int:
     cli = ["--config", ""] + [a for k, v in flags.items() for a in (f"--{k}", str(v))]
     env = dict(os.environ, PYTHONPATH=ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
     me = [sys.executable, "-m", "sshslie_torch.tools.dp_check", "--worker"]
+    ranks_of = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node", str(n), *me[1:]]
     seconds = {
         "one process": _run(me + [os.path.join(work, "ref"), *cli, "--model_name", "dp_ref"],
                             work, env, args.timeout),
-        f"{n} ranks": _run([sys.executable, "-m", "torch.distributed.run", "--standalone",
-                            "--nproc_per_node", str(n), *me[1:], os.path.join(work, "mesh"), *cli,
-                            "--model_name", "dp_mesh", "--mesh_shape", str(n)],
-                           work, env, args.timeout)}
+        f"{n} ranks": _run(ranks_of + [os.path.join(work, "mesh"), *cli, "--model_name", "dp_mesh",
+                                       "--mesh_shape", str(n)], work, env, args.timeout)}
 
     def report(name):
         with open(os.path.join(work, f"{name}.json")) as fh:
@@ -138,12 +152,30 @@ def main(argv=None) -> int:
 
     ref = report("ref.rank0")
     ranks = [report(f"mesh.rank{r}") for r in range(n)]
-    seconds["one-process test"] = _run(
-        me + [os.path.join(work, "test"), *cli, "--model_name", "dp_mesh", "--phase", "test",
-              "--test_timestamp", ranks[0]["timestamp"]], work, env, args.timeout)
+    test_cli = [*cli, "--model_name", "dp_mesh", "--phase", "test",
+                "--test_timestamp", ranks[0]["timestamp"]]
+    seconds["one-process test"] = _run(me + [os.path.join(work, "test"), *test_cli],
+                                       work, env, args.timeout)
     one = report("test.rank0")
+    seconds[f"height-sharded test on {n} ranks"] = _run(
+        ranks_of + [os.path.join(work, "sptest"), *test_cli, "--mesh_shape", str(n),
+                    "--eval_shard_mode", "spatial"], work, env, args.timeout)
+    sptest = [report(f"sptest.rank{r}") for r in range(n)]
+    sp_shape = f"{n // 2}x2" if n in (2, 4) else None
+    if sp_shape:
+        # The space axis: one step at the stock batch 2, its patch height on 2 ranks.
+        sp_cli = [*cli, "--phase", "train", "--batch_size", "2", "--epoch", "1",
+                  "--train_data", "train_b2", "--eval_shard_mode", "spatial"]
+        seconds["one process, b2"] = _run(me + [os.path.join(work, "ref_b2"), *sp_cli,
+                                                "--model_name", "sp_ref"], work, env, args.timeout)
+        seconds[f"{sp_shape} dp x sp"] = _run(
+            ranks_of + [os.path.join(work, "sp"), *sp_cli, "--model_name", "sp_mesh",
+                        "--mesh_shape", sp_shape, "--space_axis", "space"],
+            work, env, args.timeout)
     out = {"nproc": n, "meshes": [r["mesh"] for r in ranks], "devices": [r["device"] for r in ranks],
            "seconds": seconds}
+    test_s = {"one process": one["seconds"], f"height-sharded, {n} ranks": sptest[0]["seconds"]}
+    out["test_s_a_cube"] = {k: sum(v.values()) / len(v) for k, v in test_s.items()}
     failed = []
     if any(r["losses"] != ranks[0]["losses"] for r in ranks):
         failed.append("the ranks' epoch terms differ")
@@ -168,16 +200,50 @@ def main(argv=None) -> int:
         if counts != expected:
             failed.append(f"rank {r['rank']}: launches {counts}, expected {expected}")
     out["launches_a_rank"] = {" ".join(map(str, k)): v for k, v in expected.items()}
-    out["s_err"], out["s_span"] = [], []
-    for i in range(2):
-        s_mesh = load_hsi(os.path.join(work, ranks[0]["test_result_dir"], f"c{i}.mat"),
-                          mat_key="data")
-        s_one = load_hsi(os.path.join(work, one["test_result_dir"], f"c{i}.mat"), mat_key="data")
-        out["s_span"].append(float(s_one.max() - s_one.min()))
-        out["s_err"].append(float(np.abs(s_mesh.astype(np.float64) - s_one).max()))
-        if not out["s_err"][-1] <= 1e-5 * out["s_span"][-1]:
-            failed.append(f"test S of c{i}: {out['s_err'][-1]:.3e} from the one-process test "
-                          f"phase's, over 1e-5 of its span {out['s_span'][-1]:.1f}")
+    if card:
+        s1 = (1, size // n + 8, size, BANDS)
+        want = {("conv9", "forward", "float32", s1): 2}
+        if (size // 8) ** 2 > 2048:
+            want[("flash_attention", "forward", "float32", (1, 4, (size // 8) ** 2, 16))] = 2
+        for r in sptest:
+            if counts_from_json(r["counts"]) != want:
+                failed.append(f"height-sharded test rank {r['rank']}: launches "
+                              f"{counts_from_json(r['counts'])}, expected {want}")
+    for key, mesh_report in (("s", ranks[0]), ("sptest_s", sptest[0])):
+        out[f"{key}_err"], out["s_span"] = [], []
+        for i in range(2):
+            s_mesh = load_hsi(os.path.join(work, mesh_report["test_result_dir"], f"c{i}.mat"),
+                              mat_key="data")
+            s_one = load_hsi(os.path.join(work, one["test_result_dir"], f"c{i}.mat"),
+                             mat_key="data")
+            out["s_span"].append(float(s_one.max() - s_one.min()))
+            out[f"{key}_err"].append(float(np.abs(s_mesh.astype(np.float64) - s_one).max()))
+            if not out[f"{key}_err"][-1] <= 1e-5 * out["s_span"][-1]:
+                failed.append(f"{key} of c{i}: {out[f'{key}_err'][-1]:.3e} from the one-process "
+                              f"test phase's, over 1e-5 of its span {out['s_span'][-1]:.1f}")
+    if sp_shape:
+        sp_ref = report("ref_b2.rank0")
+        sp = [report(f"sp.rank{r}") for r in range(n)]
+        out["sp_mesh"] = sp[0]["mesh"]
+        if any(r["losses"] != sp[0]["losses"] for r in sp):
+            failed.append("dp x sp: the ranks' epoch terms differ")
+        got, want_l = sp[0]["losses"], sp_ref["losses"]
+        out["sp_step1_rel"] = max(abs(got[k][0] - v[0]) / abs(v[0]) for k, v in want_l.items())
+        if not out["sp_step1_rel"] <= 2e-5:
+            failed.append(f"dp x sp: step 1 terms {out['sp_step1_rel']:.3e} from the one-process "
+                          "b2 step's")
+        if card:
+            ps = (1, patch // 2 + 8, patch, BANDS)
+            want = {("conv9", "forward", "float32", ps): 2, ("conv9", "dgrad", "float32", ps): 1,
+                    ("conv9_wgrad", "wgrad", "float32", ps): 2,
+                    ("conv9", "forward", "float32", (1, size // 2 + 8, size, BANDS)): 2}
+            if (size // 8) ** 2 > 2048:
+                want[("flash_attention", "forward", "float32", (1, 4, (size // 8) ** 2, 16))] = 2
+            for r in sp:
+                if counts_from_json(r["counts"]) != want:
+                    failed.append(f"dp x sp rank {r['rank']}: launches "
+                                  f"{counts_from_json(r['counts'])}, expected {want}")
+            out["sp_launches_a_rank"] = {" ".join(map(str, k)): v for k, v in want.items()}
     out["failed"] = failed
     out["ok"] = not failed
     print(json.dumps(out))

@@ -83,9 +83,21 @@
   collectives in different orders would deadlock). A SIGTERM on any rank
   stops every rank after the same epoch. Checkpoints do not depend on the
   mesh: a run resumes on another number of ranks.
+* The space axis (a 2-D ``mesh_shape`` "DxS" with ``space_axis``, JAX's
+  dp×sp): the ``Trainer`` splits its model's height over the rank's space
+  group (``models/enhance.py::shard_space``). A step takes the rank's data
+  rows of the global batch (by its data index, ``process_batch_slice``), and
+  :func:`_backward` its space rows of them after the crop and the
+  augmentation, which move rows. The model's outputs are gathered along H
+  within the space group (``gather_rows_replicated``, whose backward is the
+  rank's slice) and every space rank computes the whole loss: the Fourier
+  term's ``rfft2`` and ``_dy`` cross the rank boundary. So the gradients
+  are partial sums over each rank's rows and the terms replicas:
+  :func:`_mean_over_ranks` sums both over every rank in one ``all_reduce``
+  and divides the gradients by the data axis's size, the terms by the
+  world's. The patch must be a multiple of 8·S (``spatial.check_rows``).
 
-Not ported (ROADMAP.md queue 1): the space axis (dp x sp, item 7); a CUDA
-graph of a multistep chunk (item 11).
+Not ported (ROADMAP.md queue 1): a CUDA graph of a multistep chunk (item 11).
 """
 
 from __future__ import annotations
@@ -103,13 +115,13 @@ import torch
 
 from sshslie_torch import checkpoints, interop
 from sshslie_torch.observability import Profiler
-from sshslie_torch.config import SPEED_ONLY_KEYS, Config, check_ported
+from sshslie_torch.config import SPEED_ONLY_KEYS, Config
 from sshslie_torch.data.datasets import CubeStore, LazyCubeStore, Prefetcher
 from sshslie_torch.data.native_sampler import NativePatchSampler, make_sampler
 from sshslie_torch.device import resolve_device
-from sshslie_torch.models.enhance import LowLightEnhanceNet, build_model
+from sshslie_torch.models.enhance import LowLightEnhanceNet, build_model, shard_space
 from sshslie_torch.ops.losses import total_loss
-from sshslie_torch.parallel import distributed
+from sshslie_torch.parallel import distributed, spatial
 from sshslie_torch.parallel.mesh import Mesh, shard_batch_size
 from sshslie_torch.utils.augment import NUM_MODES, augment_batch
 from sshslie_torch.utils.schedule import step_lr
@@ -146,9 +158,18 @@ def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
 def _backward(model: LowLightEnhanceNet, batch: torch.Tensor,
               coeffs: Dict[str, float]) -> Dict[str, torch.Tensor]:
     """The shared objective (JAX ``_make_loss_fn``): forward, loss, backward,
-    gradients added into ``p.grad`` → the detached terms."""
-    R_low, I_low, I_delta, S, R_enh = model.forward_with_redecomposition(batch)
-    total, terms = total_loss(batch, R_low, I_low, I_delta, S, R_enh, coeffs)
+    gradients added into ``p.grad`` → the detached terms. A height-sharded
+    model runs on its rank's rows of ``batch``; its outputs are gathered
+    whole for the loss, which every rank of its space group computes."""
+    space = model.space
+    if space is None:
+        outs = model.forward_with_redecomposition(batch)
+    else:
+        spatial.check_rows(batch.shape[1], space, "the patch height")
+        outs = spatial.gather_rows_replicated(
+            model.forward_with_redecomposition(spatial.take_rows(batch, space, dim=1)),
+            space, dim=1)
+    total, terms = total_loss(batch, *outs, coeffs)
     total.backward()
     return {k: terms[k].detach() for k in LOSS_KEYS}
 
@@ -166,11 +187,15 @@ def _mean_over_ranks(model: LowLightEnhanceNet, terms: Dict[str, torch.Tensor],
                      mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
     """Data parallel: the rank's gradients and terms replaced by their means
     over the ranks (one ``all_reduce`` of one flat buffer, after the backward
-    on the current stream) → the global terms. Without a mesh, ``terms``."""
+    on the current stream) → the global terms. Without a mesh, ``terms``.
+    A height-sharded model's gradients are partial sums over its rows: their
+    sum over every rank is divided by the data axis's size alone."""
     if mesh is None:
         return terms
     stacked = torch.stack([terms[k] for k in LOSS_KEYS])
-    distributed.all_mean_([p.grad for p in model.parameters()] + [stacked])
+    grads = [p.grad for p in model.parameters()]
+    n = mesh.data_size if model.space is not None else mesh.size
+    distributed.all_mean_(grads + [stacked], [n] * len(grads) + [mesh.size])
     return dict(zip(LOSS_KEYS, stacked.unbind()))
 
 
@@ -183,7 +208,7 @@ def train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
                batch: torch.Tensor, coeffs: Dict[str, float],
                freeze_decom: bool = False, mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One update on an NHWC batch (with ``mesh``, this rank's slice of the
-    global batch) → {LOSS_KEYS name: detached scalar tensor}."""
+    global batch, whole in height) → {LOSS_KEYS name: detached scalar tensor}."""
     optimizer.zero_grad(set_to_none=True)
     terms = _mean_over_ranks(model, _backward(model, batch, coeffs), mesh)
     _update(model, optimizer, freeze_decom)
@@ -366,9 +391,10 @@ def fused_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer
                      mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One fused step: the batch sampled on the device, then :func:`train_step`.
     ``draws`` are the step's global rows; with ``mesh`` this rank crops its
-    own, ``[r*b, (r+1)*b)``, which are samples ``batch_start + r*b`` on."""
+    own, ``[d*b, (d+1)*b)`` for its data index d, which are samples
+    ``batch_start + d*b`` on."""
     if mesh is not None:
-        rows = distributed.process_batch_slice(draws.shape[0])
+        rows = distributed.process_batch_slice(draws.shape[0], mesh)
         draws, batch_start = draws[rows], batch_start + rows.start
     batch = sample_fused_batch(cubes, draws, batch_start, patch_size)
     return train_step(model, optimizer, batch, coeffs, freeze_decom, mesh)
@@ -442,7 +468,6 @@ class Trainer:
     def __init__(self, cfg: Config, channels: int, device=None,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  mlflow=None, observer=None, mesh: Optional[Mesh] = None):
-        check_ported(cfg, training=True)
         self.cfg = cfg
         self.mesh = mesh              # evaluate._make_inferencer dispatches on it
         self.mlflow = mlflow          # observability.MLflowShim or None
@@ -454,6 +479,8 @@ class Trainer:
                                  generator=torch.Generator().manual_seed(cfg.seed_value), train=True)
         if state_dict is not None:
             self.model.load_state_dict(state_dict, strict=True)
+        if mesh is not None and cfg.space_axis:
+            shard_space(self.model, mesh.shard(cfg.space_axis))
         self.coeffs = loss_coeffs(cfg)
         self.optimizer = make_optimizer(self.model, cfg.start_lr)
         self.freeze_decom_epochs = int(cfg.freeze_decom_epochs or 0)
@@ -510,6 +537,12 @@ class Trainer:
         eval_sharded = mesh is not None and cfg.eval_sharded
         if mesh is not None:
             shard_batch_size(cfg.batch_size, mesh, cfg.data_axis)
+            if cfg.space_axis:
+                n_sp = mesh.shape[cfg.space_axis]
+                if cfg.patch_size % n_sp != 0:
+                    raise ValueError(f"patch_size {cfg.patch_size} not divisible by the "
+                                     f"'{cfg.space_axis}' mesh axis ({n_sp} shards)")
+                spatial.check_rows(cfg.patch_size, self.model.space, "patch_size")
 
         start_epoch = 0
         if cfg.resume:
@@ -916,8 +949,8 @@ class Trainer:
             # Batches staged onto the device prefetch_batches ahead (each
             # rank's slice of the global batch); closing the prefetcher
             # releases its worker if a step raises.
-            rows = (distributed.process_batch_slice(cfg.batch_size) if self.mesh is not None
-                    else None)
+            rows = (distributed.process_batch_slice(cfg.batch_size, self.mesh)
+                    if self.mesh is not None else None)
             with Prefetcher(sampler.epoch(), self.device, depth=cfg.prefetch_batches,
                             process_slice=rows) as batches:
                 for batch_id in range(num_batches):

@@ -40,7 +40,7 @@ def test_sources_exist():
             "sshslie_torch/viz.py", "sshslie_torch/inspect_spectra.py", "sshslie_torch/align.py",
             "sshslie_torch/doctor.py", "sshslie_torch/experiments.py",
             "sshslie_torch/serve_client.py", "sshslie_torch/parallel/mesh.py",
-            "sshslie_torch/parallel/distributed.py"} <= names
+            "sshslie_torch/parallel/distributed.py", "sshslie_torch/parallel/spatial.py"} <= names
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -61,7 +61,8 @@ def test_import_pulls_in_no_jax_and_builds_nothing():
             "sshslie_torch.serve, sshslie_torch.ops.quant, sshslie_torch.utils.io_envi, "
             "sshslie_torch.viz, sshslie_torch.inspect_spectra, sshslie_torch.align, "
             "sshslie_torch.doctor, sshslie_torch.experiments, sshslie_torch.serve_client, "
-            "sshslie_torch.parallel.mesh, sshslie_torch.parallel.distributed\n"
+            "sshslie_torch.parallel.mesh, sshslie_torch.parallel.distributed, "
+            "sshslie_torch.parallel.spatial\n"
             f"bad = [m for m in set(sys.modules) - before if m.split('.')[0] in {FORBIDDEN!r}]\n"
             "built = list(sshslie_torch.ops._build._libs)\n"
             "print(bad, built); sys.exit(1 if bad or built else 0)")
@@ -90,7 +91,8 @@ def test_entry_point_raises_without_card_unless_cpu_is_asked(tmp_path, monkeypat
 
 @pytest.mark.parametrize("phase,unported", [
     ("serve", {"mesh_shape": "2"}),
-], ids=["serve"])
+    ("serve", {"mesh_shape": "2x2", "space_axis": "space"}),
+], ids=["serve", "serve-dp-sp"])
 def test_unported_phases_raise(tmp_path, monkeypatch, phase, unported):
     """Every phase is ported, and raises for what of it is not (serving on a
     mesh), before any work."""

@@ -33,7 +33,7 @@ batch of 4 (2 a rank), 24x24 training cubes, a 32x32 test cube.
   with ``eval_sharded`` and ``eval_shard_mode: band`` writes on rank 0 only,
   what the one-device eval writes (JAX's test's tolerance).
 * ``parse_mesh_shape``, ``make_mesh``'s and ``shard_batch_size``'s errors as
-  JAX's, the 2-D mesh raising (item 7), ``initialize_distributed``'s rules.
+  JAX's, a 2-D mesh's size and coordinates, ``initialize_distributed``'s rules.
 * ``torchrun --nproc_per_node 2 -m sshslie_torch --mesh_shape 2 --device cpu``
   ``train_and_test`` with the band-sharded test phase.
 """
@@ -450,8 +450,13 @@ def test_mesh_shapes_and_errors_as_jax(monkeypatch):
             == message(jax_mesh.make_mesh, "2x2x2"))
     assert (message(mesh.make_mesh, "2", axis_names=("a", "b"))
             == message(jax_mesh.make_mesh, "2", axis_names=("a", "b")))
-    with pytest.raises(NotImplementedError, match="item 7"):
-        mesh.make_mesh("2x2")
+    # A 2-D mesh (data x space) takes its D*S processes; one process is a 1x1 mesh.
+    assert message(mesh.make_mesh, "2x2").startswith("mesh shape (2, 2) needs 4 devices, have 1")
+    flat = mesh.make_mesh("1x1")
+    assert (flat.shape, flat.coords, flat.data_size, flat.data_index) == (
+        {"data": 1, "space": 1}, (0, 0), 1, 0)
+    assert flat.shard("space").rows(8) == slice(0, 8)
+    assert mesh.Mesh(("data", "space"), (2, 3), 4, "gloo").coords == (1, 1)
     two = mesh.Mesh(("data",), (2,), 0, "gloo")
     assert mesh.shard_batch_size(4, two) == jax_mesh.shard_batch_size(4, jax_mesh.make_mesh("2"))
     assert (message(mesh.shard_batch_size, 5, two)
@@ -489,19 +494,23 @@ def test_initialize_distributed_rules(monkeypatch):
 @pytest.mark.parametrize("keys,raises", [
     ({"mesh_shape": "2", "eval_sharded": True, "eval_shard_mode": "band"}, False),
     ({"mesh_shape": "2"}, False),
-    ({"mesh_shape": "2", "eval_sharded": True}, True),
+    ({"mesh_shape": "2", "eval_sharded": True}, False),
     ({"mesh_shape": "2", "phase": "serve"}, True),
     ({"device": "cuda:1"}, False),
-], ids=["band", "dp", "spatial", "serve", "cuda-index"])
+    ({"mesh_shape": "2x2", "space_axis": "space"}, False),
+    ({"mesh_shape": "2x2", "space_axis": "space", "phase": "serve"}, True),
+], ids=["band", "dp", "spatial", "serve", "cuda-index", "dp-sp", "serve-dp-sp"])
 def test_config_takes_the_data_axis_only(keys, raises):
+    """Every mesh value is taken since the space axis was ported (the name
+    is from when only the data axis was); serving on a mesh still raises."""
     from sshslie_torch.config import check_ported, load_config
 
     cfg = load_config(None, keys)
     if raises:
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-            check_ported(cfg, training=True)
+            check_ported(cfg)
     else:
-        check_ported(cfg, training=True)
+        check_ported(cfg)
 
 
 def test_torchrun_train_and_test_two_ranks(group):
