@@ -150,7 +150,17 @@ bfloat16``.
    the height-sharded test phase (``mesh_shape: "2"``, ``eval_sharded``, the
    default ``eval_shard_mode: spatial``) as (c): conv9 (1, 264, 512, 64) and
    flash (1, 4, 4096, 16), the whole gathered sequence, once a cube on each
-   rank, exact. Two ranks of NCCL need two cards and are not run.
+   rank, exact; (f) serving on the mesh: ``serve.build_server_from_config``
+   with ``mesh_shape: "2"`` on the test phase's checkpoint, rank 0 answering
+   HTTP on 127.0.0.1 port 0 and rank 1 following: a 512^2 .mat request, a
+   ragged 500x460 one (bucket 512^2), a u16 body (decoded on the host on a
+   mesh), ``/reload`` with the token to path 6b's second checkpoint and a
+   request after it, each S within 1e-5 of the span of path 6b's one-device
+   service's S for the same body and weights; five warm 512^2 requests for
+   X-Inference-Seconds; then ``shutdown()``, after which rank 1 leaves its
+   loop and exits 0. conv9 (1, 264, 512, 64) and flash (1, 4, 4096, 16) once
+   a forward on each rank (the warmup, 4 checked and 5 timed requests: 10),
+   exact. Two ranks of NCCL need two cards and are not run.
 8. Kernels against their plain versions on the card, each dtype with its
    stated tolerance (float32 conv9 and flash also at the micro-batched
    serving shapes (4, 512, 512, 64) and (4, 4, 4096, 16); the bfloat16 conv9, its dgrad and conv9_wgrad also at
@@ -1286,7 +1296,11 @@ def run_serving(cfg, bcfg, test_kw: dict, card: str) -> dict:
     load_line("512^2 float32 micro-batched (max 4, window 50 ms), u16 in and out", *load_batched,
               extra=f"; batches by size {load_batches}")
     log(f"main path 6b (serving): {time.perf_counter() - t0:.2f} s; launches {total}")
-    return {"counts": total}
+    # What path 9 (f)'s mesh service is held against: this one-device
+    # service's S (raw scale) of the 512^2 .mat request, the ragged request,
+    # the u16 body decoded on the host and the request after /reload.
+    return {"counts": total, "s": s1, "ragged": ragged, "u16": host, "reload": s_r,
+            "reload_path": os.path.abspath(rpath), "t512": t512}
 
 
 # Per-cube seconds of the test phases, by path.
@@ -1724,20 +1738,24 @@ def cli_worker(out: str, argv: list) -> int:
 
 
 def rank_worker(rank: int, port: int, out: str) -> int:
-    """Path 9 (b) to (e), one of two gloo ranks sharing the card: two fused
+    """Path 9 (b) to (f), one of two gloo ranks sharing the card: two fused
     data-parallel steps at global batch 2 (rank 0 then holds the first
     against a one-process b2 step), the band-sharded test phase through
     ``runner.main``, two fused dp x sp steps on a 1x2 mesh (each rank 64 of
     the 128 rows; rank 0 holds the first against the same one-process step),
-    and the height-sharded test phase through ``runner.main``; launches by
-    shape around each, written to ``out``."""
+    the height-sharded test phase through ``runner.main``, and the mesh
+    service (rank 0 answers HTTP, rank 1 follows; rank 0 writes its S to
+    ``f_S.npz``); launches by shape around each, written to ``out``."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
-    from sshslie_torch import runner
+    import numpy as np
+    import scipy.io as sio
+
+    from sshslie_torch import runner, serve
     from sshslie_torch.config import load_config
     from sshslie_torch.data.datasets import CubeStore
     from sshslie_torch.device import set_matmul_precision
@@ -1833,6 +1851,49 @@ def rank_worker(rank: int, port: int, out: str) -> int:
     two_steps("d", sp_mesh, sp_mesh.shard("space"))
     del cubes
     test_phase("e", dict(kw["test"], eval_shard_mode="spatial"))
+
+    # (f): the mesh service on the test phase's checkpoint; rank 0 answers
+    # HTTP on 127.0.0.1, rank 1 follows.
+    scfg = load_config(None, kw["serve"])
+    zero_counts(conv9, attention)
+    t = time.perf_counter()
+    srv = serve.build_server_from_config(scfg, mesh)
+    if rank != 0:
+        srv.serve_forever()
+    else:
+        srv.start()
+        try:
+            status, _, health = _http(srv, "GET", "/health")
+            report["f_health"] = json.loads(health)
+            cube = np.ascontiguousarray(sio.loadmat(os.path.join(scfg.test_data, "cube0.mat"))[
+                "data"], dtype=np.float32)
+            with open(os.path.join(scfg.test_data, "cube0.mat"), "rb") as fh:
+                mat_body = fh.read()
+            f32_body = serve.encode_cube(cube, "f32")
+            got = {}
+
+            def post(key, body, headers, query):
+                status, rh, data = _http(srv, "POST", "/enhance" + query, body, headers)
+                if status != 200:
+                    raise AssertionError(f"path 9 (f) {key}: HTTP {status}: {data[:300]!r}")
+                got[key] = serve.decode_cube_response(data, rh, mat_key="data")
+                return float(rh["X-Inference-Seconds"])
+
+            post("s", mat_body, {}, "")
+            post("ragged", *serve.encode_cube(cube[:SIZE - 12, :SIZE - 52], "f32"), "?encoding=f32")
+            post("u16", *serve.encode_cube(cube, "u16"), "?encoding=f32")
+            status, _, data = _http(srv, "POST", f"/reload?checkpoint={kw['reload_path']}",
+                                    headers={"X-Reload-Token": scfg.serve_reload_token})
+            report["f_reload"] = [status, json.loads(data)]
+            post("reload", *f32_body, "?encoding=f32")
+            report["f_x_seconds"] = [post("warm", *f32_body, "?encoding=f32") for _ in range(5)]
+            np.savez(os.path.join(os.path.dirname(out), "f_S.npz"),
+                     **{k: v for k, v in got.items() if k != "warm"})
+        finally:
+            srv.shutdown()
+    torch.cuda.synchronize()
+    report["f_s"] = time.perf_counter() - t
+    report["f_counts"] = counts_to_json(shape_counts(conv9, attention))
     report["backend"] = mesh.backend
     distributed.leave()
     with open(out, "w") as fh:
@@ -1840,12 +1901,14 @@ def rank_worker(rank: int, port: int, out: str) -> int:
     return 0
 
 
-def run_multi(work: str, test_kw: dict, train_kw: dict, path1_cfg, path2: dict) -> dict:
+def run_multi(work: str, test_kw: dict, train_kw: dict, path1_cfg, path2: dict,
+              served: dict, card: str) -> dict:
     """Main path 9, data parallel on one card: (a) path 2's run through the
     CLI under ``torchrun`` with ``--mesh_shape 1`` (an NCCL group of one),
-    equal to path 2 bit for bit; (b) to (e) two gloo ranks sharing the card
-    (``rank_worker``). The three processes run at once. Returns the
-    launches by shape of every process, summed."""
+    equal to path 2 bit for bit; (b) to (f) two gloo ranks sharing the card
+    (``rank_worker``), (f) held against path 6b's one-device service
+    (``served``). The three processes run at once. Returns the launches by
+    shape of every process, summed."""
     import numpy as np
 
     from sshslie_torch.utils.io_hsi import load_hsi
@@ -1856,8 +1919,12 @@ def run_multi(work: str, test_kw: dict, train_kw: dict, path1_cfg, path2: dict) 
     test = dict(test_kw, model_name=path1_cfg.model_name, precision="float32", mesh_shape="2",
                 eval_sharded=True, eval_shard_mode="band", device="cuda:0")
     train = dict(train_kw, train_data="./data/low/train")
+    serve_kw = dict(test, phase="serve", serve_port=0, serve_pad_multiple=64,
+                    serve_warmup=f"{SIZE}x{SIZE}", serve_reload_token="chip-smoke-mesh-token",
+                    use_mlflow=False)
     with open(os.path.join(out, "path9.json"), "w") as fh:
-        json.dump({"test": test, "train": train}, fh)
+        json.dump({"test": test, "train": train, "serve": serve_kw,
+                   "reload_path": served["reload_path"]}, fh)
     argv = ["--config", "", "--mesh_shape", "1", "--model_name", "chip_smoke_nccl",
             "--train_data", "./data/low/train"]
     for key, val in train_kw.items():
@@ -1959,9 +2026,38 @@ def run_multi(work: str, test_kw: dict, train_kw: dict, path1_cfg, path2: dict) 
         log(f"path 9 ({part}): {what}-sharded test phase in {ranks[0][f'{part}_s']:.2f} s "
             f"(per-cube seconds {ranks[0][f'{part}_seconds']}); S against path 1's: max|d| {errs} "
             f"(gate 1e-5 of the span); PSNR {scores[0]!r}; launches a rank {want}")
+    # (f): the mesh service against path 6b's one-device service: the
+    # warmup, 4 checked requests and 5 timed ones, one forward each a rank.
+    want = {("conv9", "forward", "float32", (1, SIZE // 2 + 8, SIZE, BANDS)): 10, flash: 10}
+    for rep in ranks:
+        got = counts_from_json(rep["f_counts"])
+        if got != want:
+            raise AssertionError(f"path 9 (f) rank {rep['rank']}: launches {got}, expected {want}")
+    f0 = ranks[0]
+    if f0["f_health"]["backend"] != "cuda" or f0["f_reload"][0] != 200:
+        raise AssertionError(f"path 9 (f): /health {f0['f_health']}, /reload {f0['f_reload']}")
+    got = np.load(os.path.join(out, "f_S.npz"))
+    errs = {}
+    for key in ("s", "ragged", "u16", "reload"):
+        ref = served[key]
+        span = float(ref.max() - ref.min())
+        if got[key].shape != ref.shape:
+            raise AssertionError(f"path 9 (f) {key}: S {got[key].shape}, path 6b's {ref.shape}")
+        errs[key] = float(np.abs(got[key].astype(np.float64) - ref).max())
+        if not errs[key] <= 1e-5 * span:
+            raise AssertionError(f"path 9 (f) {key}: S {errs[key]:.3e} from path 6b's, over 1e-5 "
+                                 f"of its span {span:.1f}")
+    log(f"path 9 (f): mesh service (2 gloo ranks, rank 0 on HTTP) built, warmed, 9 requests "
+        f"and a reload in {f0['f_s']:.2f} s; S against path 6b's one-device service (512^2 "
+        f".mat, 500x460, u16 body, after /reload): max|d| {errs} (gate 1e-5 of the span); "
+        f"launches a rank {want}")
+    log(f"path 9 (f) times ({card}): 512^2 float32 X-Inference-Seconds on the 2-rank mesh "
+        f"(the cube's broadcast, halos and gathers staged through the host by gloo), median of "
+        f"5: {_median(f0['f_x_seconds'])!r} s (runs {f0['f_x_seconds']}); path 6b's one-device "
+        f"{_median(served['t512'])!r} s")
     total = dict(a_counts)
     for rep in ranks:
-        for part in "bcde":
+        for part in "bcdef":
             for key, n in counts_from_json(rep[f"{part}_counts"]).items():
                 total[key] = total.get(key, 0) + n
     log(f"main path 9: {time.perf_counter() - t0:.2f} s")
@@ -2155,7 +2251,7 @@ def main() -> int:
         disk_counts = run_disk(cfg, test_kw, train_kw, card, [])
 
         # ---- main path 9: data parallel on one card (NCCL of one via torchrun; two gloo ranks) ----
-        multi_counts = run_multi(work, test_kw, train_kw, cfg, path2)
+        multi_counts = run_multi(work, test_kw, train_kw, cfg, path2, served, card)
         tally_shapes(conv9, attention, multi_counts)
 
         # ---- kernels against their plain versions on the card ----

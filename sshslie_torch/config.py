@@ -45,13 +45,13 @@ of N processes, one per GPU (``parallel/``; ``torchrun --nproc_per_node N``);
 ``mesh_shape: "DxS"`` with ``space_axis`` also splits the patch height over
 S of them (dp×sp). ``eval_sharded`` splits the eval and test forwards'
 height (``eval_shard_mode: spatial``, ``evaluate.py::ShardedInferencer``)
-or bands (``band``, ``BandShardedInferencer``) across the data axis.
-``device`` also takes 'cuda:N', a card named explicitly.
+or bands (``band``, ``BandShardedInferencer``) across the data axis;
+``phase: serve`` on a mesh serves from rank 0 with the height split over
+the data axis (``serve.py``). ``device`` also takes 'cuda:N', a card named
+explicitly.
 
-Every key loads. A value that asks for behaviour the port lacks raises
-``NotImplementedError`` naming its ROADMAP.md item (:func:`check_ported`):
-serving on a mesh. Keys that only change speed (``jit_cache_dir``) are
-ignored, and training prints them.
+Every key loads and acts as in JAX. Keys that only change speed
+(``jit_cache_dir``) are ignored, and training prints them.
 """
 
 from __future__ import annotations
@@ -303,15 +303,6 @@ def matmul_tf32(matmul_precision: str) -> bool:
 
 # Training keys that change only speed; training prints them as ignored.
 SPEED_ONLY_KEYS = ("jit_cache_dir",)
-
-
-def check_ported(cfg: "Config", serving: bool = False) -> None:
-    """Raise NotImplementedError for a value whose behaviour the port lacks, so
-    that no ignored key changes results: a mesh when ``serving`` (or
-    ``phase: serve``). Serving on a mesh is item 7's last part."""
-    if (serving or cfg.phase == "serve") and cfg.mesh_shape:
-        raise NotImplementedError("serving on a mesh (mesh_shape) is not ported yet "
-                                  "(ROADMAP.md queue 1, item 7: serving)")
 
 
 def _coerce(value: str, target_type: type) -> Any:

@@ -115,24 +115,25 @@ class ShardedInferencer(Inferencer):
     H is edge-padded to a multiple of 8·n and W to a multiple of 8, so that
     every rank's share of the stride-2 pyramid stays even; the pad is
     cropped from the outputs. Rank i uploads only its rows ``[i*H/n,
-    (i+1)*H/n)`` of the padded cube and runs the model under a split of its
-    height (``parallel/spatial.py``: halo rows at every conv, the attention
-    on the gathered sequence). R, I_low, I_delta and S are gathered (one
+    (i+1)*H/n)`` of the padded cube and runs the model (its own weights, or
+    explicit ones on ``device``) under a split of its height
+    (``parallel/spatial.py``: halo rows at every conv, the attention on the
+    gathered sequence). R, I_low, I_delta and S are gathered (one
     ``all_gather``), so that rank 0 holds them whole to save and score, as
-    JAX replicates its outputs for its single writer. Without a process
+    JAX replicates its outputs for its single writer. :meth:`from_rank0`
+    runs a cube that only rank 0 holds (the mesh service). Without a process
     group (a 1-process mesh) it is the whole forward.
     """
 
-    def __init__(self, model: torch.nn.Module, mesh, data_axis: str = "data"):
-        super().__init__(model, pad_multiple=8)
+    def __init__(self, model: torch.nn.Module, mesh, data_axis: str = "data",
+                 device: Optional[torch.device] = None):
+        super().__init__(model, pad_multiple=8, device=device)
         self.shard = mesh.shard(data_axis)
         self.n = self.shard.size
 
     def batched(self, stack, weights: Optional[Dict[str, torch.Tensor]] = None):
         """(N, H, W, C) stack of same-shape cubes in one height-sharded
         forward; only this rank's rows are uploaded."""
-        if weights is not None:
-            raise ValueError("ShardedInferencer runs the model's own weights")
         with torch.inference_mode(), sharded(self.model, self.shard):
             x = torch.as_tensor(stack, dtype=torch.float32)
             _, h, w, _ = x.shape
@@ -141,10 +142,19 @@ class ShardedInferencer(Inferencer):
                 x = F.pad(x.permute(0, 3, 1, 2), (0, pw, 0, ph),
                           mode="replicate").permute(0, 2, 3, 1)
             x = spatial.take_rows(x, self.shard, dim=1).contiguous().to(self.device)
-            outs = self.model(x)
+            outs = self._fn(weights)(x)
             sizes = [t.shape[-1] for t in outs]
             whole = distributed.all_gather_cat(torch.cat(outs, dim=-1), 1, self.shard.group)
             return tuple(t[:, :h, :w] for t in whole.split(sizes, dim=-1))
+
+    def from_rank0(self, weights: Optional[Dict[str, torch.Tensor]], cube=None, shape=None):
+        """One (H, W, C) float32 cube that rank 0 holds: rank 0 passes it, the
+        other ranks its ``shape``. It is broadcast whole from rank 0 over the
+        group, on ``device``, and each rank keeps its rows; outputs as
+        ``__call__``'s, whole on every rank."""
+        x = distributed.broadcast_tensor(None if cube is None else torch.as_tensor(cube),
+                                         shape, torch.float32, self.device)
+        return self(weights, x)
 
 
 class BandShardedInferencer(Inferencer):

@@ -19,14 +19,21 @@
   ``all_mean_``, ``all_sum_`` and the gathers take a ``group`` (a
   ``dist.new_group`` of a mesh axis; None, the default group). They use only
   ``all_reduce``, ``broadcast`` and ``all_gather``, which NCCL and gloo both
-  run on CUDA tensors. A failed collective raises.
+  run on CUDA tensors. A failed collective raises. :func:`broadcast_tensor`
+  is rank 0's tensor on every rank, the others giving its shape.
+* :class:`Commands` carries rank 0's commands to the other ranks through the
+  group's store, on the host: a rank that waits for the next command sits in
+  no collective, so an idle wait meets no group timeout (the mesh service,
+  ``serve.py``).
 """
 
 from __future__ import annotations
 
+import datetime
 import os
 import pickle
-from typing import List, Optional, Sequence
+import time
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -59,14 +66,15 @@ def local_rank() -> int:
 
 def initialize_distributed(backend: Optional[str] = None, init_method: Optional[str] = None,
                            world_size: Optional[int] = None, rank: Optional[int] = None,
-                           device: str = "") -> bool:
+                           device: str = "", timeout: Optional[float] = None) -> bool:
     """Join the process group → whether there is one (False: a single process
     without a launcher). A group that exists already is kept as it is.
 
     ``backend`` None means NCCL, or gloo when ``device`` is 'cpu'; NCCL runs
     on the card of ``LOCAL_RANK``. ``init_method`` (e.g.
     'tcp://127.0.0.1:29500'), ``world_size`` and ``rank`` override the
-    launcher's environment."""
+    launcher's environment. ``timeout`` (seconds) is the group's collective
+    timeout (torch's default when None)."""
     if active():
         return True
     launcher = [k for k in _LAUNCHER_ENV if os.environ.get(k)]
@@ -84,6 +92,8 @@ def initialize_distributed(backend: Optional[str] = None, init_method: Optional[
         kwargs["world_size"] = world_size
     if rank is not None:
         kwargs["rank"] = rank
+    if timeout is not None:
+        kwargs["timeout"] = datetime.timedelta(seconds=timeout)
     try:
         dist.init_process_group(backend, **kwargs)
     except Exception as e:
@@ -161,6 +171,20 @@ def broadcast_(tensors: Sequence[torch.Tensor]) -> None:
         offset += n
 
 
+def broadcast_tensor(tensor: Optional[torch.Tensor], shape: Sequence[int], dtype: torch.dtype,
+                     device) -> torch.Tensor:
+    """Rank 0's ``tensor`` on every rank, on ``device``: rank 0 passes it (on
+    any device), the others None, receiving into a new tensor of ``shape``
+    and ``dtype`` that a header read first gave them. One ``broadcast``."""
+    if rank() == 0:
+        out = tensor.to(device=device, dtype=dtype).contiguous()
+    else:
+        out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    if active():
+        dist.broadcast(out, src=0)
+    return out
+
+
 def broadcast_object(obj, device):
     """Rank 0's ``obj`` (picklable; the port's own values only) on every
     rank: its length, then its bytes, broadcast as tensors on ``device``."""
@@ -209,3 +233,66 @@ def barrier(device) -> None:
         t = torch.zeros(1, device=device)
         dist.all_reduce(t)
         t.item()
+
+
+# How long one store wait of a follower lasts before it looks at its stop
+# flag and waits again. A store wait is no collective, so the group's timeout
+# does not bound it; c10d logs a line for each wait that times out.
+_COMMAND_WAIT = datetime.timedelta(minutes=5)
+
+
+class Commands:
+    """Rank 0's commands to the other ranks, through the group's store (the
+    rendezvous store of ``init_process_group``): on the host and in no
+    collective, so that a rank waiting for the next command meets no group
+    timeout however long it waits (NCCL's watchdog aborts a rank that idles
+    in a ``broadcast`` after 10 minutes, gloo raises after 30).
+
+    Rank 0 ``post``s a picklable header under the next sequence number; the
+    other ranks take the headers in that order (:meth:`next`) and then enter
+    the command's collectives. Rank 0 drops a command's key (:meth:`done`)
+    once those collectives have completed, which needs every rank to have
+    read it. A rank that stops following says so (:meth:`leave`), and rank 0
+    waits for all of them (:meth:`wait_left`), so that the store outlives
+    their last read. Every rank of the group makes the channel at once: rank
+    0 numbers it, so two channels of one group keep their keys apart."""
+
+    def __init__(self, device):
+        self._store = dist.distributed_c10d._get_default_store()
+        n = self._store.add("sshslie/channels", 1) if rank() == 0 else 0
+        self._prefix = f"sshslie/{broadcast_object(n, device)}/"
+        self._seq = 0
+
+    def _key(self, seq: int) -> str:
+        return f"{self._prefix}{seq}"
+
+    def post(self, header) -> None:
+        self._seq += 1
+        self._store.set(self._key(self._seq), pickle.dumps(header))
+
+    def done(self) -> None:
+        self._store.delete_key(self._key(self._seq))
+
+    def next(self, stopped: Callable[[], bool]):
+        """The next header, waited for on the host; None once ``stopped()``."""
+        key = self._key(self._seq + 1)
+        while not stopped():
+            try:
+                self._store.wait([key], _COMMAND_WAIT)
+            except dist.DistStoreError:      # the wait's own timeout
+                continue
+            self._seq += 1
+            return pickle.loads(self._store.get(key))
+        return None
+
+    def leave(self) -> None:
+        self._store.add(self._prefix + "left", 1)
+
+    def wait_left(self, timeout: float) -> bool:
+        """Wait up to ``timeout`` seconds for every other rank to leave."""
+        deadline = time.monotonic() + timeout
+        while self._store.add(self._prefix + "left", 0) < world_size() - 1:
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0.01)
+        return True

@@ -34,10 +34,10 @@ size) and prints it, and takes rank 0's run names
 reads what rank 0 writes. Rank 0 alone tracks, tees to
 ``logs/console_output_<run>.log`` (rank r > 0 to ``..._rank<r>.log``) and
 scores the test phase; every rank trains, and every rank runs the test
-phase's forward (height- or band-sharded with ``eval_sharded``). A group
-that ``main`` joined is left when it returns.
-
-A config value the port cannot honour raises (``config.check_ported``).
+phase's forward (height- or band-sharded with ``eval_sharded``). ``serve``
+on a mesh serves from rank 0, every rank running the height-sharded
+forward (``serve.serve_from_config(cfg, mesh)``). A group that ``main``
+joined is left when it returns.
 """
 
 from __future__ import annotations
@@ -51,7 +51,7 @@ from glob import glob
 import numpy as np
 import torch
 
-from sshslie_torch.config import _DERIVED_FIELDS, Config, check_ported, parse_args
+from sshslie_torch.config import _DERIVED_FIELDS, Config, parse_args
 from sshslie_torch.device import resolve_device, set_matmul_precision
 from sshslie_torch.observability import Logger, MLflowShim, RunObserver
 
@@ -163,7 +163,6 @@ def main(cfg: Config):
     when it tests (on rank 0 under a mesh); None when there are no training
     cubes to take the channel count from. ``serve`` returns {} once the
     server stops."""
-    check_ported(cfg)
     mesh, joined = None, False
     if cfg.mesh_shape:
         from sshslie_torch.parallel import distributed
@@ -262,7 +261,7 @@ def _run(cfg: Config, device: torch.device, mesh):
             elif cfg.phase == "serve":
                 from sshslie_torch.serve import serve_from_config
 
-                serve_from_config(cfg)
+                serve_from_config(cfg, mesh=mesh)
             mlflow.log_artifact(log_filepath, artifact_path="run_logs")
         return result
     except Exception as e:

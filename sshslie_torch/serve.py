@@ -19,6 +19,10 @@ for its own forward only:
   float32 (or bfloat16) weights as in the float32 service.
 * **Same math as the test phase**: the host normalisation of ``CubeStore``
   (``utils/io_hsi.py``), S denormalised as ``evaluate._save_outputs`` does.
+* **A mesh** (``mesh``, ``runner.py``'s ``mesh_shape``): the forward is the
+  height-sharded ``evaluate.ShardedInferencer`` over ``data_axis`` (the
+  space ranks of a 2-D mesh compute replicas), as in JAX, without the
+  micro-batcher, quantization or the card's decode of u16/bf16 bodies.
 
 HTTP (stdlib only): ``GET /health`` (``"backend"`` is the torch device type,
 ``cuda`` or ``cpu``, and ``"device_name"`` the card's name: the JAX server
@@ -38,10 +42,36 @@ bodies are uploaded as they are and decoded on the card
 card and passed to the wire as it is (:func:`encode_cube_prequantized`).
 Body, declared shape and deflate output are capped (``_MAX_BODY_BYTES``).
 
+Serving on a mesh runs one process a GPU where JAX runs one process that
+owns every device, so:
+
+* **Rank 0 alone** binds HTTP; it parses, validates and normalises each
+  request and answers it. Everything it can refuse (shape, channels, body
+  caps, a checkpoint that does not load) is refused before any other rank
+  hears of the request.
+* **The other ranks follow** (:meth:`EnhanceService.follow`): rank 0 sends
+  each forward, warmup and reload as a command through the group's store
+  (``parallel/distributed.py::Commands``), then its payload by
+  ``broadcast``, all under its device lock, so every rank runs the
+  commands in rank 0's order. A follower waits for the next command on the
+  host, so an idle server meets no group timeout.
+* **The whole cube goes to every rank**: rank 0 broadcasts the normalised,
+  bucket-padded cube (67 MB at 512^2 x 64 float32), and each rank keeps
+  its rows. JAX's ``device_put`` sends each device its own rows.
+* **Stopping**: ``EnhanceServer.shutdown()`` on rank 0 sends "stop" and
+  waits for the followers to leave; under ``serve_from_config`` rank 0 takes
+  SIGINT and SIGTERM as a shutdown and the followers finish their command
+  and leave, every rank exiting cleanly.
+* **A failure after a command went out** (out of memory on one rank in the
+  forward, say) leaves the ranks out of step: rank 0 answers that request
+  and every later one with an error, and a rank left waiting in a
+  collective fails at the group's timeout and exits, which ends a torchrun
+  job. Nothing retries.
+
 CLI: ``python -m sshslie_torch.serve --config cfg.yml --test_timestamp TS``,
-or ``python -m sshslie_torch --config cfg.yml --phase serve``. Serving on a
-mesh (``mesh_shape``) is not ported (ROADMAP.md queue 1, item 7: serving) and
-raises.
+or ``python -m sshslie_torch --config cfg.yml --phase serve``; on a mesh,
+``torchrun --nproc_per_node N -m sshslie_torch --phase serve --mesh_shape N``
+(or ``DxS``).
 """
 
 from __future__ import annotations
@@ -52,6 +82,7 @@ import io
 import json
 import math
 import os
+import signal
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -62,8 +93,9 @@ import numpy as np
 import torch
 
 from sshslie_torch import checkpoints, interop
-from sshslie_torch.config import Config, check_ported
+from sshslie_torch.config import Config
 from sshslie_torch.device import resolve_device, set_matmul_precision
+from sshslie_torch.parallel import distributed
 from sshslie_torch.utils import io_hsi
 
 WIRE_ENCODINGS = ("mat", "f32", "bf16", "u16")
@@ -334,6 +366,10 @@ class _MicroBatcher:
 # Histogram bounds (seconds) of the X-Inference-Seconds region.
 _LATENCY_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 60.0)
 
+# How long rank 0's shutdown waits for the other ranks to leave.
+_LEAVE_TIMEOUT_S = 60.0
+_STOPPED = "the mesh service has stopped"
+
 
 class EnhanceService:
     """Checkpoint-backed enhancement with shape buckets.
@@ -344,15 +380,21 @@ class EnhanceService:
     on ``params``, the weights on the device (a quantized state dict when
     ``serve_quantize`` is set). ``state_dict`` (a port state dict) takes the
     place of a checkpoint; without either, the weights are the seeded
-    initialisation."""
+    initialisation.
+
+    With ``mesh`` every rank of the group builds the service at once, and
+    the forward is ``evaluate.ShardedInferencer`` over ``cfg.data_axis``.
+    Rank 0 alone reads the weights (a failure raises on every rank) and
+    broadcasts them; it takes the requests and sends each forward, warmup
+    and reload to the other ranks, which run them in :meth:`follow`."""
 
     # Normalisations whose reductions an edge pad leaves unchanged (it adds no
     # new extremum); per_channel_standardization's mean and std move.
     _PAD_SAFE_NORMS = (None, "", "self", "global_normalization", "per_channel_normalization")
 
     def __init__(self, cfg: Config, channels: int, checkpoint_path: Optional[str] = None,
-                 state_dict: Optional[Dict[str, torch.Tensor]] = None):
-        from sshslie_torch.evaluate import Inferencer
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None, mesh=None):
+        from sshslie_torch.evaluate import Inferencer, ShardedInferencer
         from sshslie_torch.ops.quant import QuantizedInferencer
 
         self.cfg = cfg
@@ -360,20 +402,27 @@ class EnhanceService:
         self.pad_multiple = int(cfg.serve_pad_multiple)
         self.quantize = cfg.serve_quantize
         # Before any weight is touched, as in JAX.
-        if cfg.mesh_shape and self.quantize:
+        if (mesh is not None or cfg.mesh_shape) and self.quantize:
             raise ValueError("serve_quantize is single-chip only")
-        check_ported(cfg, serving=True)
+        self.mesh = mesh
+        self.leads = mesh is None or mesh.rank == 0
         self.device = resolve_device(cfg.device)
         self.model = self._new_model()
-        if state_dict is not None:
-            self.model.load_state_dict(state_dict)
-        elif checkpoint_path:
-            interop.load_checkpoint(checkpoint_path, self.model)
+        self._load_weights(checkpoint_path, state_dict)
         self._params_template = {k: v.detach() for k, v in self.model.state_dict().items()}
         self.checkpoint_path = checkpoint_path
         self.reload_count = 0
         self.params = self._device_weights(self._params_template)
-        if self.quantize:
+        # The mesh's command channel (None without a group), and why rank 0
+        # takes no more commands once it does not.
+        self._commands: Optional[distributed.Commands] = None
+        self._refused: Optional[str] = None
+        if mesh is not None:
+            distributed.broadcast_(list(self.params.values()))
+            self._infer = ShardedInferencer(self.model, mesh, cfg.data_axis, self.device)
+            if distributed.active():
+                self._commands = distributed.Commands(self.device)
+        elif self.quantize:
             self._infer = QuantizedInferencer(self.model, self.params, 1, self.device)
         else:
             self._infer = Inferencer(self.model, 1, self.device)
@@ -398,7 +447,7 @@ class EnhanceService:
         # Non-cumulative counts; the last slot is +Inf (metrics_text sums them).
         self._hist = [0] * (len(_LATENCY_BUCKETS) + 1)
         self.batcher: Optional[_MicroBatcher] = None
-        if cfg.serve_max_batch > 1:
+        if cfg.serve_max_batch > 1 and mesh is None:
             self.batcher = _MicroBatcher(self._run_batch, cfg.serve_max_batch,
                                          cfg.serve_batch_window_ms)
 
@@ -407,6 +456,34 @@ class EnhanceService:
 
         return build_model(self.cfg, self.channels, torch.device("cpu"),
                            generator=torch.Generator().manual_seed(self.cfg.seed_value))
+
+    def _load_weights(self, checkpoint_path: Optional[str],
+                      state_dict: Optional[Dict[str, torch.Tensor]]) -> None:
+        """``state_dict``, or the checkpoint, into the host model: on rank 0
+        alone under a mesh (the others take its weights by broadcast), whose
+        failure every rank raises (one ``broadcast_object``)."""
+        error = None
+        if self.leads:
+            try:
+                if state_dict is not None:
+                    self.model.load_state_dict(state_dict)
+                elif checkpoint_path:
+                    if not os.path.exists(checkpoint_path):
+                        raise FileNotFoundError(f"no checkpoint at {checkpoint_path}; train "
+                                                "first or set test_timestamp")
+                    interop.load_checkpoint(checkpoint_path, self.model)
+            except Exception as e:
+                if self.mesh is None:
+                    raise
+                error = e
+        if self.mesh is None:
+            return
+        said = distributed.broadcast_object(
+            None if error is None else f"{type(error).__name__}: {error}", self.device)
+        if error is not None:
+            raise error
+        if said is not None:
+            raise RuntimeError(f"rank 0 could not load the serving weights: {said}")
 
     def _device_weights(self, state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         """The weights the forwards read: ``state_dict`` on the device, or its
@@ -423,6 +500,98 @@ class EnhanceService:
     def _sync(self) -> None:
         if self.device.type == "cuda":
             torch.cuda.current_stream(self.device).synchronize()
+
+    # -- the mesh's commands ---------------------------------------------------
+
+    def _check_leads(self) -> None:
+        if not self.leads:
+            raise RuntimeError(f"rank {self.mesh.rank} follows rank 0's commands "
+                               "(EnhanceService.follow); rank 0 takes the requests")
+
+    def _lead(self, header: Dict[str, Any], payload=None):
+        """Rank 0 of a mesh, under the device lock: send ``header`` to the
+        other ranks, then run the command here with ``payload``. A failure
+        once the command went out leaves the ranks out of step, so every
+        later command is refused."""
+        if self._refused:
+            raise RuntimeError(self._refused)
+        if self._commands is None:
+            return self._execute(header, payload)
+        self._commands.post(header)
+        try:
+            out = self._execute(header, payload)
+        except BaseException as e:
+            self._refused = (f"the mesh is out of step since a {header['op']} command failed "
+                             f"({type(e).__name__}: {e}); restart the server")
+            raise
+        self._commands.done()
+        return out
+
+    def _execute(self, header: Dict[str, Any], payload=None):
+        """One command on this rank, ending in a synchronize: 'enhance' (the
+        normalised, bucket-padded cube, ``payload`` on rank 0; returns the
+        outputs), 'warmup' (zeros of the bucket) or 'reload' (the new device
+        weights, ``payload`` on rank 0, swapped in once every rank holds
+        them)."""
+        op, out = header["op"], None
+        if op == "enhance":
+            out = self._infer.from_rank0(self.params, payload, header["shape"])
+        elif op == "warmup":
+            self._infer(self.params, torch.zeros(header["shape"], device=self.device))
+        elif op == "reload":
+            weights = payload or {k: torch.empty(shape, dtype=getattr(torch, dtype),
+                                                 device=self.device)
+                                  for k, shape, dtype in header["weights"]}
+            distributed.broadcast_(list(weights.values()))
+            self.params = weights
+            # Rank 0 acknowledges the reload only once every rank holds them.
+            distributed.barrier(self.device)
+        else:
+            raise ValueError(f"unknown command {op!r}")
+        self._sync()
+        return out
+
+    def follow(self) -> None:
+        """The other ranks of a mesh service: run rank 0's commands in its
+        order until it sends "stop". Waiting for the next one, a rank sits on
+        the host, in no collective. SIGINT and SIGTERM (taken here when this
+        is the main thread) end the loop between commands; rank 0 stops the
+        other ranks on the same signals, since torchrun sends them to all."""
+        if self.leads:
+            raise RuntimeError("rank 0 takes the requests; the other ranks follow it")
+        stop = threading.Event()
+        previous = {}
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGINT, signal.SIGTERM):
+                previous[sig] = signal.signal(sig, lambda *_: stop.set())
+        try:
+            while True:
+                header = self._commands.next(stop.is_set)
+                if header is None or header["op"] == "stop":
+                    return
+                with self._device_lock:
+                    self._execute(header)
+        finally:
+            for sig, handler in previous.items():
+                signal.signal(sig, handler)
+            self._commands.leave()
+
+    def close(self) -> None:
+        """Stop the micro-batcher; on rank 0 of a mesh, send "stop" and wait
+        for the other ranks to leave. Later commands are refused."""
+        if self.batcher is not None:
+            self.batcher.close()
+        if self._commands is None or not self.leads:
+            return
+        with self._device_lock:
+            if self._refused == _STOPPED:
+                return
+            # Ranks out of step since a failed command do not read the stop.
+            failed, self._refused = self._refused, _STOPPED
+            self._commands.post({"op": "stop"})
+            if failed is None and not self._commands.wait_left(_LEAVE_TIMEOUT_S):
+                print(f"warning: not every rank left the mesh service within "
+                      f"{_LEAVE_TIMEOUT_S:.0f} s of the stop")
 
     def _run_batch(self, xs):
         """Stack same-bucket cubes, zero-pad the batch to a power of two, run
@@ -467,9 +636,11 @@ class EnhanceService:
     @property
     def accepts_encoded_requests(self) -> bool:
         """Can u16/bf16 request bodies take the device-decode path? Not when
-        micro-batched (the batcher stacks host float32 cubes), nor with a
-        normalisation an edge pad changes."""
-        return self.batcher is None and self.cfg.normalization in self._PAD_SAFE_NORMS
+        micro-batched (the batcher stacks host float32 cubes), nor on a mesh
+        (such bodies decode on the host and go through :meth:`enhance`), nor
+        with a normalisation an edge pad changes."""
+        return (self.batcher is None and self.mesh is None
+                and self.cfg.normalization in self._PAD_SAFE_NORMS)
 
     def _encoded_fn(self, encoding: str) -> Callable:
         """(int16 tensor of the payload's bits, scale, offset) → the
@@ -533,8 +704,10 @@ class EnhanceService:
         (the X-Inference-Seconds region). ``wire`` ('f32' | 'bf16' | 'u16')
         sets how S leaves the device (:meth:`_fetch_reduced`); 'u16_wire'
         returns 'S_wire', the uint16 codes with the denormalisation folded
-        into their affine, in place of 'S'."""
+        into their affine, in place of 'S'. On a mesh (rank 0) the region
+        also holds the command to the other ranks and the cube's broadcast."""
         cfg = self.cfg
+        self._check_leads()
         if cube.ndim != 3 or cube.shape[-1] != self.channels:
             raise ValueError(f"expected (H, W, {self.channels}) cube, got {cube.shape}")
         # C order: scipy's loadmat gives Fortran-ordered cubes, and a strided
@@ -548,6 +721,9 @@ class EnhanceService:
         start = time.perf_counter()
         if self.batcher is not None:
             R, I, Id, S = self.batcher.submit((bh, bw), x).result()
+        elif self.mesh is not None:
+            with self._device_lock:
+                R, I, Id, S = self._lead({"op": "enhance", "shape": x.shape}, x)
         else:
             with self._device_lock:
                 R, I, Id, S = self._infer(self.params, x)
@@ -592,7 +768,9 @@ class EnhanceService:
     def warmup(self, shapes: Sequence[Tuple[int, int]]) -> None:
         """Run each bucket of ``shapes`` once on zeros; micro-batched, every
         batch size a request can take (the powers of two under
-        ``max_batch``, and ``max_batch``)."""
+        ``max_batch``, and ``max_batch``). On a mesh (rank 0) every rank runs
+        each warmup."""
+        self._check_leads()
         for h, w in shapes:
             bh, bw = self._bucket(h, w)
             if (bh, bw) in self._buckets:
@@ -606,7 +784,9 @@ class EnhanceService:
                 sizes.append(self.batcher.max_batch)
             for b in sizes:
                 with self._device_lock:
-                    if b is None:
+                    if self.mesh is not None:
+                        self._lead({"op": "warmup", "shape": (bh, bw, self.channels)})
+                    elif b is None:
                         self._infer(self.params, torch.zeros((bh, bw, self.channels),
                                                              device=self.device))
                     else:
@@ -623,7 +803,10 @@ class EnhanceService:
         The checkpoint loads into a new host model (strict: a bad file
         changes nothing), is quantized again when the service is, and the new
         device weights replace the old under the device lock; the old ones
-        are dropped, the inferencer's copy included."""
+        are dropped, the inferencer's copy included. On a mesh rank 0 loads
+        it and broadcasts the weights, and every rank swaps them at the same
+        point in the request order."""
+        self._check_leads()
         path = checkpoint_path or self.checkpoint_path
         if not path:
             raise ValueError("no checkpoint path configured for reload")
@@ -632,6 +815,10 @@ class EnhanceService:
         template = {k: v.detach() for k, v in model.state_dict().items()}
         weights = self._device_weights(template)
         with self._device_lock:
+            if self.mesh is not None:
+                self._lead({"op": "reload", "weights": [
+                    (k, tuple(v.shape), str(v.dtype).rsplit(".", 1)[-1])
+                    for k, v in weights.items()]}, weights)
             self.params = weights
             if self.quantize:
                 self._infer.qparams = weights
@@ -862,17 +1049,23 @@ def _make_handler(service: EnhanceService):
 
 
 class EnhanceServer:
-    """ThreadingHTTPServer around a service; ``port=0`` picks a free port."""
+    """ThreadingHTTPServer around a service; ``port=0`` picks a free port. On
+    a rank that follows rank 0 of a mesh service it binds nothing, and
+    :meth:`serve_forever` follows rank 0's commands until it stops them."""
 
     def __init__(self, service: EnhanceService, host: str = "127.0.0.1", port: int = 8900):
         self.service = service
-        self.httpd = ThreadingHTTPServer((host, port), _make_handler(service))
-        self.host, self.port = self.httpd.server_address[:2]
+        self.httpd: Optional[ThreadingHTTPServer] = None
+        self.host = self.port = None
+        if service.leads:
+            self.httpd = ThreadingHTTPServer((host, port), _make_handler(service))
+            self.host, self.port = self.httpd.server_address[:2]
         self._thread: Optional[threading.Thread] = None
         self._serving = False
 
     def start(self) -> "EnhanceServer":
-        """Serve on a daemon thread; returns self."""
+        """Serve on a daemon thread (rank 0 of a mesh); returns self."""
+        self.service._check_leads()
         self._serving = True
         self._thread = threading.Thread(target=self.httpd.serve_forever, name="http-server",
                                         daemon=True)
@@ -880,19 +1073,26 @@ class EnhanceServer:
         return self
 
     def serve_forever(self) -> None:
+        if self.httpd is None:
+            print(f"Rank {self.service.mesh.rank} follows rank 0's commands")
+            self.service.follow()
+            return
+        where = "" if self.service.mesh is None else f", rank 0 of {self.service.mesh}"
         print(f"Serving on http://{self.host}:{self.port} "
-              f"(buckets of {self.service.pad_multiple}px)")
+              f"(buckets of {self.service.pad_multiple}px{where})")
         self._serving = True
         self.httpd.serve_forever()
 
     def shutdown(self) -> None:
-        # socketserver's shutdown() waits for serve_forever to return: on a
-        # server that never served it would block forever.
-        if self._serving:
-            self.httpd.shutdown()
-        self.httpd.server_close()
-        if self.service.batcher is not None:
-            self.service.batcher.close()
+        """Stop serving, then close the service (on rank 0 of a mesh: "stop"
+        to the other ranks)."""
+        if self.httpd is not None:
+            # socketserver's shutdown() waits for serve_forever to return: on
+            # a server that never served it would block forever.
+            if self._serving:
+                self.httpd.shutdown()
+            self.httpd.server_close()
+        self.service.close()
         if self._thread:
             self._thread.join(timeout=5)
 
@@ -908,31 +1108,54 @@ def parse_warmup(spec: str) -> list:
     return shapes
 
 
-def build_server_from_config(cfg: Config) -> EnhanceServer:
+def build_server_from_config(cfg: Config, mesh=None) -> EnhanceServer:
     """The construction half of ``--phase serve``: resolve the checkpoint
     (``model_epoch_latest.pth`` of ``test_timestamp``), build the service,
     warm its buckets, bind the server (not yet serving). The two TF32
-    switches are set from ``matmul_precision``, as the runner sets them."""
+    switches are set from ``matmul_precision``, as the runner sets them.
+    With ``mesh`` every rank builds the service; rank 0 warms the buckets
+    (the other ranks run those warmups once they follow) and binds the
+    server, and the others' server binds nothing."""
     if cfg.channels is None:
         raise ValueError("phase=serve requires an explicit 'channels' config")
-    check_ported(cfg, serving=True)
     ckpt = checkpoints.latest_path(cfg.test_model_dir)
-    if not os.path.exists(ckpt):
-        raise FileNotFoundError(f"no checkpoint at {ckpt}; train first or set test_timestamp")
     set_matmul_precision(cfg)
-    service = EnhanceService(cfg, cfg.channels, checkpoint_path=ckpt)
-    if cfg.serve_warmup:
+    service = EnhanceService(cfg, cfg.channels, checkpoint_path=ckpt, mesh=mesh)
+    if cfg.serve_warmup and service.leads:
         service.warmup(parse_warmup(cfg.serve_warmup))
     return EnhanceServer(service, cfg.serve_host, cfg.serve_port)
 
 
-def serve_from_config(cfg: Config) -> None:
-    """``--phase serve``: load the test checkpoint and serve until stopped."""
-    server = build_server_from_config(cfg)
+def serve_from_config(cfg: Config, mesh=None) -> None:
+    """``--phase serve``: load the test checkpoint and serve until stopped.
+    On a mesh rank 0 serves and the other ranks follow; rank 0 takes SIGTERM
+    as Ctrl-C, and either stops every rank, which then return."""
+    server = build_server_from_config(cfg, mesh=mesh)
     try:
-        server.serve_forever()
+        if mesh is None:
+            server.serve_forever()
+        else:
+            _serve_until_stopped(server)
     finally:
         server.shutdown()
+
+
+def _serve_until_stopped(server: EnhanceServer) -> None:
+    """``server.serve_forever()`` on a mesh, rank 0 ending on SIGINT or
+    SIGTERM (taken when this is the main thread) without an error."""
+    previous = None
+    if server.httpd is not None and threading.current_thread() is threading.main_thread():
+        def stop(*_):
+            raise KeyboardInterrupt
+
+        previous = signal.signal(signal.SIGTERM, stop)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        print("Stopping: rank 0 stops the other ranks")
+    finally:
+        if previous is not None:
+            signal.signal(signal.SIGTERM, previous)
 
 
 if __name__ == "__main__":

@@ -21,7 +21,12 @@ ranks, ``ShardedInferencer``). Last, the space axis (N = 2 or 4): one step
 at the stock global batch 2 (two training cubes, one epoch of ``phase:
 train`` with the height-sharded eval) on one process and under ``torchrun``
 with ``--mesh_shape (N/2)x2 --space_axis space`` (dp x sp: the patch height
-split over two ranks).
+split over two ranks). Then the mesh service: ``phase: serve`` on the mesh
+run's checkpoint, once in one process and once on N ranks (``--mesh_shape
+N``: rank 0 answers HTTP on 127.0.0.1, the other ranks follow), each
+answering the two test cubes and five warm requests of the first (its
+X-Inference-Seconds), and on N ranks the broadcast of one test cube's
+float32 bytes from rank 0 timed alone beside it (median of 5).
 
 Checks: the ranks' epoch terms are equal; epoch 1, the first step from the
 same weights, within 2e-5 of each term of the one-process run's (PERF.md's
@@ -35,7 +40,10 @@ and so is the height-sharded test S (its s/cube reported beside one
 process's); the dp x sp step: the ranks' terms equal, each term within 2e-5
 of the one-process step's, launches exact a rank (conv9 (1, p/2 + 8, p, 64)
 forward 2 and dgrad 1 and conv9_wgrad 2 at b = 1 a data rank, conv9 (1,
-size/2 + 8, size, 64) and flash once a cube evaluated).
+size/2 + 8, size, 64) and flash once a cube evaluated); the mesh service's
+S of each test cube within 1e-5 of the span of the one-process test
+phase's, as is the one-process service's, launches exact a rank (conv9 (1,
+size/N + 8, size, 64) and flash once a forward: the warmup and 7 requests).
 Prints one JSON line with every number and the failed checks, then the card
 line; exits 1 when a check failed. No part of the port imports it.
 """
@@ -56,6 +64,54 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 SEED = 2024
 
 
+def _serve_client(out: str, cfg, report: dict) -> None:
+    """In place of rank 0's accept loop (the one process's without a mesh):
+    serve on a thread, post each test cube (its S to ``out``) and five warm
+    requests of the first (their X-Inference-Seconds), then return, which
+    stops the service (and its followers)."""
+    from chip_smoke import _http
+    from sshslie_torch import serve
+
+    def client(server):
+        server.start()
+        files = sorted(f for f in os.listdir(cfg.test_data) if f.endswith(".mat"))
+        bodies = []
+        for i, name in enumerate(files):
+            with open(os.path.join(cfg.test_data, name), "rb") as fh:
+                bodies.append(fh.read())
+            status, rh, data = _http(server, "POST", "/enhance", bodies[-1])
+            if status != 200:
+                raise RuntimeError(f"POST {name}: HTTP {status}: {data[:300]!r}")
+            np.save(f"{out}.S{i}.npy", serve.decode_cube_response(data, rh))
+        cube = serve.decode_cube_response(bodies[0], {})
+        body, headers = serve.encode_cube(np.ascontiguousarray(cube), "f32")
+        report["x_seconds"] = [float(_http(server, "POST", "/enhance?encoding=f32", body,
+                                           headers)[1]["X-Inference-Seconds"]) for _ in range(5)]
+
+    follow = serve.EnhanceServer.serve_forever
+    serve.EnhanceServer.serve_forever = lambda server: (
+        follow(server) if server.httpd is None else client(server))
+
+
+def _broadcast_ms(shape, device) -> list:
+    """ms of five broadcasts of a float32 tensor of ``shape`` from rank 0,
+    each ending in a synchronize (rank 0's host clock)."""
+    import torch
+
+    from sshslie_torch.parallel import distributed
+
+    x = torch.zeros(shape, device=device)
+    times = []
+    for _ in range(6):
+        distributed.barrier(device)
+        t = time.perf_counter()
+        distributed.broadcast_tensor(x, shape, torch.float32, device)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t) * 1e3)
+    return times[1:]
+
+
 def _worker(out: str, argv: list) -> int:
     """One process of a run: the CLI's main, then its report to ``out``."""
     import torch
@@ -63,18 +119,32 @@ def _worker(out: str, argv: list) -> int:
     from chip_smoke import counts_to_json, shape_counts, zero_counts
     from sshslie_torch import runner
     from sshslie_torch.config import parse_args
+    from sshslie_torch.device import resolve_device
     from sshslie_torch.ops import attention, conv9
+    from sshslie_torch.parallel import distributed
 
     zero_counts(conv9, attention)
     cfg = parse_args(argv)
+    report = {}
+    serving = cfg.phase == "serve"
+    if serving:
+        _serve_client(out, cfg, report)
+        # Joined here, so that the group outlives runner.main for the timing.
+        distributed.initialize_distributed(device=cfg.device)
     result = runner.main(cfg)
     trainer = result.get("trainer")
     if torch.cuda.is_available():
         torch.cuda.synchronize()
     rank = int(os.environ.get("RANK", "0"))
-    report = {"rank": rank, "timestamp": cfg.timestamp, "test_result_dir": cfg.test_result_dir,
-              "seconds": result.get("seconds"),
-              "counts": counts_to_json(shape_counts(conv9, attention))}
+    report.update({"rank": rank, "timestamp": cfg.timestamp,
+                   "test_result_dir": cfg.test_result_dir, "seconds": result.get("seconds"),
+                   "counts": counts_to_json(shape_counts(conv9, attention))})
+    if serving and distributed.active():
+        from sshslie_torch.serve import parse_warmup
+
+        h, w = parse_warmup(cfg.serve_warmup)[0]
+        report["broadcast_ms"] = _broadcast_ms((h, w, cfg.channels), resolve_device(cfg.device))
+        distributed.leave()
     if trainer is not None:
         report.update(losses=trainer.all_epoch_losses, mesh=str(trainer.mesh),
                       device=str(trainer.device))
@@ -172,6 +242,16 @@ def main(argv=None) -> int:
             ranks_of + [os.path.join(work, "sp"), *sp_cli, "--model_name", "sp_mesh",
                         "--mesh_shape", sp_shape, "--space_axis", "space"],
             work, env, args.timeout)
+    # The mesh service on the mesh run's checkpoint, against one process.
+    serve_cli = [*test_cli, "--phase", "serve", "--serve_port", "0", "--serve_pad_multiple", "64",
+                 "--serve_warmup", f"{size}x{size}"]
+    seconds["one-process service"] = _run(me + [os.path.join(work, "serve1"), *serve_cli],
+                                          work, env, args.timeout)
+    seconds[f"mesh service on {n} ranks"] = _run(
+        ranks_of + [os.path.join(work, "serven"), *serve_cli, "--mesh_shape", str(n)],
+        work, env, args.timeout)
+    serve1 = report("serve1.rank0")
+    serven = [report(f"serven.rank{r}") for r in range(n)]
     out = {"nproc": n, "meshes": [r["mesh"] for r in ranks], "devices": [r["device"] for r in ranks],
            "seconds": seconds}
     test_s = {"one process": one["seconds"], f"height-sharded, {n} ranks": sptest[0]["seconds"]}
@@ -244,6 +324,34 @@ def main(argv=None) -> int:
                     failed.append(f"dp x sp rank {r['rank']}: launches "
                                   f"{counts_from_json(r['counts'])}, expected {want}")
             out["sp_launches_a_rank"] = {" ".join(map(str, k)): v for k, v in want.items()}
+    # The mesh service: S, launches and X-Inference-Seconds against one process.
+    forwards = 8                         # the warmup, 2 test cubes, 5 warm requests
+    out["serve_x_seconds"] = {"one process": serve1["x_seconds"], f"{n} ranks": serven[0]["x_seconds"]}
+    out["serve_x_median"] = {k: sorted(v)[2] for k, v in out["serve_x_seconds"].items()}
+    out["serve_broadcast_ms"] = serven[0]["broadcast_ms"]
+    out["serve_broadcast_share"] = (sorted(serven[0]["broadcast_ms"])[2] / 1e3
+                                    / out["serve_x_median"][f"{n} ranks"])
+    for key, prefix in (("serve1_s_err", "serve1"), ("serven_s_err", "serven")):
+        out[key] = []
+        for i in range(2):
+            s_srv = np.load(os.path.join(work, f"{prefix}.S{i}.npy"))
+            s_one = load_hsi(os.path.join(work, one["test_result_dir"], f"c{i}.mat"),
+                             mat_key="data")
+            out[key].append(float(np.abs(s_srv.astype(np.float64) - s_one).max()))
+            if not out[key][-1] <= 1e-5 * out["s_span"][i]:
+                failed.append(f"{key} of c{i}: {out[key][-1]:.3e} from the one-process test "
+                              f"phase's, over 1e-5 of its span {out['s_span'][i]:.1f}")
+    if card:
+        flash = (size // 8) ** 2 > 2048
+        for reports, rows in (([serve1], size), (serven, size // n + 8)):
+            want = {("conv9", "forward", "float32", (1, rows, size, BANDS)): forwards}
+            if flash:
+                want[("flash_attention", "forward", "float32",
+                      (1, 4, (size // 8) ** 2, 16))] = forwards
+            for r in reports:
+                if counts_from_json(r["counts"]) != want:
+                    failed.append(f"service ({len(reports)} process(es)) rank {r['rank']}: "
+                                  f"launches {counts_from_json(r['counts'])}, expected {want}")
     out["failed"] = failed
     out["ok"] = not failed
     print(json.dumps(out))

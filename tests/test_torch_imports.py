@@ -90,19 +90,31 @@ def test_entry_point_raises_without_card_unless_cpu_is_asked(tmp_path, monkeypat
 
 
 @pytest.mark.parametrize("phase,unported", [
-    ("serve", {"mesh_shape": "2"}),
-    ("serve", {"mesh_shape": "2x2", "space_axis": "space"}),
+    ("serve", {"mesh_shape": "1"}),
+    ("serve", {"mesh_shape": "1x1", "space_axis": "space"}),
 ], ids=["serve", "serve-dp-sp"])
 def test_unported_phases_raise(tmp_path, monkeypatch, phase, unported):
-    """Every phase is ported, and raises for what of it is not (serving on a
-    mesh), before any work."""
-    from sshslie_torch import runner
+    """Every phase is ported (the name is from when serving on a mesh was
+    not): the serve phase on a mesh reaches the mesh service, which refuses
+    ``serve_quantize`` with JAX's ValueError before any weight is touched."""
+    from sshslie_torch import runner, serve
     from sshslie_torch.config import load_config
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        runner.main(load_config(None, {"phase": phase, "device": "cpu", **unported}))
-    assert not os.path.exists(tmp_path / "logs")
+    built = []
+    monkeypatch.setattr(serve.EnhanceService, "_new_model", lambda self: built.append(1))
+    seen = {}
+    service = serve.EnhanceService.__init__
+
+    def init(self, cfg, channels, checkpoint_path=None, state_dict=None, mesh=None):
+        seen["mesh"] = mesh
+        service(self, cfg, channels, checkpoint_path, state_dict, mesh)
+
+    monkeypatch.setattr(serve.EnhanceService, "__init__", init)
+    with pytest.raises(ValueError, match="serve_quantize is single-chip only"):
+        runner.main(load_config(None, {"phase": phase, "device": "cpu", "channels": 4,
+                                       "serve_quantize": "int8", **unported}))
+    assert seen["mesh"].sizes == (1,) * len(unported["mesh_shape"].split("x")) and not built
 
 
 @pytest.mark.parametrize("phase,keys", [

@@ -491,7 +491,7 @@ def test_initialize_distributed_rules(monkeypatch):
         distributed.initialize_distributed()
 
 
-@pytest.mark.parametrize("keys,raises", [
+@pytest.mark.parametrize("keys,serves", [
     ({"mesh_shape": "2", "eval_sharded": True, "eval_shard_mode": "band"}, False),
     ({"mesh_shape": "2"}, False),
     ({"mesh_shape": "2", "eval_sharded": True}, False),
@@ -500,17 +500,25 @@ def test_initialize_distributed_rules(monkeypatch):
     ({"mesh_shape": "2x2", "space_axis": "space"}, False),
     ({"mesh_shape": "2x2", "space_axis": "space", "phase": "serve"}, True),
 ], ids=["band", "dp", "spatial", "serve", "cuda-index", "dp-sp", "serve-dp-sp"])
-def test_config_takes_the_data_axis_only(keys, raises):
-    """Every mesh value is taken since the space axis was ported (the name
-    is from when only the data axis was); serving on a mesh still raises."""
-    from sshslie_torch.config import check_ported, load_config
+def test_config_takes_the_data_axis_only(keys, serves, tmp_path, monkeypatch):
+    """Every mesh value is taken, serving on a mesh too (the name is from when
+    only the data axis was): each config loads with its values, and the
+    runner hands a serve phase's mesh to the server."""
+    from sshslie_torch import runner, serve
+    from sshslie_torch.config import load_config
+    from sshslie_torch.parallel.mesh import Mesh, parse_mesh_shape
 
-    cfg = load_config(None, keys)
-    if raises:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7"):
-            check_ported(cfg)
-    else:
-        check_ported(cfg)
+    cfg = load_config(None, {**keys, "channels": CHANNELS})
+    assert {k: getattr(cfg, k) for k in keys} == keys
+    if not serves:
+        return
+    sizes = parse_mesh_shape(cfg.mesh_shape)
+    mesh = Mesh(("data", "space")[:len(sizes)], sizes, 0, "gloo")
+    got = []
+    monkeypatch.setattr(serve, "serve_from_config", lambda c, mesh=None: got.append(mesh))
+    monkeypatch.chdir(tmp_path)
+    assert runner._run(cfg, torch.device("cpu"), mesh) == {}
+    assert got == [mesh]
 
 
 def test_torchrun_train_and_test_two_ranks(group):

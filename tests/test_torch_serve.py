@@ -491,11 +491,20 @@ def test_quantized_serving_matches_jax(tmp_path, fmt, bound, jax_service, state_
     np.testing.assert_allclose(q.enhance(cube)["S"], S_q, atol=1e-4)
 
 
-def test_quantized_serving_rejects_mesh():
+def test_quantized_serving_rejects_mesh(monkeypatch, state_dict):
+    """JAX's ValueError, before any weight is touched, whether the mesh is
+    the config's or the service's; without quantization a mesh service
+    builds (``tests/test_torch_serve_mesh.py`` serves on gloo groups)."""
+    from sshslie_torch.parallel.mesh import make_mesh
+
     with pytest.raises(ValueError, match="single-chip"):
         serve.EnhanceService(_port_cfg(serve_quantize="int8", mesh_shape="8"), CHANNELS)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.EnhanceService(_port_cfg(mesh_shape="8"), CHANNELS)
+    mesh = serve.EnhanceService(_port_cfg(mesh_shape="1"), CHANNELS, state_dict=state_dict,
+                                mesh=make_mesh("1"))
+    assert mesh.leads and not mesh.accepts_encoded_requests
+    monkeypatch.setattr(serve.EnhanceService, "_new_model", lambda self: pytest.fail("built"))
+    with pytest.raises(ValueError, match="single-chip"):
+        serve.EnhanceService(_port_cfg(serve_quantize="int8"), CHANNELS, mesh=make_mesh("1"))
 
 
 # -- the entry point ------------------------------------------------------------------

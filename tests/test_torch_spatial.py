@@ -38,7 +38,8 @@ at most 48x48.
   weights) within rtol 1e-5 of a one-process run, the test S within 5e-5.
 * The limits: a patch JAX takes but the port cannot split (40 on 2 ranks)
   raises naming its restriction, one that 2 does not divide raises JAX's
-  error; serving on a mesh still raises naming item 7.
+  error; the serve configs build the height-sharded mesh service
+  (``tests/test_torch_serve_mesh.py`` serves on gloo groups).
 """
 
 import os
@@ -524,14 +525,30 @@ def test_patch_the_port_cannot_split_raises(groups):
 
 
 def test_serving_on_a_mesh_still_raises():
-    from sshslie_torch.config import check_ported, load_config
+    """Serving on a mesh is ported (the name is from when it raised): the
+    serve configs on meshes of the same axes (one process each) build the
+    height-sharded service over the data axis, with no micro-batcher and no
+    device decode, whatever ``eval_sharded`` and ``eval_shard_mode`` say,
+    and serve the one-device service's S."""
+    from sshslie_torch import serve
+    from sshslie_torch.config import load_config
+    from sshslie_torch.evaluate import ShardedInferencer
+    from sshslie_torch.parallel.mesh import make_mesh
 
-    for shape in ("2", "2x2"):
-        cfg = load_config(None, {"mesh_shape": shape, "space_axis": "space", "phase": "serve"})
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item 7: serving"):
-            check_ported(cfg)
-    check_ported(load_config(None, {"mesh_shape": "2x2", "space_axis": "space",
-                                    "eval_sharded": True}))
+    cube = (np.random.RandomState(2).rand(32, 24, CHANNELS) * 3000).astype(np.float32)
+    keys = dict(channels=CHANNELS, device="cpu", attention_impl="dense", global_min=0.0,
+                global_max=4095.0, serve_pad_multiple=16)
+    want = serve.EnhanceService(load_config(None, {**keys, "phase": "serve"}), CHANNELS).enhance(
+        cube)["S"]
+    for shape, one in (("2", "1"), ("2x2", "1x1")):
+        cfg = load_config(None, {**keys, "mesh_shape": shape, "space_axis": "space",
+                                 "phase": "serve", "serve_max_batch": 4, "eval_sharded": True,
+                                 "eval_shard_mode": "band"})
+        svc = serve.EnhanceService(cfg, CHANNELS, mesh=make_mesh(one))
+        assert isinstance(svc._infer, ShardedInferencer) and svc._infer.n == 1
+        assert svc.batcher is None and not svc.accepts_encoded_requests
+        np.testing.assert_allclose(svc.enhance(cube)["S"], want, rtol=1e-5, atol=1e-3)
+        svc.close()
 
 
 if __name__ == "__main__":
