@@ -163,7 +163,13 @@ bfloat16``.
    exact. Two ranks of NCCL need two cards and are not run.
 8. Kernels against their plain versions on the card, each dtype with its
    stated tolerance (float32 conv9 and flash also at the micro-batched
-   serving shapes (4, 512, 512, 64) and (4, 4, 4096, 16); the bfloat16 conv9, its dgrad and conv9_wgrad also at
+   serving shapes (4, 512, 512, 64) and (4, 4, 4096, 16); the float32 conv9
+   in each split of its units (``conv9_fwd(..., parts=p)``, p in
+   ``F32_PARTS``) at (1, 37, 45, 64) for k = 3, 9 and 13, forward and dgrad,
+   every split bit for bit the others, and the b2 batch's forward and dgrad
+   in each split, its sample 0 against (1, 128, 128, 64) and its rows 0..67
+   against (2, 72, 128, 64), bit for bit; the split each float32 conv9 row
+   of the kernels line runs is printed before it; the bfloat16 conv9, its dgrad and conv9_wgrad also at
    (1, 37, 53, 64) for k = 3, 9 and 13; the bfloat16 flash kernel also
    against the Pallas kernel's float32 p, at S = 4096 and 16384);
    the TF32 entries (``tf32=True``) within 1e-5 of their TF32 plain versions
@@ -2334,6 +2340,47 @@ def main() -> int:
         x1024 = torch.cat([torch.cat([x, x.flip(2)], 2), torch.cat([x.flip(1), x.flip(1, 2)], 2)], 1)
         errs["conv9_1024"] = check_rel("conv9 (1, 1024, 1024, 64) k9", conv9.conv9_fwd(x1024, w9),
                                        conv9.conv9_plain(x1024, w9), 2e-5)
+        # The float32 entry in every split of its units (conv9_f32_parts picks
+        # one by shape): ragged (1, 37, 45, 64) at k = 3, 9 and 13, forward
+        # and dgrad, against the plain version (2e-5 of the largest output),
+        # every split's bits equal; and where two splits or two shapes compute
+        # the same pixels, the same bits: the b2 batch in every split, sample
+        # 0 of it against (1, 128, 128, 64), its rows 0..67 against the rank
+        # slice (2, 72, 128, 64) (rows 68..71 see the slice's edge).
+        t_f32 = time.perf_counter()
+        g_f32 = torch.Generator().manual_seed(SEED + 10)
+        x37 = torch.randn(1, 37, 45, 64, generator=g_f32).to(dev)
+        worst = 0.0
+        for kk in (3, 9, 13):
+            wk = (torch.randn(kk, kk, 64, 64, generator=g_f32) * 0.02).to(dev)
+            for what, ww in (("", wk), (" dgrad", conv9.conv9_dgrad_weights(wk))):
+                plain = conv9.conv9_plain(x37, ww)
+                outs = [conv9.conv9_fwd(x37, ww, parts=p) for p in conv9.F32_PARTS]
+                torch.cuda.synchronize()
+                for p, o in zip(conv9.F32_PARTS, outs):
+                    err = float((o - plain).abs().max() / plain.abs().max())
+                    if not (err <= 2e-5 and bool(torch.isfinite(o).all())):
+                        raise AssertionError(f"conv9{what} (1, 37, 45, 64) k{kk} parts {p}: "
+                                             f"max|d| / max|plain| {err:.3e} over 2e-5")
+                    if not torch.equal(o, outs[0]):
+                        raise AssertionError(f"conv9{what} (1, 37, 45, 64) k{kk}: parts {p}'s "
+                                             f"bits differ from the unsplit units'")
+                    worst = max(worst, err)
+        for what, xx, ww in (("", xt, w9), (" dgrad", gt, wd)):
+            b2 = [conv9.conv9_fwd(xx, ww, parts=p) for p in conv9.F32_PARTS]
+            for p, o in zip(conv9.F32_PARTS, b2):
+                same = (torch.equal(o, b2[0])
+                        and torch.equal(conv9.conv9_fwd(xx[:1].contiguous(), ww, parts=p), b2[0][:1])
+                        and torch.equal(conv9.conv9_fwd(xx[:, :72].contiguous(), ww, parts=p)[:, :68],
+                                        b2[0][:, :68]))
+                if not same:
+                    raise AssertionError(f"conv9{what} parts {p}: (2, 128, 128, 64), its sample 0 or "
+                                         f"its rows 0..67 as (2, 72, 128, 64) differ bit for bit")
+        log(f"float32 conv9 splits (parts) {conv9.F32_PARTS}: (1, 37, 45, 64) k = 3, 9, 13, forward "
+            f"and dgrad, max|d| / max|plain| {worst:.3e} (tolerance 2e-5), the splits bit for bit "
+            f"equal; (2, 128, 128, 64) forward and dgrad in every split, its sample 0 and rows 0..67 "
+            f"as (1, 128, 128, 64) and (2, 72, 128, 64), bit for bit equal; "
+            f"{time.perf_counter() - t_f32:.2f} s")
 
         # The bfloat16 entries at the bfloat16 main paths' shapes: the test
         # cube, and a b8 batch of the fused pipeline with a gradient's scale.
@@ -2897,7 +2944,7 @@ def main() -> int:
         q2, k2, v2 = qkv_1024
         qb, kbb, vb = qkvb
         qb2, kbb2, vb2 = qkvb_1024
-        rows, row_keys = [], []
+        rows, row_keys, f32_parts = [], [], {}
         conv9_src, conv9_rep = "sshslie_torch/csrc/conv9.cu", "sshslie_tpu/ops/conv_pallas.py:147"
         wgrad_src, wgrad_rep = "sshslie_torch/csrc/conv9_wgrad.cu", "sshslie_tpu/ops/conv_pallas.py:215"
         flash_src, flash_rep = "sshslie_torch/csrc/flash_attn.cu", "sshslie_tpu/ops/attention.py:169"
@@ -3045,6 +3092,8 @@ def main() -> int:
             bound, bound_by = bound_ms(work_, peak)
             kernel_name, role, t_, *label = count
             label = label[0] if label else str(t_.dtype).replace("torch.", "")
+            if kernel_name == "conv9" and label == "float32":
+                f32_parts[name] = conv9.conv9_f32_parts(*t_.shape[:3], 9, conv9.f32_resident(t_.device, 9))
             row_key = (kernel_name, role, label, tuple(t_.shape))
             row_keys.append(row_key)
             launches = MAIN_SHAPES.get(row_key, 0)
@@ -3084,6 +3133,9 @@ def main() -> int:
     if unlaunched or unheld:
         raise AssertionError(f"kernel rows with no main-path launch at their shape: {unlaunched}; "
                              f"main-path shapes without a row: {unheld}")
+    log(f"float32 conv9 splits chosen (output-channel parts of a 4 x 32 tile; {card}, (SMs, blocks "
+        f"an SM) {conv9.f32_resident(torch.device('cuda'), 9)}): "
+        + ", ".join(f"{r['name']} {f32_parts[r['name']]}" for r in rows if r["name"] in f32_parts))
     log(f"chip_smoke total {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(card_line())

@@ -11,25 +11,51 @@
 // Both entries also serve the input gradient (ShallowConv.backward, as
 // _psc_bwd), with the reversed and transposed weights.
 //
-// float32 entry (sshslie_conv_c64_f32). What bounds it on an H100:
-// arithmetic. One 512x512x64 forward at k = 9 is 2*512^2*81*64*64 = 1.74e11
-// FLOP against ~135 MB in and out, so ~1300 FLOP a byte; float32 outside the
-// tensor cores (full float32) peaks at 67 TFLOP/s, which makes
-// 2.6 ms the floor, against 0.04 ms for the bytes. Design, an implicit GEMM
-// on the CUDA cores:
-//   * A block of 256 threads owns an 8 x 32 pixel output tile and all 64
-//     output channels. Thread (pixel group, channel group) keeps 8 pixels of
-//     one row times 8 channels (co = 4g..4g+3 and 32+4g..32+4g+3) in 64
-//     registers.
-//   * The 64 input channels are walked in chunks of 4. Per chunk the block
-//     stages the halo'd input window ((8+k-1) x (32+k-1) pixels x 4 channels,
-//     zero outside the image) and all k*k taps of the chunk's weights
-//     (k*k x 4 x 64) in shared memory: 93 KB at k = 9, so two blocks share an
-//     SM.
-//   * Per (channel, kh) a thread loads its 8+k-1 input values of one row into
-//     registers once and reuses them for all k taps of that row: per tap it
-//     reads two float4 of weights (conflict-free: 8 channel groups cover the
-//     32 banks) for 64 FMA.
+// float32 entry (sshslie_conv_c64_f32): exact float32 products on the CUDA
+// cores (FFMA), each output's sum in one fixed order, ci, then kh, then kw:
+// the order of the entry's first kernel (one 256-thread block an 8 x 32
+// tile, all 64 channels), whose outputs this one equals bit for bit.
+// What bounds it on an H100: arithmetic. One 512x512x64 forward at k = 9 is
+// 2*512^2*81*64*64 = 1.74e11 FLOP against ~135 MB in and out, ~1300 FLOP a
+// byte; float32 outside the tensor cores peaks at 67 TFLOP/s (an FFMA loop
+// alone runs at 65.5 on the card at 1980 MHz, tools/tc_probe.py --ffma),
+// which makes 2.6 ms the floor, against 0.04 ms for the bytes. Design, an
+// implicit GEMM on the CUDA cores:
+//   * A block of 128 threads (4 warps, one on each scheduler of its SM) owns
+//     a unit: a 4 x 32 pixel output tile and 64 / parts of its output
+//     channels, parts = 1, 2 or 4 chosen at launch from the shape and the
+//     card's SMs (ops/conv9.py::conv9_f32_parts): the busiest SM's share of
+//     the work sets the time, so a small grid splits its tiles' channels
+//     until every SM has work. A thread keeps P pixels of one row times CT
+//     channels in registers: 16 x 4 (parts 1), 16 x 2 (parts 2), 8 x 2
+//     (parts 4).
+//   * A prep kernel writes the input planar and zero-padded (a channel's
+//     image row is contiguous, the padding real zeros) and the weights as
+//     [part][ci][tap][channel]. The conv kernel then walks the input
+//     channels one at a time through a ring of two stages; warp 0 fills a
+//     stage with bulk copies (cp.async.bulk: one for the channel's taps, one
+//     a window row) that complete on the stage's mbarrier. One __syncthreads
+//     a channel; channel ci + 1 lands while channel ci is computed.
+//   * Per kernel row a thread asks for the row's K taps of its weights
+//     before its first product, and slides along its row's input values as
+//     float4 chunks, each loaded a tap before its first use (a row's first
+//     chunks in the row before). A window row is 4 mod 8 floats long, so a
+//     warp's input loads take few wavefronts.
+//   * Measured on an H100 (PERF.md; tools/conv_bench.py): 3.47 ms at 512^2
+//     (75% of the bound; the first kernel 3.91), 0.466 ms at b2 x 128^2,
+//     0.273 at b1 x 128^2 (the first kernel: 0.52 for both, one wave of 64
+//     or 128 blocks). What holds the loop: the weights' shared-memory
+//     loads. It is 94-96% FFMA (tools/sass_stats.py) but runs at ~75%: with
+//     the weights loaded once a channel (wrong sums) it ran at 81%, with
+//     the input loads gone too no faster. 16 pixels a thread halve the
+//     weight loads a product (8 x 8 channels: 3.64 ms). Tried and dropped:
+//     per-thread cp.async staging of 4-byte input gathers (3.86 ms with 8 x
+//     8), the next tap's weights a tap ahead (ptxas issues each load ~30
+//     FFMAs before its use: 5% slower than a row's weights at once), a warp
+//     of 2 channel groups x 16 pixel groups (broadcast weight loads: the
+//     same time), two rows of 8 pixels a thread in an 8-row tile, the
+//     FFMAs in inline asm groups, ptxas -O2, single-buffered weights, the
+//     whole row's input at its start.
 //
 // bfloat16 entry (sshslie_conv_c64_bf16): bfloat16 x and w, float32 sums,
 // the output rounded to bfloat16 once (conv_pallas.py::conv9_fwd on bfloat16
@@ -152,112 +178,289 @@
 namespace {
 
 constexpr int kC = 64;         // input and output channels
-constexpr int kTH = 8;         // output tile rows per block
-constexpr int kTW = 32;        // output tile columns per block
-constexpr int kCC = 4;         // input channels staged per chunk (float32 entry)
-constexpr int kPix = 8;        // output pixels per thread (float32 entry)
-constexpr int kThreads = 256;  // 32 pixel groups x 8 channel groups
+constexpr int kThreads = 256;  // the bfloat16 and TF32 entries: 2 warpgroups
 
-template <int K>
-struct Tile {
-  static constexpr int kInH = kTH + K - 1;
-  static constexpr int kInW = kTW + K - 1;
-  static constexpr int kInFloats = kCC * kInH * kInW;
-  static constexpr int kWFloats = K * K * kCC * kC;
-  static constexpr int kSmemBytes = 4 * (kWFloats + kInFloats);
+// ---- float32 entry: FFMA on the CUDA cores ----
+
+constexpr int kThreadsF = 128;  // 4 warps, one a scheduler
+constexpr int kTHf = 4;         // output tile rows per block
+constexpr int kTWf = 32;        // output tile columns per block
+
+// K: kernel size; P: output pixels a thread (one row); CT: output channels a
+// thread, 4 or 2. A block has P channel groups of CT channels and 128 / P
+// pixel groups: parts 1 is P = 16, CT = 4; parts 2 is 16, 2; parts 4 is 8, 2.
+template <int K, int P, int CT>
+struct F32Tile {
+  static constexpr int kK = K;
+  static constexpr int kP = P;
+  static constexpr int kCT = CT;
+  static constexpr int kCoB = P * CT;                  // output channels of a unit
+  static constexpr int kNX4 = (P + K - 1 + 3) / 4;     // float4 of input a thread's row
+  static constexpr int kInH = kTHf + K - 1;
+  // The window's row: >= kTWf + K - 1 and the last chunk a thread reads, and
+  // = 4 mod 8 floats, so that a warp's input loads take few wavefronts.
+  static constexpr int kInW0 = kTWf - P + 4 * kNX4 > kTWf + K - 1 ? kTWf - P + 4 * kNX4
+                                                                  : kTWf + K - 1;
+  static constexpr int kInW = kInW0 + (12 - kInW0 % 8) % 8;
+  static constexpr int kWFloats = K * K * kCoB;        // one input channel's taps
+  static constexpr int kStageFloats = kWFloats + kInH * kInW;
+  static constexpr int kStageBytes = 4 * kStageFloats;
+  static constexpr int kSmemBytes = 2 * kStageBytes + 16;  // two stages, two mbarriers
+  // Registers: P CT accumulators, a kernel row's K CT weights, a row of input.
+  static constexpr int kMinBlocks = P * CT == 64 ? (K <= 11 ? 3 : 2) : (K <= 9 ? 5 : 4);
+  static_assert(CT == 4 || CT == 2, "4 or 2 output channels a thread");
 };
 
-template <int K>
-__global__ void __launch_bounds__(kThreads, 2)
-conv_c64_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                float* __restrict__ y, int H, int W) {
-  using T = Tile<K>;
-  constexpr int P = (K - 1) / 2;
-  extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [K*K][kCC][kC]
-  float* xs = ws + T::kWFloats;                 // [kCC][kInH][kInW]
+// One-thread bulk copy of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) into shared memory, completing on mbarrier `bar`.
+__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, int bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
 
-  const int tid = threadIdx.x;
-  const int cg = tid & 7;             // channel group
-  const int pg = tid >> 3;            // pixel group, 0..31
-  const int prow = pg >> 2;           // tile row, 0..7
-  const int pcol = (pg & 3) * kPix;   // tile column of the first pixel
-  const int h0 = blockIdx.y * kTH;
-  const int w0 = blockIdx.x * kTW;
-  const float* xb = x + static_cast<size_t>(blockIdx.z) * H * W * kC;
+__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
 
-  float acc[kPix][8];
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of mbarrier `bar` has completed.
+__device__ __forceinline__ void mbar_wait(unsigned bar, int parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "wait_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra wait_%=;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float lane4(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// A thread's CT consecutive output channels of one tap, from p.
+template <int CT>
+__device__ __forceinline__ void load_tap(float (&v)[CT], const float* p) {
+  if constexpr (CT == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x;
+    v[1] = a.y;
+  } else {
+    const float4 a = lds4(p);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  }
+}
+
+// Taps at which chunk c (input values 4c .. 4c+3) of a thread's row is first
+// and last used: value v serves pixels v - kw, 0 <= v - kw < P.
+template <class T>
+__device__ constexpr int first_tap(int c) {
+  return 4 * c - (T::kP - 1) > 0 ? 4 * c - (T::kP - 1) : 0;
+}
+template <class T>
+__device__ constexpr int last_tap(int c) {
+  return 4 * c + 3 < T::kK - 1 ? 4 * c + 3 : T::kK - 1;
+}
+
+// One input channel: all K x K taps into the accumulators, kh then kw.
+// xrow: the thread's first input value in the stage's window; wt: its
+// channels in the stage's tap 0 row.
+template <class T>
+__device__ __forceinline__ void conv_channel(float (&acc)[T::kP][T::kCT], const float* xrow,
+                                             const float* wt) {
+  constexpr int K = T::kK;
+  constexpr int P = T::kP;
+  constexpr int CT = T::kCT;
+  constexpr int kNX4 = T::kNX4;
+  constexpr int kEarly = P / 4;  // chunks first used at tap 0
+  float4 xc[kNX4];
 #pragma unroll
-  for (int j = 0; j < kPix; ++j)
-#pragma unroll
-    for (int c = 0; c < 8; ++c) acc[j][c] = 0.f;
-
-  for (int ci0 = 0; ci0 < kC; ci0 += kCC) {
-    __syncthreads();  // the previous chunk is consumed
-    // Weights of this chunk, [tap][cc][co], one float4 a step.
-    for (int i = tid; i < K * K * kCC * (kC / 4); i += kThreads) {
-      const int q = i % (kC / 4);
-      const int cc = (i / (kC / 4)) % kCC;
-      const int tap = i / ((kC / 4) * kCC);
-      reinterpret_cast<float4*>(ws)[i] =
-          load4(w + (static_cast<size_t>(tap) * kC + ci0 + cc) * kC + q * 4);
-    }
-    // Halo'd input window of this chunk, zero outside the image.
-    for (int i = tid; i < T::kInH * T::kInW; i += kThreads) {
-      const int iy = i / T::kInW;
-      const int ix = i % T::kInW;
-      const int gh = h0 - P + iy;
-      const int gw = w0 - P + ix;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gh >= 0 && gh < H && gw >= 0 && gw < W)
-        v = load4(xb + (static_cast<size_t>(gh) * W + gw) * kC + ci0);
-      xs[(0 * T::kInH + iy) * T::kInW + ix] = v.x;
-      xs[(1 * T::kInH + iy) * T::kInW + ix] = v.y;
-      xs[(2 * T::kInH + iy) * T::kInW + ix] = v.z;
-      xs[(3 * T::kInH + iy) * T::kInW + ix] = v.w;
-    }
-    __syncthreads();
-
+  for (int c = 0; c < kEarly; ++c) xc[c] = lds4(xrow + 4 * c);
 #pragma unroll 1
-    for (int cc = 0; cc < kCC; ++cc) {
-#pragma unroll 1
-      for (int kh = 0; kh < K; ++kh) {
-        const float* row = xs + (cc * T::kInH + prow + kh) * T::kInW + pcol;
-        float xr[kPix + K - 1];
+  for (int kh = 0; kh < K; ++kh) {
+    const float* xr = xrow + kh * T::kInW;
+    const float* xn = xr + (kh + 1 < K ? T::kInW : 0);
+    // The row's K taps of weights, all asked for before its first product:
+    // ptxas then places each load well ahead of its use (a load a tap ahead
+    // ran 5% slower).
+    float wrow[K][CT];
 #pragma unroll
-        for (int t = 0; t < kPix + K - 1; ++t) xr[t] = row[t];
-        const float* wrow = ws + (kh * K * kCC + cc) * kC;
+    for (int t = 0; t < K; ++t) load_tap<CT>(wrow[t], wt + (kh * K + t) * T::kCoB);
+    float4 xnext[kEarly];
 #pragma unroll
-        for (int kw = 0; kw < K; ++kw) {
-          const float* wt = wrow + kw * kCC * kC;
-          const float4 wa = *reinterpret_cast<const float4*>(wt + cg * 4);
-          const float4 wb = *reinterpret_cast<const float4*>(wt + 32 + cg * 4);
+    for (int kw = 0; kw < K; ++kw) {
+      // A chunk first used at tap f >= 1 is loaded at tap f - 1; one first
+      // used at tap 0 is loaded for the next row at the tap after its last
+      // use in this one (or at the last tap).
 #pragma unroll
-          for (int j = 0; j < kPix; ++j) {
-            const float xv = xr[j + kw];
-            acc[j][0] = fmaf(xv, wa.x, acc[j][0]);
-            acc[j][1] = fmaf(xv, wa.y, acc[j][1]);
-            acc[j][2] = fmaf(xv, wa.z, acc[j][2]);
-            acc[j][3] = fmaf(xv, wa.w, acc[j][3]);
-            acc[j][4] = fmaf(xv, wb.x, acc[j][4]);
-            acc[j][5] = fmaf(xv, wb.y, acc[j][5]);
-            acc[j][6] = fmaf(xv, wb.z, acc[j][6]);
-            acc[j][7] = fmaf(xv, wb.w, acc[j][7]);
-          }
-        }
+      for (int c = kEarly; c < kNX4; ++c)
+        if (kw == first_tap<T>(c) - 1) xc[c] = lds4(xr + 4 * c);
+#pragma unroll
+      for (int c = 0; c < kEarly; ++c)
+        if (kw == (last_tap<T>(c) + 1 < K ? last_tap<T>(c) + 1 : K - 1)) xnext[c] = lds4(xn + 4 * c);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const float xv = lane4(xc[(j + kw) >> 2], (j + kw) & 3);
+#pragma unroll
+        for (int c = 0; c < CT; ++c) acc[j][c] = fmaf(xv, wrow[kw][c], acc[j][c]);
       }
     }
+#pragma unroll
+    for (int c = 0; c < kEarly; ++c) xc[c] = xnext[c];
+  }
+}
+
+// The input as the kernel reads it, planar and zero-padded: xp[b][c][hp][wp],
+// image pixel (h, w) at (h + P, w + P), Hp = 4 tiles_h + K - 1 rows and
+// Wp = (tiles_w - 1) * 32 + kInW columns, so that a unit's window for one
+// channel is kInH whole rows of kInW values; and the weights as
+// wp[part][ci][tap][kCoB], a channel's taps of a part in one piece.
+template <class T>
+__global__ void __launch_bounds__(256)
+conv_c64_f32_prep_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         float* __restrict__ xp, float* __restrict__ wp, int H, int W, int Hp,
+                         int Wp, int x_blocks) {
+  constexpr int K = T::kK;
+  constexpr int P = (K - 1) / 2;
+  const int tid = threadIdx.x;
+  if (static_cast<int>(blockIdx.x) >= x_blocks) {  // the weights, 1024 floats a block
+    const int i = (blockIdx.x - x_blocks) * 256 + tid;  // float4 of wp
+    if (i >= K * K * kC * kC / 4) return;
+    const int q = i % (T::kCoB / 4);
+    const int tap = (i / (T::kCoB / 4)) % (K * K);
+    const int ci = (i / (T::kCoB / 4 * K * K)) % kC;
+    const int part = i / (T::kCoB / 4 * K * K * kC);
+    store4(wp + 4 * static_cast<size_t>(i),
+           load4(w + (static_cast<size_t>(tap) * kC + ci) * kC + part * T::kCoB + 4 * q));
+    return;
+  }
+  // The input: 32 padded columns of one padded row, all 64 channels, through
+  // a [column][channel] tile (65 floats a column: conflict-free both ways).
+  __shared__ float tile[32][kC + 1];
+  const int col_tiles = (Wp + 31) / 32;
+  const int c0 = (blockIdx.x % col_tiles) * 32;
+  const int hp = (blockIdx.x / col_tiles) % Hp;
+  const int b = blockIdx.x / (col_tiles * Hp);
+  const int h = hp - P;
+#pragma unroll
+  for (int i = tid; i < 32 * kC / 4; i += 256) {
+    const int col = i / (kC / 4);
+    const int q = i % (kC / 4);
+    const int wc = c0 + col - P;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (h >= 0 && h < H && wc >= 0 && wc < W)
+      v = load4(x + ((static_cast<size_t>(b) * H + h) * W + wc) * kC + 4 * q);
+    tile[col][4 * q] = v.x;
+    tile[col][4 * q + 1] = v.y;
+    tile[col][4 * q + 2] = v.z;
+    tile[col][4 * q + 3] = v.w;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = tid; i < 32 * kC; i += 256) {
+    const int c = i / 32;
+    const int col = i % 32;
+    if (c0 + col < Wp) xp[((static_cast<size_t>(b) * kC + c) * Hp + hp) * Wp + c0 + col] = tile[col][c];
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(kThreadsF, T::kMinBlocks)
+conv_c64_f32_kernel(const float* __restrict__ xp, const float* __restrict__ wp,
+                    float* __restrict__ y, int H, int W, int Hp, int Wp, int tiles_h,
+                    int tiles_w) {
+  constexpr int P = T::kP;
+  constexpr int CT = T::kCT;
+  constexpr int kParts = kC / T::kCoB;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);  // 2 x ([K*K][kCoB] taps, window)
+  const unsigned bars = smem_u32(smem) + 2 * T::kStageBytes;  // two mbarriers: stage full
+
+  // The unit: (batch, tile row, tile column, channel part), the part fastest.
+  int u = blockIdx.x;
+  const int part = u % kParts;
+  u /= kParts;
+  const int w0 = (u % tiles_w) * kTWf;
+  u /= tiles_w;
+  const int h0 = (u % tiles_h) * kTHf;
+  const int b = u / tiles_h;
+  const int co0 = part * T::kCoB;
+
+  // Warp w: channel groups P/4 w .. P/4 (w + 1) - 1 times all 128 / P pixel
+  // groups.
+  const int tid = threadIdx.x;
+  const int cg = P / 4 * (tid >> 5) + (tid & 31) % (P / 4);  // channel group
+  const int pg = (tid & 31) / (P / 4);                       // pixel group
+  const int prow = pg / (kTWf / P);           // tile row
+  const int pcol = pg % (kTWf / P) * P;       // tile column of the first pixel
+  const int wo = CT * cg;                     // the thread's channels in a tap row
+
+  // Channel ci's stage into buffer ci & 1, by warp 0: the part's taps in one
+  // copy, the window's kInH rows one a lane, all completing on the buffer's
+  // mbarrier.
+  auto issue = [&](int ci) {
+    const unsigned ws = smem_u32(smem) + (ci & 1) * T::kStageBytes;
+    const unsigned bar = bars + 8 * (ci & 1);
+    if (tid == 0) {
+      mbar_expect_tx(bar, T::kStageBytes);
+      bulk_copy(ws, wp + (static_cast<size_t>(part) * kC + ci) * T::kWFloats, 4 * T::kWFloats, bar);
+    }
+    __syncwarp();
+    const float* src = xp + ((static_cast<size_t>(b) * kC + ci) * Hp + h0) * Wp + w0;
+    for (int r = tid; r < T::kInH; r += 32)
+      bulk_copy(ws + 4 * (T::kWFloats + r * T::kInW), src + static_cast<size_t>(r) * Wp,
+                4 * T::kInW, bar);
+  };
+  if (tid == 0) {
+    mbar_init(bars, 1);
+    mbar_init(bars + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc[P][CT];
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+#pragma unroll
+    for (int c = 0; c < CT; ++c) acc[j][c] = 0.f;
+
+  if (tid < 32) issue(0);
+#pragma unroll 1
+  for (int ci = 0; ci < kC; ++ci) {
+    if (ci > 0) __syncthreads();  // every thread is done with channel ci - 1: its buffer is free
+    if (tid < 32 && ci + 1 < kC) issue(ci + 1);
+    mbar_wait(bars + 8 * (ci & 1), (ci >> 1) & 1);  // channel ci landed
+    const float* ws = smem + (ci & 1) * T::kStageFloats;
+    conv_channel<T>(acc, ws + T::kWFloats + prow * T::kInW + pcol, ws + wo);
   }
 
   const int oh = h0 + prow;
   if (oh >= H) return;
+  float* yrow = y + (static_cast<size_t>(b) * H + oh) * W * kC + co0 + wo;
 #pragma unroll
-  for (int j = 0; j < kPix; ++j) {
+  for (int j = 0; j < P; ++j) {
     const int ow = w0 + pcol + j;
     if (ow < W) {
-      float* o = y + ((static_cast<size_t>(blockIdx.z) * H + oh) * W + ow) * kC;
-      store4(o + cg * 4, make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]));
-      store4(o + 32 + cg * 4, make_float4(acc[j][4], acc[j][5], acc[j][6], acc[j][7]));
+      float* o = yrow + static_cast<size_t>(ow) * kC;
+      if constexpr (CT == 2)
+        *reinterpret_cast<float2*>(o) = make_float2(acc[j][0], acc[j][1]);
+      else
+        store4(o, make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]));
     }
   }
 }
@@ -613,17 +816,6 @@ conv_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 template <int K>
-int launch(const float* x, const float* w, float* y, int B, int H, int W, cudaStream_t stream) {
-  constexpr int kSmem = Tile<K>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_c64_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((W + kTW - 1) / kTW, (H + kTH - 1) / kTH, B);
-  conv_c64_kernel<K><<<grid, kThreads, kSmem, stream>>>(x, w, y, H, W);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int K>
 int launch(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16* y, int B, int H,
            int W, cudaStream_t stream) {
   constexpr int kSmem = TcTile<K>::kSmemBytes;
@@ -665,14 +857,107 @@ int conv_entry(const void* x, const void* w, void* y, int B, int H, int W, int K
   }
 }
 
+// f(F32Tile<K, P, CT>()) of the split `parts` for a runtime (K, parts).
+template <int K, class F>
+int with_parts(int parts, F&& f) {
+  switch (parts) {
+    case 1: return f(F32Tile<K, 16, 4>());
+    case 2: return f(F32Tile<K, 16, 2>());
+    case 4: return f(F32Tile<K, 8, 2>());
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <class F>
+int with_form(int K, int parts, F&& f) {
+  switch (K) {
+    case 3: return with_parts<3>(parts, f);
+    case 5: return with_parts<5>(parts, f);
+    case 7: return with_parts<7>(parts, f);
+    case 9: return with_parts<9>(parts, f);
+    case 11: return with_parts<11>(parts, f);
+    case 13: return with_parts<13>(parts, f);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The float32 entry's padded input rows and columns (see the prep kernel).
+template <class T>
+void f32_padded(int H, int W, int* Hp, int* Wp, int* tiles_h, int* tiles_w) {
+  *tiles_h = (H + kTHf - 1) / kTHf;
+  *tiles_w = (W + kTWf - 1) / kTWf;
+  *Hp = *tiles_h * kTHf + T::kK - 1;
+  *Wp = (*tiles_w - 1) * kTWf + T::kInW;
+}
+
 }  // namespace
 
+// Floats of scratch the float32 entry needs for (B, H, W, K) split `parts`
+// ways: the planar padded input and the repacked weights; -1 for a K or
+// parts it does not take.
+SSHSLIE_EXPORT long long sshslie_conv_c64_f32_scratch(int B, int H, int W, int K, int parts) {
+  long long floats = -1;
+  with_form(K, parts, [&](auto tile) {
+    using T = decltype(tile);
+    int Hp, Wp, th, tw;
+    f32_padded<T>(H, W, &Hp, &Wp, &th, &tw);
+    floats = static_cast<long long>(B) * kC * Hp * Wp + static_cast<long long>(K) * K * kC * kC;
+    return 0;
+  });
+  return floats;
+}
+
 // x: (B, H, W, 64) float32, w: (K, K, 64, 64) float32 HWIO, y: (B, H, W, 64)
-// float32; all contiguous and 16-byte aligned. K odd, 3..13.
-SSHSLIE_EXPORT int sshslie_conv_c64_f32(const void* x, const void* w, void* y,
-                                        int B, int H, int W, int K,
-                                        void* stream) {
-  return conv_entry<float>(x, w, y, B, H, W, K, stream);
+// float32; all contiguous and 16-byte aligned. K odd, 3..13. parts 1, 2 or
+// 4: the output channels of a 4 x 32 tile split over that many blocks
+// (every choice gives the same bits). scratch:
+// sshslie_conv_c64_f32_scratch(...) floats, 16-byte aligned. Two launches:
+// the prep kernel, then the conv.
+SSHSLIE_EXPORT int sshslie_conv_c64_f32(const void* x, const void* w, void* y, void* scratch,
+                                        int B, int H, int W, int K, int parts, void* stream) {
+  return with_form(K, parts, [&](auto tile) {
+    using T = decltype(tile);
+    const auto kernel = conv_c64_f32_kernel<T>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int Hp, Wp, tiles_h, tiles_w;
+    f32_padded<T>(H, W, &Hp, &Wp, &tiles_h, &tiles_w);
+    const long long blocks = static_cast<long long>(B) * tiles_h * tiles_w * parts;
+    const long long x_blocks = static_cast<long long>(B) * Hp * ((Wp + 31) / 32);
+    const int w_blocks = (K * K * kC * kC / 4 + 255) / 256;
+    if (blocks > 0x7fffffffLL || x_blocks + w_blocks > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    float* xp = static_cast<float*>(scratch);
+    float* wp = xp + static_cast<size_t>(B) * kC * Hp * Wp;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    conv_c64_f32_prep_kernel<T><<<static_cast<unsigned>(x_blocks + w_blocks), 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), xp, wp, H, W, Hp, Wp,
+        static_cast<int>(x_blocks));
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<static_cast<unsigned>(blocks), kThreadsF, T::kSmemBytes, s>>>(
+        xp, wp, static_cast<float*>(y), H, W, Hp, Wp, tiles_h, tiles_w);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// The current device's SM count and the blocks of the float32 kernel for
+// (K, parts) that one SM holds at once; returns a CUDA error code.
+SSHSLIE_EXPORT int sshslie_conv_c64_f32_resident(int K, int parts, int* sms, int* per_sm) {
+  return with_form(K, parts, [&](auto tile) {
+    using T = decltype(tile);
+    const auto kernel = conv_c64_f32_kernel<T>;
+    int dev = 0;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreadsF,
+                                                          T::kSmemBytes);
+    return static_cast<int>(err);
+  });
 }
 
 // The same with x, w and y in bfloat16 (float32 accumulation).

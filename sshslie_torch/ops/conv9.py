@@ -7,7 +7,11 @@ Layout as in the JAX package: x is NHWC (B, H, W, 64), w is HWIO
 
 * :func:`conv9_fwd` is the wrapper of ``csrc/conv9.cu``. On a CUDA tensor it
   launches the kernel and counts the launch in ``conv9_fwd.launches``, or
-  raises; on a CPU tensor it computes :func:`conv9_plain`.
+  raises; on a CPU tensor it computes :func:`conv9_plain`. The float32 entry
+  splits its units' output channels as :func:`conv9_f32_parts` picks from the
+  shape and the card (every split gives the same bits) and reads a planar,
+  zero-padded copy of x that its prep kernel writes into scratch the wrapper
+  allocates: two CUDA launches, one counted launch.
 * :func:`conv9_wgrad` is the wrapper of ``csrc/conv9_wgrad.cu``, the weight
   gradient, counted in ``conv9_wgrad.launches``; on a CPU tensor it computes
   :func:`conv9_wgrad_plain`.
@@ -43,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -192,13 +196,78 @@ def conv9_wgrad_bf16_splits(rows: int, k: int, resident: int) -> int:
     return max(1, min(rows, resident // per_slice))
 
 
+# The float32 entry's units (csrc/conv9.cu, F32Tile): a 4 x 32 pixel output
+# tile and 64 / parts of its output channels.
+F32_TILE = (4, 32)
+F32_PARTS = (1, 2, 4)
+# A unit's time over its share of a tile's products, by parts (the finer
+# splits load a weight for fewer products), and by the blocks an SM runs at
+# once (each puts one warp on each scheduler; one or two leave the
+# schedulers idle on load latency, three or more do not). From
+# tools/conv_bench.py --parts on an H100 (PERF.md).
+F32_PART_COST = {1: 1.0, 2: 1.06, 4: 1.07}
+F32_CONCURRENCY_COST = {1: 1.2, 2: 1.04}
+
+
+def conv9_f32_units(b: int, h: int, w: int, parts: int) -> int:
+    """Blocks of the float32 entry for a (b, h, w, 64) input split ``parts`` ways."""
+    return b * -(-h // F32_TILE[0]) * -(-w // F32_TILE[1]) * parts
+
+
+def conv9_f32_load(b: int, h: int, w: int, parts: int, resident: Tuple[int, int]) -> float:
+    """The busiest SM's time, in units of one tile's products at full
+    concurrency, for a (b, h, w, 64) input split ``parts`` ways on a card of
+    ``resident = (SMs, blocks of the unsplit kernel an SM holds)``: ceil(units
+    / SMs) units of 1 / parts of a tile, weighted by F32_PART_COST and by
+    F32_CONCURRENCY_COST of the blocks it runs at once (at most that many
+    units; a finer split holds at least as many blocks)."""
+    sms, per_sm = resident
+    busiest = -(-conv9_f32_units(b, h, w, parts) // sms)
+    concurrent = min(busiest, per_sm)
+    return busiest / parts * F32_PART_COST[parts] * F32_CONCURRENCY_COST.get(concurrent, 1.0)
+
+
+def conv9_f32_parts(b: int, h: int, w: int, k: int, resident: Tuple[int, int]) -> int:
+    """Output-channel parts of the float32 entry's units for a (b, h, w, 64)
+    input at kernel size ``k`` on a card of ``resident`` (see
+    :func:`conv9_f32_load`): the split with the least load, ties to fewer
+    parts. ``k`` changes no unit's share of the work, so not the choice."""
+    loads = [(conv9_f32_load(b, h, w, parts, resident), parts) for parts in F32_PARTS]
+    return min(loads)[1]
+
+
 def _library() -> ctypes.CDLL:
     lib = _build.library("conv9")
-    for suffix in (*KERNEL_DTYPES.values(), TF32):
+    for suffix in ("bf16", TF32):
         fn = getattr(lib, f"sshslie_conv_c64_{suffix}")
         fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.sshslie_conv_c64_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    lib.sshslie_conv_c64_f32.restype = ctypes.c_int
+    lib.sshslie_conv_c64_f32_scratch.argtypes = [ctypes.c_int] * 5
+    lib.sshslie_conv_c64_f32_scratch.restype = ctypes.c_longlong
+    lib.sshslie_conv_c64_f32_resident.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.sshslie_conv_c64_f32_resident.restype = ctypes.c_int
     return lib
+
+
+# (device index, k) -> (SMs, blocks of the unsplit float32 kernel an SM
+# holds): the occupancy query runs once, off every later launch's path.
+_F32_RESIDENT: dict = {}
+
+
+def f32_resident(device: torch.device, k: int) -> Tuple[int, int]:
+    """(SMs, blocks an SM holds) of the float32 entry's unsplit kernel at ``k`` on ``device``."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), k)
+    got = _F32_RESIDENT.get(key)
+    if got is None:
+        lib = _library()
+        sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
+        with torch.cuda.device(key[0]):
+            code = lib.sshslie_conv_c64_f32_resident(k, 1, ctypes.byref(sms), ctypes.byref(per_sm))
+        _build.check(lib, code, "conv9 float32 occupancy query")
+        got = _F32_RESIDENT[key] = (sms.value, per_sm.value)
+    return got
 
 
 def _wgrad_library() -> ctypes.CDLL:
@@ -216,14 +285,17 @@ def _wgrad_library() -> ctypes.CDLL:
     return lib
 
 
-def conv9_fwd(x: torch.Tensor, w: torch.Tensor, tf32: bool = False) -> torch.Tensor:
+def conv9_fwd(x: torch.Tensor, w: torch.Tensor, tf32: bool = False,
+              parts: Optional[int] = None) -> torch.Tensor:
     """Stride-1 SAME k x k conv, NHWC (B, H, W, 64) x HWIO (k, k, 64, 64) -> NHWC
     in x's dtype (float32 or bfloat16, float32 accumulation); ``tf32``:
     float32 operands rounded to TF32, products on the tensor cores.
 
     CPU tensors take :func:`conv9_plain`. CUDA tensors take the kernel; a
-    shape, type or layout the kernel does not take raises. Not
-    differentiable: see :class:`ShallowConv`.
+    shape, type or layout the kernel does not take raises. ``parts``: the
+    float32 entry's units split that many ways by output channel, one of
+    F32_PARTS (None: :func:`conv9_f32_parts`'s choice); every split gives the
+    same bits. Not differentiable: see :class:`ShallowConv`.
     """
     _not_differentiable("conv9_fwd", x, w)
     if x.device.type == "cpu":
@@ -232,14 +304,24 @@ def conv9_fwd(x: torch.Tensor, w: torch.Tensor, tf32: bool = False) -> torch.Ten
     k = w.shape[0]
     if tuple(w.shape) != (k, k, CHANNELS, CHANNELS) or not conv9_supported(x.shape, k, CHANNELS, CHANNELS):
         raise ValueError(f"conv9_fwd: unsupported shapes x {tuple(x.shape)}, w {tuple(w.shape)}")
+    if parts is not None and (suffix != "f32" or parts not in F32_PARTS):
+        raise ValueError(f"conv9_fwd: parts {parts} needs float32 operands and one of {F32_PARTS}")
     b, h, wd, _ = x.shape
     y = torch.empty_like(x)
     if y.numel() == 0:
         return y
     lib = _library()
-    code = getattr(lib, f"sshslie_conv_c64_{suffix}")(
-        x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, k,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if suffix == "f32":
+        # The planar padded input and the repacked weights the kernel reads.
+        parts = parts or conv9_f32_parts(b, h, wd, k, f32_resident(x.device, k))
+        scratch = torch.empty(lib.sshslie_conv_c64_f32_scratch(b, h, wd, k, parts),
+                              dtype=torch.float32, device=x.device)
+        code = lib.sshslie_conv_c64_f32(x.data_ptr(), w.data_ptr(), y.data_ptr(), scratch.data_ptr(),
+                                        b, h, wd, k, parts, stream)
+    else:
+        code = getattr(lib, f"sshslie_conv_c64_{suffix}")(
+            x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, k, stream)
     label = TF32 if tf32 else x.dtype
     _count(conv9_fwd, label, (getattr(_PASS, "name", "forward"), label, tuple(x.shape)))
     _build.check(lib, code, "conv9 kernel launch")

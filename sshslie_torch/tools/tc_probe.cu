@@ -354,6 +354,28 @@ __global__ void __launch_bounds__(256, 1) mma_loop(float* out, int iters) {
   out[blockIdx.x * 256 + threadIdx.x] = sum;
 }
 
+// FFMA on the CUDA cores: 4 warps a block (one a scheduler), each thread
+// P x CT independent accumulators fed by P + CT register operands, as the
+// float32 conv9 kernel's thread tile; P CT FFMA an iteration.
+template <int P, int CT>
+__global__ void __launch_bounds__(128) ffma_loop(float* out, int iters) {
+  float xv[P], wv[CT], acc[P][CT];
+  for (int j = 0; j < P; ++j) xv[j] = 1e-7f * (threadIdx.x + j);
+  for (int c = 0; c < CT; ++c) wv[c] = 1.f - 1e-7f * c;
+  for (int j = 0; j < P; ++j)
+    for (int c = 0; c < CT; ++c) acc[j][c] = 0.f;
+  for (int it = 0; it < iters; ++it) {
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+#pragma unroll
+      for (int c = 0; c < CT; ++c) acc[j][c] = fmaf(xv[j], wv[c], acc[j][c]);
+  }
+  float sum = 0.f;
+  for (int j = 0; j < P; ++j)
+    for (int c = 0; c < CT; ++c) sum += acc[j][c];
+  out[blockIdx.x * 128 + threadIdx.x] = sum;
+}
+
 }  // namespace
 
 // mn_major: 0 bfloat16 K-major, 1 bfloat16 MN-major (m64n64k16; A 64 x 64,
@@ -391,7 +413,8 @@ SSHSLIE_EXPORT int probe_layout(int mn_major, const void* A, const void* X, void
 // 4 wgmma m64n32k8 .tf32, 5 wgmma m64n64k8 .tf32 (4 accumulators, B from row 0),
 // 6 the same with 2 accumulators, 7 with 4 accumulators and B from row 3;
 // 8, 9 a TF32 chain of 8 k steps waited for each iteration, B swizzled or
-// not; 10 the TF32 wgrad kernel's tap loop.
+// not; 10 the TF32 wgrad kernel's tap loop; 11, 12, 13 FFMA with 16 x 4,
+// 16 x 2 and 8 x 2 accumulators a thread, 128 threads a block.
 SSHSLIE_EXPORT int probe_loop(int which, void* out, int blocks, int iters) {
   float* o = static_cast<float*>(out);
   switch (which) {
@@ -406,6 +429,9 @@ SSHSLIE_EXPORT int probe_loop(int which, void* out, int blocks, int iters) {
     case 8: wgmma_tf32_chains<0><<<blocks, 256>>>(o, iters); break;
     case 9: wgmma_tf32_chains<1><<<blocks, 256>>>(o, iters); break;
     case 10: wgmma_tf32_taps<<<blocks, 256>>>(o, iters); break;
+    case 11: ffma_loop<16, 4><<<blocks, 128>>>(o, iters); break;
+    case 12: ffma_loop<16, 2><<<blocks, 128>>>(o, iters); break;
+    case 13: ffma_loop<8, 2><<<blocks, 128>>>(o, iters); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());

@@ -1,6 +1,6 @@
 """Probe of the H100's tensor-core forms behind the bfloat16 and TF32 conv kernels.
 
-    python -m sshslie_torch.tools.tc_probe
+    python -m sshslie_torch.tools.tc_probe [--ffma]
 
 Builds ``tc_probe.cu`` (with the port's ``csrc/mma.cuh``) into
 ``build/sshslie_torch_kernels/`` and prints:
@@ -21,13 +21,19 @@ Builds ``tc_probe.cu`` (with the port's ``csrc/mma.cuh``) into
   warpgroups a block, one block an SM, of a TF32 chain of 8 dependent k
   steps waited for each time (B swizzled and not) and of the TF32 wgrad
   kernel's tap loop (5 taps, running sums in registers);
-* the card's name, power limit and SM clock.
+* the FFMA rate of the CUDA cores, TFLOP/s (the float32 conv9 kernel's
+  thread tiles: 16 x 4, 16 x 2 and 8 x 2 independent accumulators a
+  thread, 4 warps a block, 1, 2 and 4 blocks an SM), against the 67
+  TFLOP/s that the kernels line's float32 bound assumes; ``--ffma`` prints
+  only these;
+* the card's name, power limit and SM clock (read after the loops).
 
 Needs a CUDA card and nvcc; no part of the port imports it.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
 import subprocess
@@ -64,12 +70,48 @@ def _library() -> ctypes.CDLL:
     return ctypes.CDLL(so)
 
 
-def main() -> int:
+# which: (name, accumulators a thread)
+FFMA = {11: ("FFMA, 16 x 4 accumulators a thread", 64), 12: ("FFMA, 16 x 2 accumulators a thread", 32),
+        13: ("FFMA, 8 x 2 accumulators a thread", 16)}
+
+
+def timed_loop(lib, which: int, out: torch.Tensor, blocks: int, iters: int) -> tuple:
+    """(launch code, ms) of one probe_loop launch after a short warm-up."""
+    lib.probe_loop(which, ctypes.c_void_p(out.data_ptr()), blocks, 10)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    code = lib.probe_loop(which, ctypes.c_void_p(out.data_ptr()), blocks, iters)
+    end.record()
+    torch.cuda.synchronize()
+    return code, start.elapsed_time(end)
+
+
+def ffma(lib, dev) -> None:
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = torch.zeros(4 * sms * 128, device=dev)
+    iters = 20000
+    for which, (name, nacc) in FFMA.items():
+        for per_sm in (1, 2, 4):
+            blocks = per_sm * sms
+            code, ms = timed_loop(lib, which, out, blocks, iters)
+            flop = 2.0 * blocks * 128 * iters * nacc
+            print(f"{name}, {per_sm} block(s) an SM ({blocks} blocks): code {code}, {ms:.3f} ms, "
+                  f"{flop / ms / 1e9:.1f} TFLOP/s")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ffma", action="store_true", help="only the FFMA rates")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("no CUDA card")
         return 1
     lib = _library()
     dev = torch.device("cuda")
+    if args.ffma:
+        ffma(lib, dev)
+        return _card()
     g = torch.Generator().manual_seed(0)
     a = torch.randn(64, 64, generator=g).to(torch.bfloat16).to(dev)
     rows = 128
@@ -113,30 +155,21 @@ def main() -> int:
     for which, (name, n, k, nacc) in LOOPS.items():
         for per_sm in (1, 2):
             blocks = per_sm * sms
-            lib.probe_loop(which, ctypes.c_void_p(out.data_ptr()), blocks, 10)
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            code = lib.probe_loop(which, ctypes.c_void_p(out.data_ptr()), blocks, iters)
-            end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end)
+            code, ms = timed_loop(lib, which, out, blocks, iters)
             # A block's iteration: 4 k steps x nacc tiles of 64 x n x k per warpgroup, 2 warpgroups.
             flop = 2.0 * blocks * iters * 4 * nacc * 2 * 64 * n * k
             print(f"{name}, {blocks} blocks: code {code}, {ms:.3f} ms, {flop / ms / 1e9:.1f} TFLOP/s")
     out = torch.zeros(sms * 256, device=dev)
     for which, (name, per_iter) in CHAINS.items():
-        lib.probe_loop(which, ctypes.c_void_p(out.data_ptr()), sms, 10)
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        code = lib.probe_loop(which, ctypes.c_void_p(out.data_ptr()), sms, iters)
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end)
+        code, ms = timed_loop(lib, which, out, sms, iters)
         flop = 2.0 * sms * iters * per_iter * 64 * 64 * 8
         print(f"wgmma m64n64k8 .tf32, {name}, {sms} blocks: code {code}, {ms:.3f} ms, "
               f"{flop / ms / 1e9:.1f} TFLOP/s")
+    ffma(lib, dev)
+    return _card()
+
+
+def _card() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip())

@@ -204,3 +204,50 @@ def test_wgrad_bf16_slices_sum_to_the_weight_gradient(shape, k):
         total += conv9.conv9_wgrad_plain(x, dy * mask.view(shape[0], shape[1], 1, 1), k)
     assert (owner >= 0).all()
     _assert_rel_close(total.numpy(), conv9.conv9_wgrad_plain(x, dy, k).numpy(), GRAD_REL, f"k={k}")
+
+
+# The float32 entry's units (csrc/conv9.cu, conv_c64_f32_kernel): block u is
+# the unit (part, tile column, tile row, batch), the part fastest, of a 4 x 32
+# pixel tile and 64 / parts output channels. The shapes are the kernel
+# table's float32 conv9 rows and one ragged shape.
+
+F32_SHAPES = [(1, 512, 512), (2, 512, 512), (4, 512, 512), (1, 1024, 1024), (2, 128, 128),
+              (1, 128, 128), (2, 72, 128), (1, 264, 512), (1, 37, 53)]
+
+
+@pytest.mark.parametrize("resident", [(132, 1), (132, 2), (114, 2)])
+@pytest.mark.parametrize("b,h,w", F32_SHAPES)
+def test_f32_units_cover_every_output_once_and_fill_the_card(b, h, w, resident):
+    parts = conv9.conv9_f32_parts(b, h, w, 9, resident)
+    assert parts in conv9.F32_PARTS
+    th, tw = conv9.F32_TILE
+    tiles_h, tiles_w = -(-h // th), -(-w // tw)
+    units = conv9.conv9_f32_units(b, h, w, parts)
+    assert units == b * tiles_h * tiles_w * parts
+    cover = np.zeros((parts, b, tiles_h * th, tiles_w * tw), np.int32)
+    for u in range(units):
+        part, rest = u % parts, u // parts
+        w0, rest = (rest % tiles_w) * tw, rest // tiles_w
+        h0, bb = (rest % tiles_h) * th, rest // tiles_h
+        cover[part, bb, h0:h0 + th, w0:w0 + tw] += 1
+    # Every pixel once in each part, and the parts' channel ranges tile 0..63 once.
+    assert (cover[:, :, :h, :w] == 1).all() and cover.sum() == units * th * tw
+    co = np.zeros(64, np.int32)
+    for part in range(parts):
+        co[part * 64 // parts:(part + 1) * 64 // parts] += 1
+    assert (co == 1).all()
+    # The choice has the least load; where it leaves an SM idle, no finer
+    # split would lower the busiest SM's load.
+    loads = {p: conv9.conv9_f32_load(b, h, w, p, resident) for p in conv9.F32_PARTS}
+    assert loads[parts] <= min(loads.values()) + 1e-9
+    if units < resident[0]:
+        assert all(loads[p] >= loads[parts] - 1e-9 for p in conv9.F32_PARTS if p > parts)
+
+
+# The split that was fastest at each float32 conv9 row of the kernel table on
+# an H100 (132 SMs, 4 unsplit blocks an SM at k = 9; tools/conv_bench.py
+# --parts 1 2 4; PERF.md), and the one the selector picks there.
+@pytest.mark.parametrize("b,h,w,parts", [
+    (1, 128, 128, 4), (2, 72, 128, 4), (2, 128, 128, 1), (1, 264, 512, 1), (1, 512, 512, 1)])
+def test_f32_split_choice_on_an_h100(b, h, w, parts):
+    assert conv9.conv9_f32_parts(b, h, w, 9, (132, 4)) == parts

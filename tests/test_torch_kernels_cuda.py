@@ -8,7 +8,8 @@ runs on a machine without JAX:
 
 Tolerances: conv9 5e-5 absolute at outputs of order 10 (float32 sums of up
 to 5184 products in another order; chip_smoke.py measured 4.8e-6 at 512^2
-and 1.6e-5 at 37x53); flash 1e-5 absolute (exp2 with a folded scale against
+and 1.6e-5 at 37x53); its splits of the float32 units at k = 3 .. 13 2e-5
+of the largest output, the splits bit for bit equal; flash 1e-5 absolute (exp2 with a folded scale against
 exp; chip_smoke.py measured up to 5.7e-7). conv9_wgrad: 2e-5 of the largest |dw|
 (float32 sums over B*H*W pixels, split into slices, in another order than
 the plain version's matrix products). Gradients of the autograd Functions
@@ -86,6 +87,42 @@ def test_conv9_kernel_matches_plain_on_card(cuda_device, shape, k):
     torch.cuda.synchronize()
     assert conv9.conv9_fwd.launches == before + 1
     np.testing.assert_allclose(got.cpu().numpy(), conv9.conv9_plain(x, w).cpu().numpy(), atol=5e-5)
+
+
+# The float32 entry's splits of its units (ops/conv9.py::F32_PARTS): every
+# odd k on ragged shapes, forward and dgrad, within 2e-5 of the largest
+# output (chip_smoke.py's float32 tolerance; at k = 13 a sum holds 10,816
+# products in another order than the plain version's), and bit for bit
+# equal to each other (one summation order for every split).
+F32_SPLIT_CASES = [((1, 37, 45, 64), k) for k in conv9.KERNEL_SIZES] + [
+    ((2, 13, 100, 64), 9), ((3, 15, 47, 64), 5), ((1, 5, 9, 64), 13)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", F32_SPLIT_CASES)
+def test_conv9_f32_splits_match_plain_and_each_other_on_card(cuda_device, shape, k):
+    x, w = _conv_inputs(31, shape, k)
+    x, w = torch.from_numpy(x).to(cuda_device), torch.from_numpy(w).to(cuda_device)
+    for what, ww in (("forward", w), ("dgrad", conv9.conv9_dgrad_weights(w))):
+        plain = conv9.conv9_plain(x, ww)
+        outs = [conv9.conv9_fwd(x, ww, parts=p) for p in conv9.F32_PARTS]
+        for p, got in zip(conv9.F32_PARTS, outs):
+            _rel_close(got, plain, 2e-5, f"{what} {shape} k{k} parts {p}")
+            assert torch.equal(got, outs[0]), f"{what} {shape} k{k}: parts {p} differs from parts 1"
+        assert torch.equal(conv9.conv9_fwd(x, ww), outs[0])
+
+
+@pytest.mark.cuda
+def test_conv9_f32_splits_agree_across_batch_and_rows_on_card(cuda_device):
+    """Sample 0 of a b2 batch equals the same sample alone, and a rank's
+    rows (2, 72, 128, 64) equal the b2 run's rows 0..67 (68..71 see the
+    slice's edge), bit for bit, in every split."""
+    x, w = _conv_inputs(32, (2, 128, 128, 64), 9)
+    x, w = torch.from_numpy(x).to(cuda_device), torch.from_numpy(w).to(cuda_device)
+    want = conv9.conv9_fwd(x, w, parts=1)
+    for p in conv9.F32_PARTS:
+        assert torch.equal(conv9.conv9_fwd(x[:1].contiguous(), w, parts=p), want[:1])
+        assert torch.equal(conv9.conv9_fwd(x[:, :72].contiguous(), w, parts=p)[:, :68], want[:, :68])
 
 
 @pytest.mark.cuda
