@@ -1,0 +1,6 @@
+"""cudnn_ms.train_bf16: cudnn_ms.train's reader, read in the bfloat16
+training cell, where it moves train_mpbs.bf16."""
+
+from benchmark.harness.spec import metric_reader
+
+read = metric_reader("cudnn_ms.train")
