@@ -15,16 +15,24 @@
 * :class:`Profiler` records a ``torch.profiler`` trace (CPU activity, plus
   CUDA activity on a card) and exports it as a Chrome trace under its
   directory.
+* :data:`TRACER` and :func:`span` time the program's own phases (a train
+  step's sample, forward, loss, backward and Adam; a request's lock wait,
+  upload, decode, forward, sync and fetch; the kernels' load) on the host,
+  while a ``torch.profiler`` session records, as ranges of that session's
+  trace; and the first instance of each, recording or not.
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import sys
+import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.autograd import profiler as _profiler
 
 
 class Logger:
@@ -408,3 +416,162 @@ class Profiler:
     def __exit__(self, *exc):
         self.stop()
         return False
+
+
+# -- spans ---------------------------------------------------------------------
+
+_clock = time.perf_counter_ns
+
+
+class SpanRecord(NamedTuple):
+    """One completed span: times in ``perf_counter_ns``; ``parent`` the id of
+    the enclosing recorded span of its thread (None for a root), ``root``
+    the id of the outermost one (its own for a root), ``self_ns`` its
+    duration less its child spans'."""
+
+    name: str
+    id: int
+    parent: Optional[int]
+    root: int
+    thread: int
+    start_ns: int
+    end_ns: int
+    self_ns: int
+
+    @property
+    def seconds(self) -> float:
+        return (self.end_ns - self.start_ns) * 1e-9
+
+
+class _NullSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("_tracer", "name", "id", "parent", "root", "start_ns", "child_ns", "_up",
+                 "_stack", "_range")
+
+    def __init__(self, tracer: "Tracer", name: str):
+        self._tracer = tracer
+        self.name = name
+
+    def __enter__(self):
+        stack = self._tracer._stack()
+        up = stack[-1] if stack else None
+        self.id = next(self._tracer._ids)
+        self.parent = None if up is None else up.id
+        self.root = self.id if up is None else up.root
+        self.child_ns = 0
+        self._up, self._stack, self._range = up, stack, None
+        if _profiler._is_profiler_enabled:
+            self._range = _profiler.record_function(self.name)
+            self._range.__enter__()
+        stack.append(self)
+        self.start_ns = _clock()
+        return self
+
+    def __exit__(self, *exc):
+        end = _clock()
+        self._stack.pop()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        if self._up is not None:
+            self._up.child_ns += end - self.start_ns
+        self._tracer._finish(self, end, self._range is not None)
+        return False
+
+
+class Tracer:
+    """Host spans of the program, kept while a ``torch.profiler`` session
+    records (the benchmark's traced stretch, ``Trainer``'s ``profile_dir``
+    epoch), each then also a ``record_function`` range of the same name, so
+    the session's trace holds it beside the card's kernels on one clock.
+
+    * :meth:`span` (a context manager) records the name, its start and end
+      (``time.perf_counter_ns``), the enclosing span of its thread and an
+      id; spans opened under one root share its id as ``root``.
+    * Recorded spans go to a buffer of ``capacity``; a running aggregate by
+      name (count, total, self time) keeps every one, past the buffer too.
+    * The first completed instance of each name in the process is kept
+      whether a session records or not (:meth:`cold`): set-up's first step
+      and first library calls, which no traced stretch sees.
+    * With no session recording, a name already seen costs one flag test
+      and one dict lookup: no clock, no profiler call, no allocation.
+    * Host time only: no synchronize, event or ``.item()``.
+    """
+
+    def __init__(self, capacity: int = 65536):
+        self.capacity = capacity
+        self.dropped = 0
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._ids = itertools.count(1)
+        self._cold: Dict[str, SpanRecord] = {}
+        self._spans: List[SpanRecord] = []
+        self._totals: Dict[str, List[int]] = {}    # name -> [count, total ns, self ns]
+
+    def span(self, name: str):
+        if not _profiler._is_profiler_enabled and name in self._cold:
+            return _NULL
+        return _Span(self, name)
+
+    def _stack(self) -> list:
+        try:
+            return self._local.stack
+        except AttributeError:
+            self._local.stack = []
+            return self._local.stack
+
+    def _finish(self, s: _Span, end: int, recorded: bool) -> None:
+        dur = end - s.start_ns
+        rec = SpanRecord(s.name, s.id, s.parent, s.root, threading.get_ident(), s.start_ns, end,
+                         dur - s.child_ns)
+        with self._lock:
+            self._cold.setdefault(s.name, rec)
+            if not recorded:
+                return
+            tot = self._totals.setdefault(s.name, [0, 0, 0])
+            tot[0] += 1
+            tot[1] += dur
+            tot[2] += rec.self_ns
+            if len(self._spans) < self.capacity:
+                self._spans.append(rec)
+            else:
+                self.dropped += 1
+
+    def summary(self) -> Dict[str, Dict[str, float]]:
+        """{name: {"count", "total_s", "self_s"}} of every recorded span
+        since the last :meth:`reset`."""
+        with self._lock:
+            return {n: {"count": c, "total_s": t * 1e-9, "self_s": f * 1e-9}
+                    for n, (c, t, f) in self._totals.items()}
+
+    def spans(self) -> List[SpanRecord]:
+        """The buffered spans in the order they ended (the first ``capacity``)."""
+        with self._lock:
+            return list(self._spans)
+
+    def cold(self) -> Dict[str, SpanRecord]:
+        """{name: the process's first completed span of that name}."""
+        with self._lock:
+            return dict(self._cold)
+
+    def reset(self) -> None:
+        """Empty the buffer and the aggregate (the first instances stay)."""
+        with self._lock:
+            self._spans.clear()
+            self._totals.clear()
+            self.dropped = 0
+
+
+TRACER = Tracer()
+span = TRACER.span

@@ -4,9 +4,9 @@ Each ``csrc/<name>.cu`` compiles on its own into a shared library with a plain
 C interface, which ``ctypes`` loads: no PyTorch headers, so a build takes
 seconds rather than the minutes of ``torch.utils.cpp_extension``. The first
 call to :func:`library` starts one ``nvcc`` per source, all at once, and waits
-for them; later calls reuse the loaded libraries. The output file's name
-carries a hash of the sources, so an edited kernel is rebuilt and a stale one
-is never loaded.
+for them (with the loads, a ``kernels.load`` span); later calls reuse the
+loaded libraries. The output file's name carries a hash of the sources, so an
+edited kernel is rebuilt and a stale one is never loaded.
 
 Libraries go to ``build/sshslie_torch_kernels/`` at the root of the checkout.
 A build that fails raises with nvcc's output; nothing falls back.
@@ -25,6 +25,8 @@ import subprocess
 import tempfile
 import threading
 from typing import Dict
+
+from sshslie_torch.observability import span
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "sshslie_torch_kernels")
@@ -95,9 +97,10 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            for n, path in build_all().items():
-                if n not in _libs:
-                    _libs[n] = _declare(ctypes.CDLL(path))
+            with span("kernels.load"):
+                for n, path in build_all().items():
+                    if n not in _libs:
+                        _libs[n] = _declare(ctypes.CDLL(path))
             lib = _libs[name]
         return lib
 

@@ -10,6 +10,11 @@ for its own forward only:
   metrics' names means warmed here.
 * **Device serialization**: every forward and every device-side reduction
   runs under one lock; the HTTP threads parse and serialize concurrently.
+* **Spans** (``observability.span``, kept while a profiler records): a
+  request is ``serve.request``, with ``serve.lock_wait`` (each wait for the
+  device lock), ``serve.upload`` and ``serve.decode`` (an encoded body),
+  ``serve.forward`` (the forward's enqueue), ``serve.sync`` (the host's wait
+  for the card) and ``serve.fetch`` (S's crop, reduction and copy back).
 * **Micro-batching** (``serve_max_batch`` > 1): same-bucket requests that
   arrive within ``serve_batch_window_ms`` run as one (B, H, W, C) forward,
   B rounded up to a power of two with zero cubes.
@@ -77,6 +82,7 @@ or ``python -m sshslie_torch --config cfg.yml --phase serve``; on a mesh,
 from __future__ import annotations
 
 import bisect
+import contextlib
 import hmac
 import io
 import json
@@ -95,6 +101,7 @@ import torch
 from sshslie_torch import checkpoints, interop
 from sshslie_torch.config import Config
 from sshslie_torch.device import resolve_device, set_matmul_precision
+from sshslie_torch.observability import span
 from sshslie_torch.parallel import distributed
 from sshslie_torch.utils import io_hsi
 
@@ -498,8 +505,19 @@ class EnhanceService:
         return to_device(qsd, self.device)
 
     def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+        with span("serve.sync"):
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+
+    @contextlib.contextmanager
+    def _locked(self):
+        """The device lock, the wait for it a ``serve.lock_wait`` span."""
+        with span("serve.lock_wait"):
+            self._device_lock.acquire()
+        try:
+            yield
+        finally:
+            self._device_lock.release()
 
     # -- the mesh's commands ---------------------------------------------------
 
@@ -601,8 +619,9 @@ class EnhanceService:
         x = np.stack(xs)
         if bp != b:
             x = np.concatenate([x, np.zeros((bp - b,) + x.shape[1:], x.dtype)])
-        with self._device_lock:
-            R, I, Id, S = self._infer.batched(x, self.params)
+        with self._locked():
+            with span("serve.forward"):
+                R, I, Id, S = self._infer.batched(x, self.params)
             self._sync()
         return [(R[i], I[i], Id[i], S[i]) for i in range(b)]
 
@@ -619,16 +638,17 @@ class EnhanceService:
         The crop comes first, so the u16 range covers the real pixels only
         (the network's output over the edge pad must not widen it). The u16
         codes travel as int16 (the same bits): few ops take ``torch.uint16``."""
-        with self._device_lock:
-            S = S[:h, :w, :]
-            if wire == "bf16":
-                return S.to(torch.bfloat16).cpu().float().numpy()
-            lo = torch.min(S)
-            scale = torch.clamp_min((torch.max(S) - lo) / 65535.0, 1e-30)
-            q = torch.round((S - lo) / scale).to(torch.int32)
-            q = torch.where(q >= 32768, q - 65536, q).to(torch.int16)
-            meta = torch.stack([lo, scale]).cpu()
-        qa = q.cpu().numpy().view(np.uint16)
+        with span("serve.fetch"):
+            with self._locked():
+                S = S[:h, :w, :]
+                if wire == "bf16":
+                    return S.to(torch.bfloat16).cpu().float().numpy()
+                lo = torch.min(S)
+                scale = torch.clamp_min((torch.max(S) - lo) / 65535.0, 1e-30)
+                q = torch.round((S - lo) / scale).to(torch.int32)
+                q = torch.where(q >= 32768, q - 65536, q).to(torch.int16)
+                meta = torch.stack([lo, scale]).cpu()
+            qa = q.cpu().numpy().view(np.uint16)
         if raw:
             return qa, float(meta[1]), float(meta[0])
         return qa.astype(np.float32) * float(meta[1]) + float(meta[0])
@@ -669,6 +689,11 @@ class EnhanceService:
         """Enhance a compact u16/bf16 payload (``decode_cube_response(...,
         raw=True)``): edge-padded on the host at 2 bytes a value, uploaded as
         it is, decoded and normalised on the device, then as :meth:`enhance`."""
+        with span("serve.request"):
+            return self._enhance_encoded(q, encoding, scale, offset, artifacts, wire)
+
+    def _enhance_encoded(self, q: np.ndarray, encoding: str, scale: Optional[float],
+                         offset: Optional[float], artifacts: bool, wire: str) -> Dict[str, Any]:
         if not self.accepts_encoded_requests:
             raise ValueError("device-side encoded requests are unavailable on this service "
                              "(micro-batched, or pad-sensitive normalization) — decode on "
@@ -687,9 +712,13 @@ class EnhanceService:
         s = float(np.float32(0.0 if scale is None else scale))
         o = float(np.float32(0.0 if offset is None else offset))
         start = time.perf_counter()
-        with self._device_lock:
-            x = decode(torch.from_numpy(bits).to(self.device), s, o)
-            R, I, Id, S = self._infer(self.params, x)
+        with self._locked():
+            with span("serve.upload"):
+                t = torch.from_numpy(bits).to(self.device)
+            with span("serve.decode"):
+                x = decode(t, s, o)
+            with span("serve.forward"):
+                R, I, Id, S = self._infer(self.params, x)
             self._sync()
         secs = time.perf_counter() - start
         return self._finalize(R, I, Id, S, h, w, bh, bw, secs, wire, artifacts)
@@ -706,6 +735,10 @@ class EnhanceService:
         returns 'S_wire', the uint16 codes with the denormalisation folded
         into their affine, in place of 'S'. On a mesh (rank 0) the region
         also holds the command to the other ranks and the cube's broadcast."""
+        with span("serve.request"):
+            return self._enhance(cube, artifacts, wire)
+
+    def _enhance(self, cube: np.ndarray, artifacts: bool, wire: str) -> Dict[str, Any]:
         cfg = self.cfg
         self._check_leads()
         if cube.ndim != 3 or cube.shape[-1] != self.channels:
@@ -722,11 +755,12 @@ class EnhanceService:
         if self.batcher is not None:
             R, I, Id, S = self.batcher.submit((bh, bw), x).result()
         elif self.mesh is not None:
-            with self._device_lock:
+            with self._locked(), span("serve.forward"):
                 R, I, Id, S = self._lead({"op": "enhance", "shape": x.shape}, x)
         else:
-            with self._device_lock:
-                R, I, Id, S = self._infer(self.params, x)
+            with self._locked():
+                with span("serve.forward"):
+                    R, I, Id, S = self._infer(self.params, x)
                 self._sync()
         secs = time.perf_counter() - start
         return self._finalize(R, I, Id, S, h, w, bh, bw, secs, wire, artifacts)
@@ -739,14 +773,15 @@ class EnhanceService:
         if wire == "u16_wire":
             q, scale, offset = self._fetch_reduced(S, "u16", h, w, raw=True)
             if denorm:
-                span = cfg.global_max - cfg.global_min
-                scale, offset = scale * span, offset * span + cfg.global_min
+                width = cfg.global_max - cfg.global_min
+                scale, offset = scale * width, offset * width + cfg.global_min
             self._record_stats(bh, bw, secs)
             return {"S_wire": {"q": q, "scale": scale, "offset": offset}, "seconds": secs}
         if wire in ("bf16", "u16"):
             S = self._fetch_reduced(S, wire, h, w)
         else:
-            S = S[:h, :w, :].cpu().numpy()
+            with span("serve.fetch"):
+                S = S[:h, :w, :].cpu().numpy()
         if denorm:
             S = S * (cfg.global_max - cfg.global_min) + cfg.global_min
         out = {"S": S, "seconds": secs}

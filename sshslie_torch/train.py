@@ -24,6 +24,11 @@
   the same on every device, and resume replays it. A documented deviation
   beside PARITY #19 (the three JAX pipelines draw from three streams too);
   ``fit`` prints it in its "Patch sampler:" line.
+* Spans (``observability.span``, kept while a profiler records): each step
+  is ``train.step``, with ``train.sample`` (the fused crop), ``train.forward``,
+  ``train.loss``, ``train.backward``, ``train.allreduce`` (on a mesh) and
+  ``train.adam`` (``zero_grad``, then the freeze mask and ``step``); an
+  epoch of ``fit`` adds ``train.draws`` and ``train.epoch_sync``.
 * Adam is ``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` without weight
   decay, with each epoch's StepLR value written into its param groups:
   optax ``scale_by_adam`` followed by ``p - lr * u`` is the same update.
@@ -114,7 +119,7 @@ import numpy as np
 import torch
 
 from sshslie_torch import checkpoints, interop
-from sshslie_torch.observability import Profiler
+from sshslie_torch.observability import Profiler, span
 from sshslie_torch.config import SPEED_ONLY_KEYS, Config
 from sshslie_torch.data.datasets import CubeStore, LazyCubeStore, Prefetcher
 from sshslie_torch.data.native_sampler import NativePatchSampler, make_sampler
@@ -162,25 +167,34 @@ def _backward(model: LowLightEnhanceNet, batch: torch.Tensor,
     model runs on its rank's rows of ``batch``; its outputs are gathered
     whole for the loss, which every rank of its space group computes."""
     space = model.space
-    if space is None:
-        outs = model.forward_with_redecomposition(batch)
-    else:
-        spatial.check_rows(batch.shape[1], space, "the patch height")
-        outs = spatial.gather_rows_replicated(
-            model.forward_with_redecomposition(spatial.take_rows(batch, space, dim=1)),
-            space, dim=1)
-    total, terms = total_loss(batch, *outs, coeffs)
-    total.backward()
+    with span("train.forward"):
+        if space is None:
+            outs = model.forward_with_redecomposition(batch)
+        else:
+            spatial.check_rows(batch.shape[1], space, "the patch height")
+            outs = spatial.gather_rows_replicated(
+                model.forward_with_redecomposition(spatial.take_rows(batch, space, dim=1)),
+                space, dim=1)
+    with span("train.loss"):
+        total, terms = total_loss(batch, *outs, coeffs)
+    with span("train.backward"):
+        total.backward()
     return {k: terms[k].detach() for k in LOSS_KEYS}
 
 
 def _update(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
             freeze_decom: bool) -> None:
     """Freeze mask and Adam (JAX ``_apply_update``)."""
-    if freeze_decom:
-        for p in model.decomposition_net.parameters():
-            p.grad.zero_()
-    optimizer.step()
+    with span("train.adam"):
+        if freeze_decom:
+            for p in model.decomposition_net.parameters():
+                p.grad.zero_()
+        optimizer.step()
+
+
+def _zero_grad(optimizer: torch.optim.Optimizer) -> None:
+    with span("train.adam"):
+        optimizer.zero_grad(set_to_none=True)
 
 
 def _mean_over_ranks(model: LowLightEnhanceNet, terms: Dict[str, torch.Tensor],
@@ -192,11 +206,12 @@ def _mean_over_ranks(model: LowLightEnhanceNet, terms: Dict[str, torch.Tensor],
     sum over every rank is divided by the data axis's size alone."""
     if mesh is None:
         return terms
-    stacked = torch.stack([terms[k] for k in LOSS_KEYS])
-    grads = [p.grad for p in model.parameters()]
-    n = mesh.data_size if model.space is not None else mesh.size
-    distributed.all_mean_(grads + [stacked], [n] * len(grads) + [mesh.size])
-    return dict(zip(LOSS_KEYS, stacked.unbind()))
+    with span("train.allreduce"):
+        stacked = torch.stack([terms[k] for k in LOSS_KEYS])
+        grads = [p.grad for p in model.parameters()]
+        n = mesh.data_size if model.space is not None else mesh.size
+        distributed.all_mean_(grads + [stacked], [n] * len(grads) + [mesh.size])
+        return dict(zip(LOSS_KEYS, stacked.unbind()))
 
 
 def _add_terms(sums: Optional[Dict[str, torch.Tensor]],
@@ -209,7 +224,15 @@ def train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
                freeze_decom: bool = False, mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
     """One update on an NHWC batch (with ``mesh``, this rank's slice of the
     global batch, whole in height) → {LOSS_KEYS name: detached scalar tensor}."""
-    optimizer.zero_grad(set_to_none=True)
+    with span("train.step"):
+        return _step(model, optimizer, batch, coeffs, freeze_decom, mesh)
+
+
+def _step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer, batch: torch.Tensor,
+          coeffs: Dict[str, float], freeze_decom: bool,
+          mesh: Optional[Mesh]) -> Dict[str, torch.Tensor]:
+    """:func:`train_step`'s update, inside its caller's ``train.step`` span."""
+    _zero_grad(optimizer)
     terms = _mean_over_ranks(model, _backward(model, batch, coeffs), mesh)
     _update(model, optimizer, freeze_decom)
     return terms
@@ -227,16 +250,17 @@ def accum_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer
     b = batch.shape[0]
     if b % accum_steps != 0:
         raise ValueError(f"batch {b} not divisible by grad_accum_steps {accum_steps}")
-    optimizer.zero_grad(set_to_none=True)
-    sums = None
-    for micro in batch.chunk(accum_steps):
-        sums = _add_terms(sums, _backward(model, micro, coeffs))
-    inv = 1.0 / accum_steps
-    for p in model.parameters():
-        p.grad.mul_(inv)
-    terms = _mean_over_ranks(model, {k: sums[k] * inv for k in LOSS_KEYS}, mesh)
-    _update(model, optimizer, freeze_decom)
-    return terms
+    with span("train.step"):
+        _zero_grad(optimizer)
+        sums = None
+        for micro in batch.chunk(accum_steps):
+            sums = _add_terms(sums, _backward(model, micro, coeffs))
+        inv = 1.0 / accum_steps
+        for p in model.parameters():
+            p.grad.mul_(inv)
+        terms = _mean_over_ranks(model, {k: sums[k] * inv for k in LOSS_KEYS}, mesh)
+        _update(model, optimizer, freeze_decom)
+        return terms
 
 
 def stack_cubes(store: CubeStore, device) -> Optional[torch.Tensor]:
@@ -393,11 +417,13 @@ def fused_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer
     ``draws`` are the step's global rows; with ``mesh`` this rank crops its
     own, ``[d*b, (d+1)*b)`` for its data index d, which are samples
     ``batch_start + d*b`` on."""
-    if mesh is not None:
-        rows = distributed.process_batch_slice(draws.shape[0], mesh)
-        draws, batch_start = draws[rows], batch_start + rows.start
-    batch = sample_fused_batch(cubes, draws, batch_start, patch_size)
-    return train_step(model, optimizer, batch, coeffs, freeze_decom, mesh)
+    with span("train.step"):
+        with span("train.sample"):
+            if mesh is not None:
+                rows = distributed.process_batch_slice(draws.shape[0], mesh)
+                draws, batch_start = draws[rows], batch_start + rows.start
+            batch = sample_fused_batch(cubes, draws, batch_start, patch_size)
+        return _step(model, optimizer, batch, coeffs, freeze_decom, mesh)
 
 
 def multistep_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
@@ -929,9 +955,10 @@ class Trainer:
         if cubes is not None:
             # The epoch's draws, uploaded once; steps index them on the device.
             t = time.perf_counter()
-            draws = torch.from_numpy(fused_draws(
-                cfg.seed_value, epoch, num_batches, cfg.batch_size, tuple(cubes.shape[1:3]),
-                cfg.patch_size)).to(self.device)
+            with span("train.draws"):
+                draws = torch.from_numpy(fused_draws(
+                    cfg.seed_value, epoch, num_batches, cfg.batch_size, tuple(cubes.shape[1:3]),
+                    cfg.patch_size)).to(self.device)
             host_s += time.perf_counter() - t
             for chunk_start in range(0, num_batches, k_steps):
                 ids = range(chunk_start, min(chunk_start + k_steps, num_batches))
@@ -969,7 +996,8 @@ class Trainer:
                         print(f"Epoch [{epoch+1}/{cfg.epoch}] Batch [{batch_id+1}/"
                               f"{num_batches}] Loss: {float(terms['total_loss']):.6f}")
         # The one device-to-host sync of the epoch.
-        host_sums = torch.stack([sums[k] for k in LOSS_KEYS]).cpu().tolist()
+        with span("train.epoch_sync"):
+            host_sums = torch.stack([sums[k] for k in LOSS_KEYS]).cpu().tolist()
         self.epoch_seconds.append((host_s, time.perf_counter() - start))
         avg = {k: v / count for k, v in zip(LOSS_KEYS, host_sums)}
         for k in LOSS_KEYS:

@@ -15,6 +15,9 @@ JAX service's params through ``interop.jax_params_to_state_dict``).
   and the 400s; int8 and int4 services within the JAX tests' bounds and
   within 1e-5 x span of the JAX quantized services; ``runner.main`` with
   ``phase: serve``.
+* The spans of one u16 request under the profiler: ``serve.request`` with its
+  lock waits, upload, decode, forward, sync and fetch under its id; the
+  codes bit for bit those of the same request with no profiler.
 """
 
 import concurrent.futures as cf
@@ -549,3 +552,35 @@ def test_serve_phase_missing_checkpoint_is_actionable(tmp_path, monkeypatch):
     cfg.channels = None
     with pytest.raises(ValueError, match="channels"):
         serve.build_server_from_config(cfg)
+
+
+def test_encoded_request_records_its_spans_under_the_profiler(service):
+    from torch.profiler import ProfilerActivity, profile
+
+    from sshslie_torch.observability import TRACER
+
+    q = np.random.RandomState(5).randint(0, 4096, (20, 24, CHANNELS)).astype(np.uint16)
+
+    def request():
+        return service.enhance_encoded(q, "u16", 1.0, 0.0, wire="u16_wire")["S_wire"]
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # one small request, not the pool's contention with other workers
+    try:
+        plain = request()
+        TRACER.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            traced = request()
+    finally:
+        torch.set_num_threads(threads)
+    spans = TRACER.spans()
+    TRACER.reset()
+    np.testing.assert_array_equal(traced["q"], plain["q"])
+    assert (traced["scale"], traced["offset"]) == (plain["scale"], plain["offset"])
+    (req,) = [r for r in spans if r.name == "serve.request"]
+    assert req.parent is None and all(r.root == req.id for r in spans)
+    children = sorted(r.name for r in spans if r.parent == req.id)
+    assert children == ["serve.decode", "serve.fetch", "serve.forward", "serve.lock_wait",
+                        "serve.sync", "serve.upload"]
+    (fetch,) = [r for r in spans if r.name == "serve.fetch"]
+    assert [r.name for r in spans if r.parent == fetch.id] == ["serve.lock_wait"]

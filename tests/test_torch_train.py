@@ -14,6 +14,10 @@
   equal 5 uninterrupted epochs.
 * ``runner.main`` with ``train_and_test`` on the CPU, and the config values
   the port cannot honour, which raise.
+* The spans of two fused steps under the profiler: each ``train.step`` with
+  its sample, forward, loss, backward and Adam children under its id; the
+  terms and the weights after the steps bit for bit those of the same steps
+  with no profiler.
 
 Tolerances, stated relative to each quantity's scale:
 * terms of one step: rtol 1e-5 (float32 sums over 2*16*16*64 values in
@@ -58,7 +62,9 @@ from sshslie_torch.config import load_config
 from sshslie_torch.data.datasets import CubeStore
 from sshslie_torch.interop import jax_params_to_state_dict
 from sshslie_torch.models.enhance import LowLightEnhanceNet
-from sshslie_torch.train import LOSS_KEYS, Trainer, make_optimizer, train_step
+from sshslie_torch.observability import TRACER
+from sshslie_torch.train import (LOSS_KEYS, Trainer, fused_draws, make_optimizer,
+                                 multistep_train_step, train_step)
 from test_golden_trajectory import GOLDEN_HOST_TOTAL
 
 COEFFS = {
@@ -318,3 +324,44 @@ def test_fused_pipeline_on_with_accumulation_raises(golden_dir, tmp_path):
     cfg = load_config(None, dict(GOLDEN_KW, device="cpu", fused_pipeline="on", grad_accum_steps=2))
     with pytest.raises(ValueError, match="requires the host pipeline"):
         Trainer(cfg, 6).fit(CubeStore(golden_dir, normalization="self"), ckpt_dir=str(tmp_path))
+
+
+def test_fused_steps_record_their_spans_under_the_profiler():
+    from torch.profiler import ProfilerActivity, profile
+
+    cubes = torch.rand(3, 20, 22, 6, generator=torch.Generator().manual_seed(3))
+    draws = torch.from_numpy(fused_draws(41, 0, 2, 2, (20, 22), 16))
+    sd = LowLightEnhanceNet(6, attention_impl="dense",
+                            generator=torch.Generator().manual_seed(41)).state_dict()
+
+    def run():
+        model = LowLightEnhanceNet(6, attention_impl="dense")
+        model.load_state_dict(sd)
+        opt = make_optimizer(model.train(), LR)
+        terms = multistep_train_step(model, opt, cubes, draws, [0, 1], 2, 16, COEFFS)
+        return terms, model.state_dict()
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)     # tiny steps, not the pool's contention with other workers
+    try:
+        plain_terms, plain_sd = run()
+        TRACER.reset()
+        with profile(activities=[ProfilerActivity.CPU]):
+            terms, after = run()
+    finally:
+        torch.set_num_threads(threads)
+    spans, summary = TRACER.spans(), TRACER.summary()
+    TRACER.reset()
+    for k in LOSS_KEYS:
+        assert torch.equal(terms[k], plain_terms[k]), k
+    for k in plain_sd:
+        assert torch.equal(after[k], plain_sd[k]), k
+    steps = [r for r in spans if r.name == "train.step"]
+    assert len(steps) == 2 and all(r.parent is None for r in steps)
+    for step in steps:
+        children = [r.name for r in spans if r.parent == step.id]
+        assert sorted(children) == ["train.adam", "train.adam", "train.backward",
+                                    "train.forward", "train.loss", "train.sample"]
+        assert all(r.root == step.id for r in spans
+                   if step.start_ns <= r.start_ns <= r.end_ns <= step.end_ns)
+    assert summary["train.step"]["count"] == 2 and summary["train.adam"]["count"] == 4
