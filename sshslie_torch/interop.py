@@ -89,7 +89,7 @@ def save_checkpoint(path: str, state_dict: Dict[str, torch.Tensor],
         optimizer = torch.optim.Adam([torch.nn.Parameter(torch.zeros(1)) for _ in sd], lr=1e-3)
     opt_state = optimizer if isinstance(optimizer, dict) else optimizer.state_dict()
     payload: Dict[str, Any] = {"model_state_dict": sd,
-                               "optimizer_state_dict": _to_cpu(opt_state)}
+                               "optimizer_state_dict": _plain_groups(_to_cpu(opt_state))}
     if epoch is not None:
         payload["epoch"] = int(epoch)
     tmp = path + ".tmp"
@@ -106,6 +106,24 @@ def _to_cpu(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_cpu(v) for v in tree)
     return tree
+
+
+def _plain_groups(opt_state: Dict[str, Any]) -> Dict[str, Any]:
+    """The optimizer state with its groups as Adam on the CPU keeps them: a
+    capturable Adam's rate tensor (``train.capturable_adam``) as a number and
+    ``capturable`` off, so the file is the same whichever device trained and
+    loads on either (``Trainer.fit`` makes it capturable again on a card)."""
+    if "param_groups" not in opt_state:
+        return opt_state
+    groups = []
+    for group in opt_state["param_groups"]:
+        group = dict(group)
+        if isinstance(group.get("lr"), torch.Tensor):
+            group["lr"] = group["lr"].item()
+        if group.get("capturable"):
+            group["capturable"] = False
+        groups.append(group)
+    return {**opt_state, "param_groups": groups}
 
 
 def load_checkpoint(path: str, model: torch.nn.Module,

@@ -39,7 +39,7 @@ import threading
 import torch
 from torch.autograd.function import once_differentiable
 
-from sshslie_torch.ops import _build, at_least_float32
+from sshslie_torch.ops import _build, at_least_float32, launch_capture
 
 NEG_INF = -1e30
 DENSE_MAX_SEQ = 2048
@@ -161,6 +161,10 @@ _COUNT_LOCK = threading.Lock()
 
 
 def _count(dtype: torch.dtype, key: tuple = ()) -> None:
+    """One launch; a launch captured into a CUDA graph counts at each replay
+    (``launch_capture``)."""
+    if launch_capture.recorded(_count, dtype, key):
+        return
     with _COUNT_LOCK:
         flash_attention.launches += 1
         flash_attention.launches_by_dtype[dtype] += 1

@@ -25,7 +25,9 @@ Layout as in the JAX package: x is NHWC (B, H, W, 64), w is HWIO
   float32 sums; other dtypes raise. Each launch also counts in
   ``launches_by_dtype[label]`` and in ``launches_by_shape[(pass, label,
   x.shape)]``, label the dtype or "tf32", pass "forward", "dgrad"
-  (conv9_fwd called from :class:`ShallowConv`'s backward) or "wgrad".
+  (conv9_fwd called from :class:`ShallowConv`'s backward) or "wgrad"; a
+  launch captured into a CUDA graph counts once a replay
+  (``ops/launch_capture.py``).
 * Neither wrapper is differentiable: called where autograd would record it
   (grad mode on, an input that requires grad) it raises.
   :class:`ShallowConv` is the differentiable conv whose three passes all run
@@ -53,7 +55,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
-from sshslie_torch.ops import _build, at_least_float32
+from sshslie_torch.ops import _build, at_least_float32, launch_capture
 
 CHANNELS = 64
 KERNEL_SIZES = (3, 5, 7, 9, 11, 13)
@@ -163,7 +165,10 @@ _PASS = threading.local()
 
 
 def _count(wrapper, label, key: tuple = ()) -> None:
-    """One launch, under ``label``: the operands' dtype, or TF32."""
+    """One launch, under ``label``: the operands' dtype, or TF32; a launch
+    captured into a CUDA graph counts at each replay (``launch_capture``)."""
+    if launch_capture.recorded(_count, wrapper, label, key):
+        return
     with _COUNT_LOCK:
         wrapper.launches += 1
         wrapper.launches_by_dtype[label] += 1

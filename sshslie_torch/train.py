@@ -31,7 +31,10 @@
   epoch of ``fit`` adds ``train.draws`` and ``train.epoch_sync``.
 * Adam is ``torch.optim.Adam(betas=(0.9, 0.999), eps=1e-8)`` without weight
   decay, with each epoch's StepLR value written into its param groups:
-  optax ``scale_by_adam`` followed by ``p - lr * u`` is the same update.
+  optax ``scale_by_adam`` followed by ``p - lr * u`` is the same update. On
+  CUDA parameters it is ``capturable`` with its rate a tensor on the card
+  (:func:`capturable_adam`), which a CUDA graph of the step replays;
+  checkpoints hold the rate as a number, as the CPU's Adam writes it.
 * Freeze (``freeze_decom_epochs`` with pretrained weights): the
   DecompositionNet's gradients are set to zero, not dropped, so Adam's
   moments and step counts advance as the JAX package's do; Adam is recreated
@@ -101,8 +104,24 @@
   :func:`_mean_over_ranks` sums both over every rank in one ``all_reduce``
   and divides the gradients by the data axis's size, the terms by the
   world's. The patch must be a multiple of 8·S (``spatial.check_rows``).
-
-Not ported (ROADMAP.md queue 1): a CUDA graph of a multistep chunk (item 11).
+* The CUDA graph of the fused step (:class:`_StepGraph`, JAX's ``lax.scan``
+  over a chunk hides the same launch cost): on one process on CUDA,
+  :func:`multistep_train_step` runs a key's first step eagerly, captures its
+  second as one ``torch.cuda.CUDAGraph`` (the crop, the forward with the
+  re-decomposition, the six terms, the backward, the freeze mask and Adam)
+  and replays it for every later step, so the host issues a step in a few
+  calls. The key: the model, Adam (the object, its state, its groups and
+  their rate tensors), the cube stack's storage, shape and dtype, the
+  batch, the patch size, ``freeze_decom`` and the loss coefficients; one
+  graph an Adam, dropped when the key changes. A replay writes the step's
+  row of the draws and its first sample index into the graph's own tensors
+  on the card, reads the rate from Adam's tensor, which :func:`set_lr`
+  fills, and computes what the eager step computes, with the same kernels
+  and library calls. On the CPU and on a mesh every step runs eagerly, as
+  before. Spans ``train.capture`` and ``train.replay`` inside the step's
+  ``train.step``; counts ``multistep_train_step.graph_captures`` and
+  ``.graph_replays``; the kernels' launch counts take each replay's launches
+  (``ops/launch_capture.py``).
 """
 
 from __future__ import annotations
@@ -113,7 +132,8 @@ import signal
 import sys
 import threading
 import time
-from typing import Callable, Dict, Iterable, Optional
+import weakref
+from typing import Callable, Dict, Iterable, Optional, Union
 
 import numpy as np
 import torch
@@ -125,6 +145,7 @@ from sshslie_torch.data.datasets import CubeStore, LazyCubeStore, Prefetcher
 from sshslie_torch.data.native_sampler import NativePatchSampler, make_sampler
 from sshslie_torch.device import resolve_device
 from sshslie_torch.models.enhance import LowLightEnhanceNet, build_model, shard_space
+from sshslie_torch.ops import launch_capture
 from sshslie_torch.ops.losses import total_loss
 from sshslie_torch.parallel import distributed, spatial
 from sshslie_torch.parallel.mesh import Mesh, shard_batch_size
@@ -150,14 +171,42 @@ def loss_coeffs(cfg: Config) -> Dict[str, float]:
 
 
 def make_optimizer(model: torch.nn.Module, lr: float) -> torch.optim.Adam:
-    """torch.optim.Adam with the reference's defaults (JAX ``make_optimizer``)."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=0.0)
+    """torch.optim.Adam with the reference's defaults (JAX ``make_optimizer``),
+    capturable on CUDA parameters (:func:`capturable_adam`)."""
+    return capturable_adam(torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
+                                            eps=1e-8, weight_decay=0.0))
+
+
+def capturable_adam(optimizer: torch.optim.Adam) -> torch.optim.Adam:
+    """``optimizer`` in the form a CUDA graph of the step replays, for each
+    group whose parameters are on CUDA: ``capturable`` (the update's scalars
+    computed on the card), its rate a float32 tensor on the card that
+    :func:`set_lr` fills, its step counts on the card. The same update; CPU
+    groups are left as they are. Also after ``load_state_dict``, which
+    takes a checkpoint's plain groups (``interop.save_checkpoint``)."""
+    for group in optimizer.param_groups:
+        dev = group["params"][0].device
+        if dev.type != "cuda":
+            continue
+        group["capturable"] = True
+        if not isinstance(group["lr"], torch.Tensor):
+            group["lr"] = torch.full((), group["lr"], dtype=torch.float32, device=dev)
+        for p in group["params"]:
+            state = optimizer.state.get(p)
+            if state and "step" in state:
+                state["step"] = state["step"].to(dev, torch.float32)
+    return optimizer
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's rate: filled into its rate tensor where it has one (a
+    capturable Adam's, read by the replays of a CUDA graph of the step; the
+    fill queues on the card, no sync), else set."""
     for group in optimizer.param_groups:
-        group["lr"] = lr
+        if isinstance(group["lr"], torch.Tensor):
+            group["lr"].fill_(lr)
+        else:
+            group["lr"] = lr
 
 
 def _backward(model: LowLightEnhanceNet, batch: torch.Tensor,
@@ -394,11 +443,13 @@ def fused_draws(seed: int, epoch: int, num_batches: int, batch_size: int,
     return np.stack([xs, ys, modes], axis=-1)
 
 
-def sample_fused_batch(cubes: torch.Tensor, draws: torch.Tensor, batch_start: int,
-                       patch_size: int) -> torch.Tensor:
+def sample_fused_batch(cubes: torch.Tensor, draws: torch.Tensor,
+                       batch_start: Union[int, torch.Tensor], patch_size: int) -> torch.Tensor:
     """The (B, P, P, C) batch of one fused step, on the cubes' device: sample i
     crops cube ``(batch_start + i) % N`` at ``draws[i, :2]`` and takes mode
-    ``draws[i, 2]`` (JAX ``_sample_fused_batch``)."""
+    ``draws[i, 2]`` (JAX ``_sample_fused_batch``). ``batch_start`` is an int,
+    or a 0-d int64 tensor on the cubes' device (a CUDA graph's, written
+    before each replay)."""
     dev = cubes.device
     idx = (batch_start + torch.arange(draws.shape[0], device=dev)) % cubes.shape[0]
     offs = torch.arange(patch_size, device=dev)
@@ -426,20 +477,115 @@ def fused_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer
         return _step(model, optimizer, batch, coeffs, freeze_decom, mesh)
 
 
+class _StepGraph:
+    """One key's fused step as a CUDA graph (the module's docstring): the
+    key, and once captured the graph, its input tensors (the step's row of
+    the draws, the first sample index), its (7,) terms and the launches its
+    capture recorded."""
+
+    def __init__(self, key: tuple, held: tuple):
+        self.key = key
+        # The key's objects and the cube stack, held: their ids stay theirs,
+        # and the storage the graph reads stays alive.
+        self.held = held
+        self.warm = False             # the key's eager first step has run
+        self.graph = None
+
+    def step(self, model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
+             cubes: torch.Tensor, draws: torch.Tensor, batch_start: int, patch_size: int,
+             coeffs: Dict[str, float], freeze_decom: bool) -> torch.Tensor:
+        """One step by a replay, captured first on the key's second step →
+        the graph's (7,) terms, which the next replay overwrites."""
+        with span("train.step"):
+            if self.graph is None:
+                with span("train.capture"):
+                    self._capture(model, optimizer, cubes, draws, patch_size, coeffs,
+                                  freeze_decom)
+            with span("train.replay"):
+                self.draws.copy_(draws)
+                self.start.fill_(batch_start)
+                self.graph.replay()
+                launch_capture.replayed(self.launches)
+                multistep_train_step.graph_replays += 1
+            return self.terms
+
+    def _capture(self, model, optimizer, cubes, draws, patch_size, coeffs, freeze_decom):
+        self.draws = draws.clone()
+        self.start = torch.zeros((), dtype=torch.int64, device=cubes.device)
+        graph = torch.cuda.CUDAGraph()
+        # Thread-local errors: the async eval's thread may use the card meanwhile.
+        with launch_capture.capturing() as launches, \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with span("train.sample"):
+                batch = sample_fused_batch(cubes, self.draws, self.start, patch_size)
+            # _step sets the gradients to None first: the backward writes them
+            # into the graph's own memory, afresh at each replay.
+            terms = _step(model, optimizer, batch, coeffs, freeze_decom, None)
+            self.terms = torch.stack([terms[k] for k in LOSS_KEYS])
+        self.graph, self.launches = graph, launches
+        multistep_train_step.graph_captures += 1
+
+
+# Adam → the _StepGraph of its last key: one graph an Adam, gone with it.
+_GRAPHS: "weakref.WeakKeyDictionary[torch.optim.Optimizer, _StepGraph]" = \
+    weakref.WeakKeyDictionary()
+
+
+def _step_graph(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
+                cubes: torch.Tensor, rows: int, patch_size: int, coeffs: Dict[str, float],
+                freeze_decom: bool, mesh: Optional[Mesh]) -> Optional[_StepGraph]:
+    """The :class:`_StepGraph` of this key (a new one, the last dropped, when
+    the key changed), or None where every step runs eagerly: on a mesh, off
+    CUDA, or under an optimizer whose groups are not capturable with a rate
+    tensor (:func:`capturable_adam`)."""
+    if mesh is not None or cubes.device.type != "cuda" or not all(
+            g.get("capturable") and isinstance(g["lr"], torch.Tensor)
+            for g in optimizer.param_groups):
+        return None
+    # Objects by identity (load_state_dict replaces Adam's state and groups).
+    objects = (model, optimizer.state, optimizer.param_groups,
+               *(g["lr"] for g in optimizer.param_groups))
+    key = (tuple(map(id, objects)), cubes.device, cubes.data_ptr(), tuple(cubes.shape),
+           cubes.stride(), cubes.dtype, rows, patch_size, bool(freeze_decom),
+           tuple(sorted(coeffs.items())))
+    graph = _GRAPHS.get(optimizer)
+    if graph is None or graph.key != key:
+        _GRAPHS.pop(optimizer, None)     # free the old graph before the new key's steps
+        graph = _GRAPHS[optimizer] = _StepGraph(key, (*objects, cubes))
+    return graph
+
+
 def multistep_train_step(model: LowLightEnhanceNet, optimizer: torch.optim.Optimizer,
                          cubes: torch.Tensor, epoch_draws: torch.Tensor,
                          batch_ids: Iterable[int], batch_size: int, patch_size: int,
                          coeffs: Dict[str, float], freeze_decom: bool = False,
-                         mesh: Optional[Mesh] = None) -> Dict[str, torch.Tensor]:
+                         mesh: Optional[Mesh] = None) -> Optional[Dict[str, torch.Tensor]]:
     """The fused steps ``batch_ids`` of an epoch in one host call, each
-    exactly as :func:`fused_train_step` → their terms summed in step order.
-    ``batch_size`` is the global batch."""
+    exactly as :func:`fused_train_step` → their terms summed in step order,
+    in tensors of their own (None for no steps). ``batch_size`` is the global
+    batch. On one process on CUDA a key's steps after its first replay a
+    CUDA graph of the step (:class:`_StepGraph`)."""
+    graph = _step_graph(model, optimizer, cubes, epoch_draws.shape[1], patch_size, coeffs,
+                        freeze_decom, mesh)
     sums = None
     for batch_id in batch_ids:
-        sums = _add_terms(sums, fused_train_step(
-            model, optimizer, cubes, epoch_draws[batch_id], batch_id * batch_size,
-            patch_size, coeffs, freeze_decom, mesh))
-    return sums
+        draws, start = epoch_draws[batch_id], batch_id * batch_size
+        if graph is not None and graph.warm:
+            terms = graph.step(model, optimizer, cubes, draws, start, patch_size, coeffs,
+                               freeze_decom)
+        else:
+            step = fused_train_step(model, optimizer, cubes, draws, start, patch_size, coeffs,
+                                    freeze_decom, mesh)
+            terms = torch.stack([step[k] for k in LOSS_KEYS])
+            if graph is not None:
+                graph.warm = True
+        # A new tensor: the graph's terms are overwritten by its next replay.
+        sums = terms.clone() if sums is None else sums.add_(terms)
+    return None if sums is None else dict(zip(LOSS_KEYS, sums.unbind()))
+
+
+multistep_train_step.graph_captures = 0
+multistep_train_step.graph_replays = 0
 
 
 def report_hbm_pressure(device: torch.device, threshold: float = 0.92) -> Optional[str]:
@@ -576,6 +722,7 @@ class Trainer:
             latest = checkpoints.latest_path(ckpt_dir)
             if os.path.exists(latest):
                 start_epoch = interop.load_checkpoint(latest, self.model, self.optimizer) or 0
+                capturable_adam(self.optimizer)    # the file's groups are plain
                 print(f"Resuming training from epoch {start_epoch}")
             else:
                 print(f"resume requested but no checkpoint at {latest}; starting fresh")
