@@ -161,6 +161,14 @@ bfloat16``.
    loop and exits 0. conv9 (1, 264, 512, 64) and flash (1, 4, 4096, 16) once
    a forward on each rank (the warmup, 4 checked and 5 timed requests: 10),
    exact. Two ranks of NCCL need two cards and are not run.
+7d. Main path 10, float32 training at 224 bands: eight synthetic 160^2 x 224
+   cubes, ``runner.main`` with ``phase: train``, ``channels: 224``, the Li
+   et al. indoor recipe's loss weights and StepLR values, b8 x 128^2 on the
+   fused pipeline, 2 epochs of one step. Launches exact by shape: the wide
+   conv9 forward and conv9_wgrad ((8, 128, 128, 224) -> 64) 2 a step each
+   and nothing else on the hand kernels; the shallow conv's input gradient
+   on cuDNN once a step (``conv9.library_passes``) and no other pass of it
+   there; epoch terms finite.
 8. Kernels against their plain versions on the card, each dtype with its
    stated tolerance (float32 conv9 and flash also at the micro-batched
    serving shapes (4, 512, 512, 64) and (4, 4, 4096, 16); the float32 conv9
@@ -168,7 +176,11 @@ bfloat16``.
    ``F32_PARTS``) at (1, 37, 45, 64) for k = 3, 9 and 13, forward and dgrad,
    every split bit for bit the others, and the b2 batch's forward and dgrad
    in each split, its sample 0 against (1, 128, 128, 64) and its rows 0..67
-   against (2, 72, 128, 64), bit for bit; the split each float32 conv9 row
+   against (2, 72, 128, 64), bit for bit; the wide float32 entries (224 ->
+   64) at path 10's b8 x 128^2 batch and at (1, 37, 45, 224) for k = 3, 9 and
+   13, forward (every split, bit for bit) and weight gradient, and
+   ShallowConv's gradients at the wide weights (dx from cuDNN) against
+   autograd through the plain version; the split each float32 conv9 row
    of the kernels line runs is printed before it; the bfloat16 conv9, its dgrad and conv9_wgrad also at
    (1, 37, 53, 64) for k = 3, 9 and 13; the bfloat16 flash kernel also
    against the Pallas kernel's float32 p, at S = 4096 and 16384);
@@ -199,8 +211,8 @@ bfloat16``.
    each kernel at the main paths' shapes
    in both dtypes (flash attention also at (1, 4, 16384, 16), the S of a
    1024^2 cube, in both dtypes; conv9 and flash at the micro-batched serving
-   shapes), its plain version and one library call (cuDNN
-   ``F.conv2d``, ``conv2d_input``, ``conv2d_weight``,
+   shapes; the wide conv9 and conv9_wgrad at path 10's), its plain version
+   and one library call (cuDNN ``F.conv2d``, ``conv2d_input``, ``conv2d_weight``,
    ``F.scaled_dot_product_attention``, bfloat16 ones for the bfloat16 rows,
    cuDNN's TF32 for the TF32 rows) as a yardstick only; the port never calls
    those.
@@ -208,7 +220,8 @@ bfloat16``.
 Prints one JSON line of kernels, then the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. A row's "launches" are the launches
 the wrappers counted at its (pass, dtype or "tf32", shape) over the main
-paths' reads (4, 5, 5b, 6, 6b, 6c, 7, 7b, 7c, every process of 7c); a row with none fails the run. Any failure exits non-zero before
+paths' reads (4, 5, 5b, 6, 6b, 6c, 7, 7b, 7c, every process of 7c, 7d); a row with
+none fails the run. Any failure exits non-zero before
 the last line. Needs one CUDA card, nvcc and the repository's files.
 """
 
@@ -232,6 +245,7 @@ N_TRAIN = 4
 N_TRAIN_BF16, SIZE_BF16 = 16, 256        # the bfloat16 run's training cubes
 GLOBAL_MIN, GLOBAL_MAX = 238.0, 4095.0   # config/config.yml
 SUSTAIN_CLIENTS, SUSTAIN_S = 4, 15.0     # serving's closed-loop load, on each of two services
+WIDE_BANDS, N_WIDE, SIZE_WIDE = 224, 8, 160  # main path 10's cubes: one b8 step an epoch
 PEAK_F32_FLOPS = 67e12                   # H100 SXM, float32 outside the tensor cores
 PEAK_BF16_FLOPS = 989e12                 # H100 SXM, dense bfloat16 on the tensor cores
 PEAK_TF32_FLOPS = 495e12                 # H100 SXM, dense TF32 on the tensor cores
@@ -245,6 +259,10 @@ STOCK_TRAIN = dict(
     c_loss_i_smooth_low=1.0, c_loss_i_smooth_delta=2000.0, c_loss_fourier=20.0,
     c_loss_spectral_cons=1.0, alpha_i_smooth_low=1.0, alpha_i_smooth_delta=10.0,
     save_reflectance=True, save_illumination=True, precision="float32")
+# The Li et al. indoor recipe's values (config/config_indoor_li_et_al_cv1.yml
+# upstream) that differ from the stock ones.
+LI_TRAIN = dict(c_loss_i_smooth_delta=20.0, c_loss_fourier=0.2, lr_update_factor=1.0,
+                lr_update_period=400)
 
 
 def log(msg: str) -> None:
@@ -491,7 +509,8 @@ def grad_errors(params, ref, lr, sd, rel_floor=1e-8):
 
 # Kernel classes of a trace, by name: the first pattern found in the name wins.
 KERNEL_CLASSES = (
-    ("hand kernels (conv9, conv9_wgrad, flash)", ("conv_c64", "wgrad_c64", "wgrad_reduce", "flash_")),
+    ("hand kernels (conv9, conv9_wgrad, flash)", ("conv_c64", "wide_f32", "wgrad_c64", "wgrad_reduce",
+                                                  "flash_")),
     ("FFT (cuFFT)", ("fft", "FFT")),
     ("Adam (foreach)", ("multi_tensor_apply", "foreach")),
     ("reductions", ("reduce_kernel",)),
@@ -1907,6 +1926,59 @@ def rank_worker(rank: int, port: int, out: str) -> int:
     return 0
 
 
+def run_wide(common: dict) -> dict:
+    """Main path 10: float32 training at 224 bands. Writes N_WIDE synthetic
+    SIZE_WIDE^2 x 224 cubes (raw values 238..4095) and runs ``runner.main``
+    with ``phase: train``, ``channels: 224``, the Li et al. loss weights, b8 x
+    128^2 on the fused pipeline, 2 epochs of one step. Launches exact by
+    shape: the wide conv9 forward and conv9_wgrad 2 a step each at (8, 128,
+    128, 224, 64), nothing else on the hand kernels; the shallow conv's
+    input gradient on cuDNN, one a step, and no other pass of it there
+    (``conv9.library_passes``). Epoch terms finite. Returns the launches by
+    shape."""
+    import numpy as np
+    import scipy.io as sio
+    import torch
+
+    from sshslie_torch import runner
+    from sshslie_torch.config import load_config
+    from sshslie_torch.ops import attention, conv9
+
+    rng = np.random.default_rng(SEED + WIDE_BANDS)
+    os.makedirs("data/low/train224")
+    illum = np.linspace(0.15, 0.4, SIZE_WIDE, dtype=np.float32)[:, None, None]
+    for i in range(N_WIDE):
+        raw = rng.random((SIZE_WIDE, SIZE_WIDE, WIDE_BANDS), dtype=np.float32) * illum
+        sio.savemat(f"data/low/train224/train{i}.mat",
+                    {"data": GLOBAL_MIN + (GLOBAL_MAX - GLOBAL_MIN) * raw})
+    tcfg = load_config(None, {**common, **STOCK_TRAIN, **LI_TRAIN, "channels": WIDE_BANDS,
+                              "phase": "train", "train_data": "./data/low/train224",
+                              "batch_size": 8, "epoch": 2, "fused_pipeline": "on",
+                              "model_name": "chip_smoke_train224"})
+    steps = tcfg.epoch * (N_WIDE // tcfg.batch_size)
+    what = "float32 train at 224 bands"
+    zero_counts(conv9, attention)
+    t = time.perf_counter()
+    trainer = runner.main(tcfg)["trainer"]
+    torch.cuda.synchronize()
+    check_switches(what, False)
+    f32 = torch.float32
+    shape = (tcfg.batch_size, tcfg.patch_size, tcfg.patch_size, WIDE_BANDS, 64)
+    check_by_shape(what, conv9, attention, {("wide_forward", f32, shape): 2 * steps,
+                                            ("wide_wgrad", f32, shape): 2 * steps})
+    if conv9.library_passes != {("dgrad", f32, shape): steps}:
+        raise AssertionError(f"{what}: shallow-conv passes on cuDNN {conv9.library_passes}, "
+                             f"expected the input gradient {steps} times")
+    losses = trainer.all_epoch_losses["total_loss"]
+    log(f"main path ({what}): {time.perf_counter() - t:.2f} s; {steps} steps on the "
+        f"{trainer.pipeline} pipeline; cuDNN passes {conv9.library_passes}; total loss {losses}")
+    if trainer.pipeline != "fused" or len(losses) != tcfg.epoch or not all(
+            math.isfinite(v) for vals in trainer.all_epoch_losses.values() for v in vals):
+        raise AssertionError(f"{what}: pipeline {trainer.pipeline}, terms "
+                             f"{trainer.all_epoch_losses}")
+    return shape_counts(conv9, attention)
+
+
 def run_multi(work: str, test_kw: dict, train_kw: dict, path1_cfg, path2: dict,
               served: dict, card: str) -> dict:
     """Main path 9, data parallel on one card: (a) path 2's run through the
@@ -2260,6 +2332,10 @@ def main() -> int:
         multi_counts = run_multi(work, test_kw, train_kw, cfg, path2, served, card)
         tally_shapes(conv9, attention, multi_counts)
 
+        # ---- main path 10: float32 training at 224 bands (the wide shallow conv) ----
+        wide_counts = run_wide(common)
+        tally_shapes(conv9, attention, wide_counts)
+
         # ---- kernels against their plain versions on the card ----
         cube = load_hsi(os.path.join(cfg.test_data, "cube0.mat"), mat_key=cfg.mat_key,
                         normalization=cfg.normalization, max_val=GLOBAL_MAX, min_val=GLOBAL_MIN)
@@ -2381,6 +2457,55 @@ def main() -> int:
             f"equal; (2, 128, 128, 64) forward and dgrad in every split, its sample 0 and rows 0..67 "
             f"as (1, 128, 128, 64) and (2, 72, 128, 64), bit for bit equal; "
             f"{time.perf_counter() - t_f32:.2f} s")
+        # The wide float32 entries (Cin -> 64) at main path 10's shapes, a b8
+        # x 128^2 batch of its 224-band cubes and a gradient's scale: the
+        # forward within 2e-5 of the largest output (sums of 18,144 products in
+        # another order), every split bit for bit; the weight gradient within
+        # 5e-5 (sums over 131,072 pixels in slices); ragged (1, 37, 45, 224) at
+        # k = 3, 9, 13 the same; ShallowConv's gradients at the wide weights
+        # (dx from cuDNN) against autograd through the plain version, 5e-5.
+        t_wide = time.perf_counter()
+        g_wide = torch.Generator().manual_seed(SEED + 11)
+        wstore = CubeStore("./data/low/train224", normalization=tcfg.normalization,
+                           global_min=GLOBAL_MIN, global_max=GLOBAL_MAX)
+        x224 = torch.from_numpy(PatchSampler(wstore, 8, 128, seed=SEED).sample_batch(0)).to(dev)
+        del wstore
+        wide_conv = LowLightEnhanceNet(WIDE_BANDS, generator=torch.Generator().manual_seed(SEED)
+                                       ).decomposition_net.shallow_conv[0]
+        w224 = wide_conv.weight.detach().permute(2, 3, 1, 0).contiguous().to(dev)  # (9, 9, 224, 64)
+        b224 = wide_conv.bias.detach().to(dev)
+        g224 = (torch.randn((*x224.shape[:3], 64), generator=g_wide) * 1e-3).to(dev)
+        errs["conv9_224"] = check_rel("conv9 (8, 128, 128, 224) -> 64 k9",
+                                      conv9.conv9_fwd(x224, w224), conv9.conv9_plain(x224, w224),
+                                      2e-5)
+        errs["wgrad_224"] = check_rel("conv9_wgrad (8, 128, 128, 224) -> (9, 9, 224, 64)",
+                                      conv9.conv9_wgrad(x224, g224, 9),
+                                      conv9.conv9_wgrad_plain(x224, g224, 9), 5e-5)
+        outs = [conv9.conv9_fwd(x224, w224, parts=p) for p in conv9.F32_PARTS]
+        if not all(torch.equal(o, outs[0]) for o in outs):
+            raise AssertionError("conv9 (8, 128, 128, 224) -> 64: the splits' bits differ")
+        x37w = torch.randn(1, 37, 45, WIDE_BANDS, generator=g_wide).to(dev)
+        dy37w = torch.randn(1, 37, 45, 64, generator=g_wide).to(dev)
+        for kk in (3, 9, 13):
+            wk = (torch.randn(kk, kk, WIDE_BANDS, 64, generator=g_wide) * 0.02).to(dev)
+            plain = conv9.conv9_plain(x37w, wk)
+            outs = [conv9.conv9_fwd(x37w, wk, parts=p) for p in conv9.F32_PARTS]
+            for p, o in zip(conv9.F32_PARTS, outs):
+                check_rel(f"conv9 (1, 37, 45, 224) -> 64 k{kk} parts {p}", o, plain, 2e-5)
+                if not torch.equal(o, outs[0]):
+                    raise AssertionError(f"conv9 (1, 37, 45, 224) k{kk}: parts {p}'s bits differ")
+            check_rel(f"conv9_wgrad (1, 37, 45, 224) k{kk}", conv9.conv9_wgrad(x37w, dy37w, kk),
+                      conv9.conv9_wgrad_plain(x37w, dy37w, kk), 5e-5)
+
+        def wide_grads(fn):
+            ts = [t.clone().requires_grad_() for t in (x224, w224, b224)]
+            return torch.autograd.grad(fn(*ts), ts, g224)
+
+        for name, a, b in zip(("dx", "dw", "db"), wide_grads(conv9.shallow_conv),
+                              wide_grads(lambda xx, w_, bb: conv9.conv9_plain(xx, w_) + bb)):
+            check_rel(f"ShallowConv {name} (8, 128, 128, 224) -> 64", a, b, 5e-5)
+        log(f"wide float32 checks (224 -> 64 at b8 x 128^2 and (1, 37, 45, 224) k = 3, 9, 13, "
+            f"splits {conv9.F32_PARTS} bit for bit): {time.perf_counter() - t_wide:.2f} s")
 
         # The bfloat16 entries at the bfloat16 main paths' shapes: the test
         # cube, and a b8 batch of the fused pipeline with a gradient's scale.
@@ -2926,6 +3051,14 @@ def main() -> int:
             b, h, wd_, c = xx.shape
             return 2.0 * b * h * wd_ * 81 * c * c, 2.0 * xx.element_size() * xx.numel() + 4 * 81 * c * c, 0.0
 
+        def wide_bound(xx, dw_bytes):
+            """A k9 Cin -> 64 pass over xx: x and w (or dy) read once, y (or dW)
+            written once; ``dw_bytes``: the weight gradient's, dW in float32."""
+            b, h, wd_, c = xx.shape
+            e, pixels = xx.element_size(), b * h * wd_
+            return (2.0 * pixels * 81 * c * 64,
+                    e * pixels * (c + 64) + (4 if dw_bytes else e) * 81 * c * 64, 0.0)
+
         def flash_bound(q):
             return flash_work(q.shape, q.element_size())
 
@@ -2935,6 +3068,9 @@ def main() -> int:
         x1c, g1c = x1.permute(0, 3, 1, 2), g1.permute(0, 3, 1, 2)
         xsc, gsc, x264c = xs.permute(0, 3, 1, 2), gs.permute(0, 3, 1, 2), x264.permute(0, 3, 1, 2)
         wdc = wd.permute(3, 2, 0, 1).contiguous()
+        x224c, g224c = x224.permute(0, 3, 1, 2), g224.permute(0, 3, 1, 2)
+        w224c = w224.permute(3, 2, 0, 1).contiguous()
+        wide_shape = (*x224.shape, 64)
         cl = torch.channels_last
         xcb, xcb1024 = xb.permute(0, 3, 1, 2), xb1024.permute(0, 3, 1, 2)
         wcb = w9b.permute(3, 2, 0, 1).contiguous(memory_format=cl)
@@ -2948,6 +3084,8 @@ def main() -> int:
         conv9_src, conv9_rep = "sshslie_torch/csrc/conv9.cu", "sshslie_tpu/ops/conv_pallas.py:147"
         wgrad_src, wgrad_rep = "sshslie_torch/csrc/conv9_wgrad.cu", "sshslie_tpu/ops/conv_pallas.py:215"
         flash_src, flash_rep = "sshslie_torch/csrc/flash_attn.cu", "sshslie_tpu/ops/attention.py:169"
+        # The JAX gate sends a 224-band shallow conv to lax.conv_general_dilated.
+        WIDE_REP = "sshslie_tpu/models/layers.py:79"
         for name, src, replaces, key, count, fn, plain, lib, work_, peak in (
                 ("conv9 (1,512,512,64) forward", conv9_src, conv9_rep, "conv9_512", ("conv9", "forward", x),
                  lambda: conv9.conv9_fwd(x, w9), lambda: conv9.conv9_plain(x, w9),
@@ -2998,6 +3136,17 @@ def main() -> int:
                  "conv9_264", ("conv9", "forward", x264), lambda: conv9.conv9_fwd(x264, w9),
                  lambda: conv9.conv9_plain(x264, w9), lambda: F.conv2d(x264c, wc, padding=4),
                  conv_bound(x264), PEAK_F32_FLOPS),
+                # 224-band cubes (path 10): the wide float32 entries, Cin -> 64.
+                ("conv9 (8,128,128,224) -> 64 forward, 224 bands", conv9_src, WIDE_REP, "conv9_224",
+                 ("conv9", "wide_forward", x224, "float32", wide_shape),
+                 lambda: conv9.conv9_fwd(x224, w224), lambda: conv9.conv9_plain(x224, w224),
+                 lambda: F.conv2d(x224c, w224c, padding=4), wide_bound(x224, False), PEAK_F32_FLOPS),
+                ("conv9_wgrad (8,128,128,224) -> (9,9,224,64), 224 bands", wgrad_src, WIDE_REP,
+                 "wgrad_224", ("conv9_wgrad", "wide_wgrad", x224, "float32", wide_shape),
+                 lambda: conv9.conv9_wgrad(x224, g224, 9),
+                 lambda: conv9.conv9_wgrad_plain(x224, g224, 9),
+                 lambda: torch.nn.grad.conv2d_weight(x224c, w224c.shape, g224c, padding=4),
+                 wide_bound(x224, True), PEAK_F32_FLOPS),
                 ("flash_attention (1,4,4096,16)", flash_src, flash_rep, "flash", ("flash_attention", "forward", q),
                  lambda: attention.flash_attention(q, k, v), lambda: attention.sdpa_chunked(q, k, v),
                  lambda: F.scaled_dot_product_attention(q, k, v), flash_bound(q), PEAK_F32_FLOPS),
@@ -3090,11 +3239,13 @@ def main() -> int:
                 set_matmul_precision(tcfg)
             flops, nbytes, exps = work_
             bound, bound_by = bound_ms(work_, peak)
-            kernel_name, role, t_, *label = count
-            label = label[0] if label else str(t_.dtype).replace("torch.", "")
+            # (kernel, pass, operand[, label[, shape as counted]])
+            kernel_name, role, t_, *rest = count
+            label = rest[0] if rest else str(t_.dtype).replace("torch.", "")
             if kernel_name == "conv9" and label == "float32":
-                f32_parts[name] = conv9.conv9_f32_parts(*t_.shape[:3], 9, conv9.f32_resident(t_.device, 9))
-            row_key = (kernel_name, role, label, tuple(t_.shape))
+                f32_parts[name] = conv9.conv9_f32_parts(
+                    *t_.shape[:3], 9, conv9.f32_resident(t_.device, 9, wide=role.startswith("wide")))
+            row_key = (kernel_name, role, label, rest[1] if len(rest) > 1 else tuple(t_.shape))
             row_keys.append(row_key)
             launches = MAIN_SHAPES.get(row_key, 0)
             rows.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -1,6 +1,7 @@
 // Stride-1 SAME k x k convolution, 64 -> 64 channels, float32 accumulation:
-// the DecompositionNet's 9x9 shallow conv, with a float32 and a bfloat16
-// entry.
+// the DecompositionNet's 9x9 shallow conv, with a float32, a bfloat16 and a
+// TF32 entry, and a float32 entry from other input-channel counts (the wide
+// entry).
 //
 // Replaces: sshslie_tpu/ops/conv_pallas.py::conv9_fwd (Pallas kernel
 // _fwd_kernel). Same function: y[b,h,w,co] = sum_{kh,kw,ci}
@@ -56,6 +57,12 @@
 //     same time), two rows of 8 pixels a thread in an 8-row tile, the
 //     FFMAs in inline asm groups, ptxas -O2, single-buffered weights, the
 //     whole row's input at its start.
+//   * The wide entry (sshslie_conv_wide_f32): the same units, splits and
+//     summation order over Cin input channels, a multiple of 32 up to 256,
+//     to 64 output channels: 224 -> 64 for 224-band cubes. A unit walks Cin
+//     input channels; its prep kernel transposes 32 channels a block. Same
+//     code as the 64-channel kernels (conv_f32_unit, prep_f32), which keep
+//     their own instantiations.
 //
 // bfloat16 entry (sshslie_conv_c64_bf16): bfloat16 x and w, float32 sums,
 // the output rounded to bfloat16 once (conv_pallas.py::conv9_fwd on bfloat16
@@ -329,42 +336,45 @@ __device__ __forceinline__ void conv_channel(float (&acc)[T::kP][T::kCT], const 
 // image pixel (h, w) at (h + P, w + P), Hp = 4 tiles_h + K - 1 rows and
 // Wp = (tiles_w - 1) * 32 + kInW columns, so that a unit's window for one
 // channel is kInH whole rows of kInW values; and the weights as
-// wp[part][ci][tap][kCoB], a channel's taps of a part in one piece.
-template <class T>
-__global__ void __launch_bounds__(256)
-conv_c64_f32_prep_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                         float* __restrict__ xp, float* __restrict__ wp, int H, int W, int Hp,
-                         int Wp, int x_blocks) {
+// wp[part][ci][tap][kCoB], a channel's taps of a part in one piece. cin: the
+// input channels; a block of the input transposes CH of them (all 64 in the
+// 64-channel entry, 32 in the wide one).
+template <class T, int CH>
+__device__ __forceinline__ void prep_f32(const float* __restrict__ x, const float* __restrict__ w,
+                                         float* __restrict__ xp, float* __restrict__ wp, int H,
+                                         int W, int Hp, int Wp, int x_blocks, int cin) {
   constexpr int K = T::kK;
   constexpr int P = (K - 1) / 2;
   const int tid = threadIdx.x;
   if (static_cast<int>(blockIdx.x) >= x_blocks) {  // the weights, 1024 floats a block
     const int i = (blockIdx.x - x_blocks) * 256 + tid;  // float4 of wp
-    if (i >= K * K * kC * kC / 4) return;
+    if (i >= K * K * cin * kC / 4) return;
     const int q = i % (T::kCoB / 4);
     const int tap = (i / (T::kCoB / 4)) % (K * K);
-    const int ci = (i / (T::kCoB / 4 * K * K)) % kC;
-    const int part = i / (T::kCoB / 4 * K * K * kC);
+    const int ci = (i / (T::kCoB / 4 * K * K)) % cin;
+    const int part = i / (T::kCoB / 4 * K * K * cin);
     store4(wp + 4 * static_cast<size_t>(i),
-           load4(w + (static_cast<size_t>(tap) * kC + ci) * kC + part * T::kCoB + 4 * q));
+           load4(w + (static_cast<size_t>(tap) * cin + ci) * kC + part * T::kCoB + 4 * q));
     return;
   }
-  // The input: 32 padded columns of one padded row, all 64 channels, through
-  // a [column][channel] tile (65 floats a column: conflict-free both ways).
-  __shared__ float tile[32][kC + 1];
+  // The input: 32 padded columns of one padded row, CH channels, through a
+  // [column][channel] tile (CH + 1 floats a column: conflict-free both ways).
+  __shared__ float tile[32][CH + 1];
   const int col_tiles = (Wp + 31) / 32;
   const int c0 = (blockIdx.x % col_tiles) * 32;
   const int hp = (blockIdx.x / col_tiles) % Hp;
-  const int b = blockIdx.x / (col_tiles * Hp);
+  const int bc = blockIdx.x / (col_tiles * Hp);  // (image, channel chunk), the chunk fastest
+  const int b = bc / (cin / CH);
+  const int ch0 = bc % (cin / CH) * CH;
   const int h = hp - P;
 #pragma unroll
-  for (int i = tid; i < 32 * kC / 4; i += 256) {
-    const int col = i / (kC / 4);
-    const int q = i % (kC / 4);
+  for (int i = tid; i < 32 * CH / 4; i += 256) {
+    const int col = i / (CH / 4);
+    const int q = i % (CH / 4);
     const int wc = c0 + col - P;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (h >= 0 && h < H && wc >= 0 && wc < W)
-      v = load4(x + ((static_cast<size_t>(b) * H + h) * W + wc) * kC + 4 * q);
+      v = load4(x + ((static_cast<size_t>(b) * H + h) * W + wc) * cin + ch0 + 4 * q);
     tile[col][4 * q] = v.x;
     tile[col][4 * q + 1] = v.y;
     tile[col][4 * q + 2] = v.z;
@@ -372,18 +382,29 @@ conv_c64_f32_prep_kernel(const float* __restrict__ x, const float* __restrict__ 
   }
   __syncthreads();
 #pragma unroll
-  for (int i = tid; i < 32 * kC; i += 256) {
+  for (int i = tid; i < 32 * CH; i += 256) {
     const int c = i / 32;
     const int col = i % 32;
-    if (c0 + col < Wp) xp[((static_cast<size_t>(b) * kC + c) * Hp + hp) * Wp + c0 + col] = tile[col][c];
+    if (c0 + col < Wp)
+      xp[((static_cast<size_t>(b) * cin + ch0 + c) * Hp + hp) * Wp + c0 + col] = tile[col][c];
   }
 }
 
 template <class T>
-__global__ void __launch_bounds__(kThreadsF, T::kMinBlocks)
-conv_c64_f32_kernel(const float* __restrict__ xp, const float* __restrict__ wp,
-                    float* __restrict__ y, int H, int W, int Hp, int Wp, int tiles_h,
-                    int tiles_w) {
+__global__ void __launch_bounds__(256)
+conv_c64_f32_prep_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                         float* __restrict__ xp, float* __restrict__ wp, int H, int W, int Hp,
+                         int Wp, int x_blocks) {
+  prep_f32<T, kC>(x, w, xp, wp, H, W, Hp, Wp, x_blocks, kC);
+}
+
+// One unit of the float32 conv, cin channels in and the unit's kCoB of the 64
+// out: the body of both float32 kernels.
+template <class T>
+__device__ __forceinline__ void conv_f32_unit(const float* __restrict__ xp,
+                                              const float* __restrict__ wp, float* __restrict__ y,
+                                              int H, int W, int Hp, int Wp, int tiles_h,
+                                              int tiles_w, int cin) {
   constexpr int P = T::kP;
   constexpr int CT = T::kCT;
   constexpr int kParts = kC / T::kCoB;
@@ -418,10 +439,11 @@ conv_c64_f32_kernel(const float* __restrict__ xp, const float* __restrict__ wp,
     const unsigned bar = bars + 8 * (ci & 1);
     if (tid == 0) {
       mbar_expect_tx(bar, T::kStageBytes);
-      bulk_copy(ws, wp + (static_cast<size_t>(part) * kC + ci) * T::kWFloats, 4 * T::kWFloats, bar);
+      bulk_copy(ws, wp + (static_cast<size_t>(part) * cin + ci) * T::kWFloats, 4 * T::kWFloats,
+                bar);
     }
     __syncwarp();
-    const float* src = xp + ((static_cast<size_t>(b) * kC + ci) * Hp + h0) * Wp + w0;
+    const float* src = xp + ((static_cast<size_t>(b) * cin + ci) * Hp + h0) * Wp + w0;
     for (int r = tid; r < T::kInH; r += 32)
       bulk_copy(ws + 4 * (T::kWFloats + r * T::kInW), src + static_cast<size_t>(r) * Wp,
                 4 * T::kInW, bar);
@@ -441,9 +463,9 @@ conv_c64_f32_kernel(const float* __restrict__ xp, const float* __restrict__ wp,
 
   if (tid < 32) issue(0);
 #pragma unroll 1
-  for (int ci = 0; ci < kC; ++ci) {
+  for (int ci = 0; ci < cin; ++ci) {
     if (ci > 0) __syncthreads();  // every thread is done with channel ci - 1: its buffer is free
-    if (tid < 32 && ci + 1 < kC) issue(ci + 1);
+    if (tid < 32 && ci + 1 < cin) issue(ci + 1);
     mbar_wait(bars + 8 * (ci & 1), (ci >> 1) & 1);  // channel ci landed
     const float* ws = smem + (ci & 1) * T::kStageFloats;
     conv_channel<T>(acc, ws + T::kWFloats + prow * T::kInW + pcol, ws + wo);
@@ -463,6 +485,35 @@ conv_c64_f32_kernel(const float* __restrict__ xp, const float* __restrict__ wp,
         store4(o, make_float4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]));
     }
   }
+}
+
+template <class T>
+__global__ void __launch_bounds__(kThreadsF, T::kMinBlocks)
+conv_c64_f32_kernel(const float* __restrict__ xp, const float* __restrict__ wp,
+                    float* __restrict__ y, int H, int W, int Hp, int Wp, int tiles_h,
+                    int tiles_w) {
+  conv_f32_unit<T>(xp, wp, y, H, W, Hp, Wp, tiles_h, tiles_w, kC);
+}
+
+// The wide entry's kernels: the same units over cin input channels, a
+// multiple of 32 up to 256 (224 for 224-band cubes), to 64 output channels.
+// Their names hold "wide_f32" and none of the 64-channel kernels' or cuDNN's
+// name patterns.
+constexpr int kWideChunk = 32;  // input channels a block of the wide prep transposes
+
+template <class T>
+__global__ void __launch_bounds__(256)
+wide_f32_prep_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     float* __restrict__ xp, float* __restrict__ wp, int H, int W, int Hp, int Wp,
+                     int x_blocks, int cin) {
+  prep_f32<T, kWideChunk>(x, w, xp, wp, H, W, Hp, Wp, x_blocks, cin);
+}
+
+template <class T>
+__global__ void __launch_bounds__(kThreadsF, T::kMinBlocks)
+wide_f32_kernel(const float* __restrict__ xp, const float* __restrict__ wp, float* __restrict__ y,
+                int H, int W, int Hp, int Wp, int tiles_h, int tiles_w, int cin) {
+  conv_f32_unit<T>(xp, wp, y, H, W, Hp, Wp, tiles_h, tiles_w, cin);
 }
 
 // ---- bfloat16 entry: tensor cores ----
@@ -890,6 +941,14 @@ void f32_padded(int H, int W, int* Hp, int* Wp, int* tiles_h, int* tiles_w) {
   *Wp = (*tiles_w - 1) * kTWf + T::kInW;
 }
 
+// with_form for the wide entry's cin input channels, or cudaErrorInvalidValue
+// for a count it does not take.
+template <class F>
+int with_wide_form(int K, int cin, int parts, F&& f) {
+  if (cin < 32 || cin > 256 || cin % 32) return static_cast<int>(cudaErrorInvalidValue);
+  return with_form(K, parts, f);
+}
+
 }  // namespace
 
 // Floats of scratch the float32 entry needs for (B, H, W, K) split `parts`
@@ -948,6 +1007,75 @@ SSHSLIE_EXPORT int sshslie_conv_c64_f32_resident(int K, int parts, int* sms, int
   return with_form(K, parts, [&](auto tile) {
     using T = decltype(tile);
     const auto kernel = conv_c64_f32_kernel<T>;
+    int dev = 0;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreadsF,
+                                                          T::kSmemBytes);
+    return static_cast<int>(err);
+  });
+}
+
+// Floats of scratch the wide float32 entry needs for (B, H, W, Cin, K) split
+// `parts` ways; -1 for what it does not take.
+SSHSLIE_EXPORT long long sshslie_conv_wide_f32_scratch(int B, int H, int W, int Cin, int K,
+                                                       int parts) {
+  long long floats = -1;
+  with_wide_form(K, Cin, parts, [&](auto tile) {
+    using T = decltype(tile);
+    int Hp, Wp, th, tw;
+    f32_padded<T>(H, W, &Hp, &Wp, &th, &tw);
+    floats = static_cast<long long>(B) * Cin * Hp * Wp + static_cast<long long>(K) * K * Cin * kC;
+    return 0;
+  });
+  return floats;
+}
+
+// The float32 entry at other input-channel counts: x (B, H, W, Cin), w (K, K,
+// Cin, 64) HWIO, y (B, H, W, 64), Cin a multiple of 32 up to 256. The same
+// units, splits (parts 1, 2 or 4), sums and summation order as
+// sshslie_conv_c64_f32 over Cin input channels (every split gives the same
+// bits). scratch: sshslie_conv_wide_f32_scratch(...) floats.
+SSHSLIE_EXPORT int sshslie_conv_wide_f32(const void* x, const void* w, void* y, void* scratch,
+                                         int B, int H, int W, int Cin, int K, int parts,
+                                         void* stream) {
+  return with_wide_form(K, Cin, parts, [&](auto tile) {
+    using T = decltype(tile);
+    const auto kernel = wide_f32_kernel<T>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int Hp, Wp, tiles_h, tiles_w;
+    f32_padded<T>(H, W, &Hp, &Wp, &tiles_h, &tiles_w);
+    const long long blocks = static_cast<long long>(B) * tiles_h * tiles_w * parts;
+    const long long x_blocks =
+        static_cast<long long>(B) * (Cin / kWideChunk) * Hp * ((Wp + 31) / 32);
+    const long long w_blocks = (static_cast<long long>(K) * K * Cin * kC / 4 + 255) / 256;
+    if (blocks > 0x7fffffffLL || x_blocks + w_blocks > 0x7fffffffLL)
+      return static_cast<int>(cudaErrorInvalidValue);
+    float* xp = static_cast<float*>(scratch);
+    float* wp = xp + static_cast<size_t>(B) * Cin * Hp * Wp;
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    wide_f32_prep_kernel<T><<<static_cast<unsigned>(x_blocks + w_blocks), 256, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w), xp, wp, H, W, Hp, Wp,
+        static_cast<int>(x_blocks), Cin);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<static_cast<unsigned>(blocks), kThreadsF, T::kSmemBytes, s>>>(
+        xp, wp, static_cast<float*>(y), H, W, Hp, Wp, tiles_h, tiles_w, Cin);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// The current device's SM count and the blocks of the wide float32 kernel,
+// unsplit, that one SM holds at once; returns a CUDA error code.
+SSHSLIE_EXPORT int sshslie_conv_wide_f32_resident(int K, int* sms, int* per_sm) {
+  return with_form(K, 1, [&](auto tile) {
+    using T = decltype(tile);
+    const auto kernel = wide_f32_kernel<T>;
     int dev = 0;
     cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmemBytes);

@@ -1,6 +1,7 @@
 // Weight gradient of the stride-1 SAME k x k convolution, 64 -> 64 channels,
-// float32 or bfloat16 in, float32 accumulation and out: the backward pass of
-// the DecompositionNet's 9x9 shallow conv for its weights.
+// float32 or bfloat16 in (and float32 at Cin -> 64 channels, the wide entry),
+// float32 accumulation and out: the backward pass of the DecompositionNet's
+// 9x9 shallow conv for its weights.
 //
 // Replaces: sshslie_tpu/ops/conv_pallas.py::conv9_wgrad (Pallas kernel
 // _wgrad_kernel). Same function:
@@ -33,7 +34,14 @@
 //     64 x 64, allocated by the wrapper); a second kernel adds the partials in
 //     slice order. No float atomics, so the result is the same from run to
 //     run. The number of slices fills the card's resident blocks once.
-// No tensor cores, TMA or pipelining yet: a right first kernel.
+// No tensor cores, TMA or pipelining yet: a right first kernel. The wide
+// entry (sshslie_conv9_wgrad_wide_f32) runs the same kernel, blocks and sums
+// over Cin input channels, a multiple of 32 up to 256 (224 for 224-band
+// cubes), with 64 output channels: wgrad_c64_kernel<K, 0> reads Cin from its
+// grid (Cin / 16 chunks a kernel row, so at Cin = 224 a slice is 126 blocks
+// and the card's one wave holds 2 slices), and wgrad_reduce_kernel sums its
+// partials; the 64-channel instantiation, wgrad_c64_kernel<K, 64>, compiles
+// to the code it had before the template.
 //
 // bfloat16 entry (sshslie_conv9_wgrad_bf16): bfloat16 x and dY, float32
 // sums, partials and dW (conv_pallas.py::conv9_wgrad on bfloat16 operands).
@@ -131,12 +139,15 @@ struct WTile {
   static constexpr int kInWPad = kInW | 1;  // odd row stride: fewer bank conflicts
 };
 
-template <int K>
+// CIN input channels (x's pixel stride); CIN = 0: the wide entry's,
+// gridDim.y * kCiB of them (a multiple of 32 up to 256).
+template <int K, int CIN>
 __global__ void __launch_bounds__(kThreads, 2)
 wgrad_c64_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                  float* __restrict__ part, int B, int H, int W, int splits) {
   using T = WTile<K>;
   constexpr int P = (K - 1) / 2;
+  const int cin = CIN > 0 ? CIN : static_cast<int>(gridDim.y) * kCiB;
   __shared__ float xs[kCiB][T::kInWPad];         // input segment, 16 ci
   __shared__ __align__(16) float ds[kTP][kC];    // dY segment, 64 co
 
@@ -161,7 +172,7 @@ wgrad_c64_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     const int h = r - b * H;
     const int hx = h + kh - P;  // the input row kernel row kh reads
     if (hx < 0 || hx >= H) continue;  // zero padding: the same for the whole block
-    const float* xrow = x + (static_cast<size_t>(b) * H + hx) * W * kC;
+    const float* xrow = x + (static_cast<size_t>(b) * H + hx) * W * cin;
     const float* drow = dy + (static_cast<size_t>(b) * H + h) * W * kC;
     for (int w0 = 0; w0 < W; w0 += kTP) {
       __syncthreads();  // the previous segment is consumed
@@ -179,7 +190,7 @@ wgrad_c64_kernel(const float* __restrict__ x, const float* __restrict__ dy,
         const int gw = w0 - P + px;
         float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
         if (gw >= 0 && gw < W)
-          v = load4(xrow + static_cast<size_t>(gw) * kC + ci0 + q * 4);
+          v = load4(xrow + static_cast<size_t>(gw) * cin + ci0 + q * 4);
         xs[q * 4 + 0][px] = v.x;
         xs[q * 4 + 1][px] = v.y;
         xs[q * 4 + 2][px] = v.z;
@@ -210,10 +221,10 @@ wgrad_c64_kernel(const float* __restrict__ x, const float* __restrict__ dy,
   }
 
   // Partial of slice s: part[s][kh][kw][ci][co].
-  float* out = part + static_cast<size_t>(s) * K * K * kC * kC;
+  float* out = part + static_cast<size_t>(s) * K * K * cin * kC;
 #pragma unroll
   for (int kw = 0; kw < K; ++kw) {
-    float* o = out + ((static_cast<size_t>(kh) * K + kw) * kC + ci0 + cil) * kC + cog * 4;
+    float* o = out + ((static_cast<size_t>(kh) * K + kw) * cin + ci0 + cil) * kC + cog * 4;
     *reinterpret_cast<float4*>(o) = make_float4(acc[kw][0], acc[kw][1], acc[kw][2], acc[kw][3]);
   }
 }
@@ -641,17 +652,20 @@ wgrad_c64_tf32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
     run(std::integral_constant<int, T::kTaps1>());
 }
 
-template <int K>
-int splits_for(int B, int H) {
+// Slices of the float32 kernel over cin input channels (CIN, or the wide
+// entry's cin where CIN is 0); at least 1, at most one image row a slice.
+template <int K, int CIN = kC>
+int splits_for(int B, int H, int cin = CIN) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wgrad_c64_kernel<K>, kThreads, 0);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wgrad_c64_kernel<K, CIN>,
+                                                        kThreads, 0);
   if (err != cudaSuccess) return -static_cast<int>(err);
-  // One wave of resident blocks: (kC / kCiB) * K blocks a slice.
+  // One wave of resident blocks: (cin / kCiB) * K blocks a slice.
   const long long capacity = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
-  long long splits = capacity / ((kC / kCiB) * K);
+  long long splits = capacity / ((cin / kCiB) * K);
   const long long rows = static_cast<long long>(B) * H;
   if (splits > rows) splits = rows;
   return static_cast<int>(splits < 1 ? 1 : splits);
@@ -696,8 +710,8 @@ int splits_tf32(int B, int H) {
   return static_cast<int>(splits < 1 ? 1 : splits);
 }
 
-int reduce(const float* part, float* dw, int K, int splits, cudaStream_t stream) {
-  const int n4 = K * K * kC * kC / 4;
+int reduce(const float* part, float* dw, int K, int splits, cudaStream_t stream, int cin = kC) {
+  const int n4 = K * K * cin * kC / 4;
   const int blocks = (n4 + 255) / 256;
   wgrad_reduce_kernel<<<blocks, 256, 0, stream>>>(reinterpret_cast<const float4*>(part),
                                                   reinterpret_cast<float4*>(dw), n4, splits);
@@ -708,7 +722,7 @@ template <int K>
 int launch(const float* x, const float* dy, float* part, float* dw, int B, int H, int W,
            int splits, cudaStream_t stream) {
   const dim3 grid(splits, kC / kCiB, K);
-  wgrad_c64_kernel<K><<<grid, kThreads, 0, stream>>>(x, dy, part, B, H, W, splits);
+  wgrad_c64_kernel<K, kC><<<grid, kThreads, 0, stream>>>(x, dy, part, B, H, W, splits);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return reduce(part, dw, K, splits, stream);
@@ -762,6 +776,33 @@ int wgrad_entry(const void* x, const void* dy, void* part, void* dw, int B, int 
     case 13: return launch<13>(xe, de, pf, wf, B, H, W, splits, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// f(std::integral_constant<int, K>()) for a runtime K the kernels take, or
+// cudaErrorInvalidValue.
+template <class F>
+int with_k(int K, F&& f) {
+  switch (K) {
+    case 3: return f(std::integral_constant<int, 3>());
+    case 5: return f(std::integral_constant<int, 5>());
+    case 7: return f(std::integral_constant<int, 7>());
+    case 9: return f(std::integral_constant<int, 9>());
+    case 11: return f(std::integral_constant<int, 11>());
+    case 13: return f(std::integral_constant<int, 13>());
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+bool wide_channels(int cin) { return cin >= 32 && cin <= 256 && cin % 32 == 0; }
+
+template <int K>
+int launch_wide(const float* x, const float* dy, float* part, float* dw, int B, int H, int W,
+                int cin, int splits, cudaStream_t stream) {
+  const dim3 grid(splits, cin / kCiB, K);
+  wgrad_c64_kernel<K, 0><<<grid, kThreads, 0, stream>>>(x, dy, part, B, H, W, splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return reduce(part, dw, K, splits, stream, cin);
 }
 
 }  // namespace
@@ -851,4 +892,34 @@ SSHSLIE_EXPORT int sshslie_conv9_wgrad_tf32(const void* x, const void* dy, void*
     case 13: return launch_tf32<13>(xf, df, pf, wf, B, H, W, splits, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// How many pixel-row slices sshslie_conv9_wgrad_wide_f32 splits the reduction
+// into for Cin input channels on this card: the wrapper allocates
+// splits*K*K*Cin*64 floats of scratch. Negative CUDA error code on failure
+// (-1 for a K or Cin the kernel does not take).
+SSHSLIE_EXPORT int sshslie_conv9_wgrad_wide_splits(int B, int H, int Cin, int K) {
+  int splits = -static_cast<int>(cudaErrorInvalidValue);
+  if (wide_channels(Cin))
+    with_k(K, [&](auto k) {
+      splits = splits_for<decltype(k)::value, 0>(B, H, Cin);
+      return 0;
+    });
+  return splits;
+}
+
+// The float32 weight gradient at other input-channel counts: x (B, H, W, Cin)
+// float32, Cin a multiple of 32 up to 256, dy (B, H, W, 64) float32; part
+// (splits, K, K, Cin, 64) float32 scratch; dw (K, K, Cin, 64) float32 HWIO.
+// The same blocks, sums and slice order as sshslie_conv9_wgrad_f32. splits
+// from sshslie_conv9_wgrad_wide_splits, at most B*H.
+SSHSLIE_EXPORT int sshslie_conv9_wgrad_wide_f32(const void* x, const void* dy, void* part,
+                                                void* dw, int B, int H, int W, int Cin, int K,
+                                                int splits, void* stream) {
+  if (!wide_channels(Cin) || splits < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return with_k(K, [&](auto k) {
+    return launch_wide<decltype(k)::value>(
+        static_cast<const float*>(x), static_cast<const float*>(dy), static_cast<float*>(part),
+        static_cast<float*>(dw), B, H, W, Cin, splits, static_cast<cudaStream_t>(stream));
+  });
 }

@@ -8,9 +8,12 @@ keep torch's own layouts and names (Conv2d OIHW, ConvTranspose2d IOHW, Linear
 
 * :class:`Conv2d`: ``nn.Conv2d(k, stride, padding=(k-1)//2)``; symmetric zero
   padding, which at stride 2 is the JAX package's explicit pad pair. Shapes
-  that ``ops/conv9.py::conv9_supported`` takes go to the CUDA kernel when the
-  impl asks for it ('kernel', or 'auto' on CUDA); everything else goes to
-  ``F.conv2d``, as the JAX package sends them to ``lax.conv``. Its ``tf32``
+  and dtypes that ``ops/conv9.py::conv9_supported`` takes go to the CUDA
+  kernel when the impl asks for it ('kernel', or 'auto' on CUDA; the 224 ->
+  64 shallow conv of 224-band cubes in float32 too); everything else goes
+  to ``F.conv2d``, as the JAX package sends them to ``lax.conv``, and a
+  shallow conv (impl not 'torch') that goes there counts its passes in
+  ``conv9.library_passes``. Its ``tf32``
   flag (``matmul_precision`` below float32) takes the kernels' TF32 entries
   for float32 operands on CUDA; ``F.conv2d``, ``ConvTranspose2d`` and
   ``Dense`` follow cuDNN's and cuBLAS's own TF32 switches
@@ -87,12 +90,17 @@ class Conv2d(nn.Module):
         _uniform_(self.weight, fan_in, generator)
         _uniform_(self.bias, fan_in, generator)
 
+    def _kernel_tf32(self, x: torch.Tensor) -> bool:
+        """The kernels' TF32 entries: float32 operands on CUDA with ``tf32``."""
+        return self.tf32 and x.is_cuda and x.dtype == torch.float32
+
     def _use_kernel(self, x: torch.Tensor, w: Optional[torch.Tensor] = None) -> bool:
         if self.impl == "torch" or (self.impl == "auto" and not x.is_cuda):
             return False
         out_ch, in_ch = (self.weight if w is None else w).shape[:2]
         return conv9.conv9_supported((x.shape[0], x.shape[2], x.shape[3], in_ch),
-                                     self.k, in_ch, out_ch, self.stride)
+                                     self.k, in_ch, out_ch, self.stride,
+                                     conv9.TF32 if self._kernel_tf32(x) else x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.conv_with(x, self.weight, self.bias)
@@ -110,15 +118,27 @@ class Conv2d(nn.Module):
             x = halo_rows(x, self.space, p, max(self.k - self.stride - p, 0))
         if b is not None and self._use_kernel(x, w):
             y = conv9.shallow_conv(x.permute(0, 2, 3, 1).contiguous(),
-                                   w.permute(2, 3, 1, 0).contiguous(), b,
-                                   self.tf32 and x.is_cuda and x.dtype == torch.float32)
+                                   w.permute(2, 3, 1, 0).contiguous(), b, self._kernel_tf32(x))
             y = y.permute(0, 3, 1, 2)
             # The kernel pads SAME: on a halo'd share its edge rows are cropped.
             return y[:, :, p:y.shape[2] - p] if halo else y
+        if self.impl != "torch":
+            self._count_library_passes(x, w)
         pad = (0, p) if halo else p
         if self.compute_dtype is None or b is None:
             return F.conv2d(x, w, b, stride=self.stride, padding=pad)
         return F.conv2d(x, w, None, stride=self.stride, padding=pad) + b[:, None, None]
+
+    def _count_library_passes(self, x: torch.Tensor, w: torch.Tensor) -> None:
+        """The passes of this shallow conv that F.conv2d is about to run: the
+        forward, and the input and weight gradients that autograd records
+        for the backward (counted now, with the forward)."""
+        grad = torch.is_grad_enabled()
+        key = (x.shape[0], x.shape[2], x.shape[3], w.shape[1], w.shape[0])
+        for name, runs in (("forward", True), ("dgrad", grad and x.requires_grad),
+                           ("wgrad", grad and w.requires_grad)):
+            if runs:
+                conv9.count_library_pass((name, x.dtype, key))
 
 
 class ConvTranspose2d(nn.Module):

@@ -1,4 +1,5 @@
-"""The shallow k x k 64 -> 64 convolution: CUDA kernels, plain versions, autograd.
+"""The shallow k x k convolution, 64 -> 64 channels (and Cin -> 64 in float32):
+CUDA kernels, plain versions, autograd.
 
 Counterpart of ``sshslie_tpu/ops/conv_pallas.py`` (``conv9_supported``,
 ``conv9_fwd``, ``conv9_wgrad``, ``_dgrad_weights``, ``pallas_shallow_conv``).
@@ -41,8 +42,23 @@ Layout as in the JAX package: x is NHWC (B, H, W, 64), w is HWIO
   stays float32. With ``tf32=True`` they round both operands to TF32 first
   (the products of two TF32 values are exact in float32).
 * :func:`conv9_supported` is the gate ``models/layers.py::Conv2d`` uses:
-  stride 1, odd k from 3 to 13, 64 channels in and out. It is the JAX gate
-  without its TPU tile rules (W % 128), plus the kernels' own k limit.
+  stride 1, odd k from 3 to 13, 64 channels in and out in any dtype, or in
+  float32 (TF32 off) Cin in :data:`WIDE_CHANNELS` (224-band cubes) to 64. It
+  is the JAX gate without its TPU tile rules (W % 128), plus the kernels'
+  own k limit and their channel counts. A wide shallow conv's input
+  gradient runs on cuDNN on a card (:class:`ShallowConv`), where it is
+  faster than the wide kernel.
+* The wide entries (float32 only): :func:`conv9_fwd` and
+  :func:`conv9_wgrad` take Cin in :data:`WIDE_CHANNELS` with Cout 64 (the
+  224 -> 64 forward and its (k, k, 224, 64) weight gradient). They count
+  under the passes "wide_forward" and "wide_wgrad" with the shape (B, H, W,
+  Cin, Cout), so no key of the 64-channel passes changes. The forward's
+  kernels' names hold "wide_f32"; the weight gradient runs
+  ``wgrad_c64_kernel<K, 0>`` and ``wgrad_reduce_kernel``, the 64-channel
+  entry's kernels at another instantiation.
+* :data:`library_passes` counts the shallow conv's passes that ``Conv2d``
+  sends to ``F.conv2d`` instead (cuDNN on a card), by (pass, dtype, (B, H,
+  W, Cin, Cout)): a run whose shallow conv fell back shows there.
 """
 
 from __future__ import annotations
@@ -59,16 +75,30 @@ from sshslie_torch.ops import _build, at_least_float32, launch_capture
 
 CHANNELS = 64
 KERNEL_SIZES = (3, 5, 7, 9, 11, 13)
+# The wide float32 entries' channel counts: multiples of 32 up to 256.
+WIDE_CHANNELS = tuple(range(32, 257, 32))
 # The dtypes the kernels take, and the suffix of each one's C entry.
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # The label and C-entry suffix of the TF32 entries (float32 operands).
 TF32 = "tf32"
 
 
-def conv9_supported(shape: Tuple[int, ...], k: int, ci: int, co: int, stride: int = 1) -> bool:
-    """Can the kernel take this conv? (Conv2d sends everything else to F.conv2d.)"""
-    return (stride == 1 and k in KERNEL_SIZES and ci == CHANNELS and co == CHANNELS
-            and len(shape) == 4 and shape[-1] == CHANNELS)
+def conv9_supported(shape: Tuple[int, ...], k: int, ci: int, co: int, stride: int = 1,
+                    dtype=torch.float32) -> bool:
+    """Can the kernels take all three passes of this conv? (Conv2d sends
+    everything else to F.conv2d.) 64 -> 64 in any dtype the kernels take;
+    Cin in WIDE_CHANNELS -> 64 only in float32 (``dtype`` the operands'
+    dtype, or TF32 for float32 under TF32, which has no wide entry)."""
+    if not (stride == 1 and k in KERNEL_SIZES and len(shape) == 4 and shape[-1] == ci):
+        return False
+    if ci == co == CHANNELS:
+        return True
+    return dtype == torch.float32 and co == CHANNELS and ci in WIDE_CHANNELS
+
+
+def _wide(ci: int, co: int) -> bool:
+    """Channels that take the wide float32 entries rather than the 64-channel ones."""
+    return (ci, co) != (CHANNELS, CHANNELS)
 
 
 def round_to_tf32(t: torch.Tensor) -> torch.Tensor:
@@ -162,6 +192,9 @@ _COUNT_LOCK = threading.Lock()
 # The pass a conv9_fwd launch counts under in launches_by_shape, per thread:
 # "dgrad" while ShallowConv.backward runs it, else "forward".
 _PASS = threading.local()
+# {(pass, dtype, (B, H, W, Cin, Cout)): count} of the shallow conv's passes
+# that Conv2d sent to F.conv2d; reset with the launch counts.
+library_passes: dict = {}
 
 
 def _count(wrapper, label, key: tuple = ()) -> None:
@@ -175,13 +208,24 @@ def _count(wrapper, label, key: tuple = ()) -> None:
         wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
+def count_library_pass(key: tuple) -> None:
+    """One pass of a shallow conv that Conv2d sent to F.conv2d, under
+    ``key`` (pass, dtype, (B, H, W, Cin, Cout)) in :data:`library_passes`;
+    a pass captured into a CUDA graph counts at each replay."""
+    if launch_capture.recorded(count_library_pass, key):
+        return
+    with _COUNT_LOCK:
+        library_passes[key] = library_passes.get(key, 0) + 1
+
+
 def reset_counts() -> None:
-    """Set the launch counts of both wrappers to 0."""
+    """Set the launch counts of both wrappers, and the library passes, to 0."""
     with _COUNT_LOCK:
         for wrapper in (conv9_fwd, conv9_wgrad):
             wrapper.launches = 0
             wrapper.launches_by_dtype = dict.fromkeys((*KERNEL_DTYPES, TF32), 0)
             wrapper.launches_by_shape = {}
+        library_passes.clear()
 
 
 def conv9_wgrad_bf16_taps(k: int) -> int:
@@ -221,11 +265,12 @@ def conv9_f32_units(b: int, h: int, w: int, parts: int) -> int:
 
 def conv9_f32_load(b: int, h: int, w: int, parts: int, resident: Tuple[int, int]) -> float:
     """The busiest SM's time, in units of one tile's products at full
-    concurrency, for a (b, h, w, 64) input split ``parts`` ways on a card of
+    concurrency, for a (b, h, w, Cin) input split ``parts`` ways on a card of
     ``resident = (SMs, blocks of the unsplit kernel an SM holds)``: ceil(units
     / SMs) units of 1 / parts of a tile, weighted by F32_PART_COST and by
     F32_CONCURRENCY_COST of the blocks it runs at once (at most that many
-    units; a finer split holds at least as many blocks)."""
+    units; a finer split holds at least as many blocks). Cin scales every
+    unit alike, so it is not an argument."""
     sms, per_sm = resident
     busiest = -(-conv9_f32_units(b, h, w, parts) // sms)
     concurrent = min(busiest, per_sm)
@@ -233,10 +278,13 @@ def conv9_f32_load(b: int, h: int, w: int, parts: int, resident: Tuple[int, int]
 
 
 def conv9_f32_parts(b: int, h: int, w: int, k: int, resident: Tuple[int, int]) -> int:
-    """Output-channel parts of the float32 entry's units for a (b, h, w, 64)
-    input at kernel size ``k`` on a card of ``resident`` (see
+    """Output-channel parts of the float32 entries' units for a (b, h, w,
+    Cin) input at kernel size ``k`` on a card of ``resident`` (see
     :func:`conv9_f32_load`): the split with the least load, ties to fewer
-    parts. ``k`` changes no unit's share of the work, so not the choice."""
+    parts. ``k`` changes no unit's share of the work, so not the choice. On
+    an H100 (132 SMs, 3 unsplit blocks an SM at k = 9) the 224-band cell's
+    wide forward, (8, 128, 128, 224) -> 64 in 1024 tiles, takes parts 1 (load
+    8, against 8.48 for 2 and 8.56 for 4)."""
     loads = [(conv9_f32_load(b, h, w, parts, resident), parts) for parts in F32_PARTS]
     return min(loads)[1]
 
@@ -251,25 +299,36 @@ def _library() -> ctypes.CDLL:
     lib.sshslie_conv_c64_f32.restype = ctypes.c_int
     lib.sshslie_conv_c64_f32_scratch.argtypes = [ctypes.c_int] * 5
     lib.sshslie_conv_c64_f32_scratch.restype = ctypes.c_longlong
+    lib.sshslie_conv_wide_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.sshslie_conv_wide_f32.restype = ctypes.c_int
+    lib.sshslie_conv_wide_f32_scratch.argtypes = [ctypes.c_int] * 6
+    lib.sshslie_conv_wide_f32_scratch.restype = ctypes.c_longlong
     lib.sshslie_conv_c64_f32_resident.argtypes = [ctypes.c_int] * 2 + [ctypes.POINTER(ctypes.c_int)] * 2
     lib.sshslie_conv_c64_f32_resident.restype = ctypes.c_int
+    lib.sshslie_conv_wide_f32_resident.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.sshslie_conv_wide_f32_resident.restype = ctypes.c_int
     return lib
 
 
-# (device index, k) -> (SMs, blocks of the unsplit float32 kernel an SM
-# holds): the occupancy query runs once, off every later launch's path.
+# (device index, k, wide) -> (SMs, blocks of the unsplit float32 kernel an
+# SM holds): the occupancy query runs once, off every later launch's path.
 _F32_RESIDENT: dict = {}
 
 
-def f32_resident(device: torch.device, k: int) -> Tuple[int, int]:
-    """(SMs, blocks an SM holds) of the float32 entry's unsplit kernel at ``k`` on ``device``."""
-    key = (device.index if device.index is not None else torch.cuda.current_device(), k)
+def f32_resident(device: torch.device, k: int, wide: bool = False) -> Tuple[int, int]:
+    """(SMs, blocks an SM holds) of the float32 entry's unsplit kernel (64
+    output channels a unit; ``wide``: the wide entry's) at ``k`` on ``device``."""
+    key = (device.index if device.index is not None else torch.cuda.current_device(), k, wide)
     got = _F32_RESIDENT.get(key)
     if got is None:
         lib = _library()
         sms, per_sm = ctypes.c_int(0), ctypes.c_int(0)
         with torch.cuda.device(key[0]):
-            code = lib.sshslie_conv_c64_f32_resident(k, 1, ctypes.byref(sms), ctypes.byref(per_sm))
+            if wide:
+                code = lib.sshslie_conv_wide_f32_resident(k, ctypes.byref(sms), ctypes.byref(per_sm))
+            else:
+                code = lib.sshslie_conv_c64_f32_resident(k, 1, ctypes.byref(sms),
+                                                         ctypes.byref(per_sm))
         _build.check(lib, code, "conv9 float32 occupancy query")
         got = _F32_RESIDENT[key] = (sms.value, per_sm.value)
     return got
@@ -287,6 +346,10 @@ def _wgrad_library() -> ctypes.CDLL:
         fn = getattr(lib, f"sshslie_conv9_wgrad_{suffix}")
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.sshslie_conv9_wgrad_wide_splits.argtypes = [ctypes.c_int] * 4
+    lib.sshslie_conv9_wgrad_wide_splits.restype = ctypes.c_int
+    lib.sshslie_conv9_wgrad_wide_f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.sshslie_conv9_wgrad_wide_f32.restype = ctypes.c_int
     return lib
 
 
@@ -294,30 +357,41 @@ def conv9_fwd(x: torch.Tensor, w: torch.Tensor, tf32: bool = False,
               parts: Optional[int] = None) -> torch.Tensor:
     """Stride-1 SAME k x k conv, NHWC (B, H, W, 64) x HWIO (k, k, 64, 64) -> NHWC
     in x's dtype (float32 or bfloat16, float32 accumulation); ``tf32``:
-    float32 operands rounded to TF32, products on the tensor cores.
+    float32 operands rounded to TF32, products on the tensor cores. In
+    float32 also (B, H, W, Cin) x (k, k, Cin, 64) -> (B, H, W, 64), Cin in
+    WIDE_CHANNELS (the wide entry, counted as "wide_forward").
 
     CPU tensors take :func:`conv9_plain`. CUDA tensors take the kernel; a
     shape, type or layout the kernel does not take raises. ``parts``: the
-    float32 entry's units split that many ways by output channel, one of
-    F32_PARTS (None: :func:`conv9_f32_parts`'s choice); every split gives the
-    same bits. Not differentiable: see :class:`ShallowConv`.
+    float32 entries' units split that many ways by output channel, one of
+    F32_PARTS (None: :func:`conv9_f32_parts`'s choice); every
+    split gives the same bits. Not differentiable: see :class:`ShallowConv`.
     """
     _not_differentiable("conv9_fwd", x, w)
     if x.device.type == "cpu":
         return conv9_plain(x, w, tf32)
     suffix = _check_cuda_operands("conv9_fwd", x, w, tf32=tf32)
-    k = w.shape[0]
-    if tuple(w.shape) != (k, k, CHANNELS, CHANNELS) or not conv9_supported(x.shape, k, CHANNELS, CHANNELS):
-        raise ValueError(f"conv9_fwd: unsupported shapes x {tuple(x.shape)}, w {tuple(w.shape)}")
+    k, ci, co = w.shape[0], x.shape[-1], w.shape[-1]
+    label = TF32 if tf32 else x.dtype
+    if tuple(w.shape) != (k, k, ci, co) or not conv9_supported(x.shape, k, ci, co, 1, label):
+        raise ValueError(f"conv9_fwd: unsupported shapes x {tuple(x.shape)}, w {tuple(w.shape)} "
+                         f"({suffix}; other channels than 64 -> 64 take float32 only)")
     if parts is not None and (suffix != "f32" or parts not in F32_PARTS):
         raise ValueError(f"conv9_fwd: parts {parts} needs float32 operands and one of {F32_PARTS}")
+    wide = _wide(ci, co)
     b, h, wd, _ = x.shape
-    y = torch.empty_like(x)
+    y = x.new_empty((b, h, wd, co))
     if y.numel() == 0:
         return y
     lib = _library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    if suffix == "f32":
+    if wide:
+        parts = parts or conv9_f32_parts(b, h, wd, k, f32_resident(x.device, k, wide=True))
+        scratch = torch.empty(lib.sshslie_conv_wide_f32_scratch(b, h, wd, ci, k, parts),
+                              dtype=torch.float32, device=x.device)
+        code = lib.sshslie_conv_wide_f32(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                         scratch.data_ptr(), b, h, wd, ci, k, parts, stream)
+    elif suffix == "f32":
         # The planar padded input and the repacked weights the kernel reads.
         parts = parts or conv9_f32_parts(b, h, wd, k, f32_resident(x.device, k))
         scratch = torch.empty(lib.sshslie_conv_c64_f32_scratch(b, h, wd, k, parts),
@@ -327,8 +401,8 @@ def conv9_fwd(x: torch.Tensor, w: torch.Tensor, tf32: bool = False,
     else:
         code = getattr(lib, f"sshslie_conv_c64_{suffix}")(
             x.data_ptr(), w.data_ptr(), y.data_ptr(), b, h, wd, k, stream)
-    label = TF32 if tf32 else x.dtype
-    _count(conv9_fwd, label, (getattr(_PASS, "name", "forward"), label, tuple(x.shape)))
+    _count(conv9_fwd, label, ("wide_forward", label, (b, h, wd, ci, co)) if wide
+           else (getattr(_PASS, "name", "forward"), label, tuple(x.shape)))
     _build.check(lib, code, "conv9 kernel launch")
     return y
 
@@ -336,7 +410,9 @@ def conv9_fwd(x: torch.Tensor, w: torch.Tensor, tf32: bool = False,
 def conv9_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int, tf32: bool = False) -> torch.Tensor:
     """Weight gradient of the stride-1 SAME k x k 64 -> 64 conv -> (k, k, 64, 64)
     in float32, from float32 or bfloat16 x and dy; ``tf32``: float32 x and
-    dy rounded to TF32, products on the tensor cores.
+    dy rounded to TF32, products on the tensor cores. In float32 also x
+    (B, H, W, Cin), Cin in WIDE_CHANNELS, and dy (B, H, W, 64) -> (k, k, Cin,
+    64) (the wide entry, counted as "wide_wgrad").
 
     CPU tensors take :func:`conv9_wgrad_plain`. CUDA tensors take the kernel
     (a split reduction over pixel rows into scratch, then a fixed-order sum
@@ -346,16 +422,22 @@ def conv9_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int, tf32: bool = False) -
     if x.device.type == "cpu":
         return conv9_wgrad_plain(x, dy, k, tf32)
     suffix = _check_cuda_operands("conv9_wgrad", x, dy, tf32=tf32)
-    if x.shape != dy.shape or not conv9_supported(x.shape, k, CHANNELS, CHANNELS):
+    ci, co = x.shape[-1], dy.shape[-1]
+    label = TF32 if tf32 else x.dtype
+    if x.shape[:-1] != dy.shape[:-1] or not conv9_supported(x.shape, k, ci, co, 1, label):
         raise ValueError(f"conv9_wgrad: unsupported shapes x {tuple(x.shape)}, "
-                         f"dy {tuple(dy.shape)}, k {k}")
+                         f"dy {tuple(dy.shape)}, k {k} ({suffix}; other channels than 64 -> 64 "
+                         "take float32 only)")
+    wide = _wide(ci, co)
     b, h, wd, _ = x.shape
     if x.numel() == 0:
-        return x.new_zeros((k, k, CHANNELS, CHANNELS), dtype=torch.float32)
+        return x.new_zeros((k, k, ci, co), dtype=torch.float32)
     lib = _wgrad_library()
     # float32 and TF32: the kernel's slice count; bfloat16: its resident
     # blocks, from which conv9_wgrad_bf16_splits derives the slice count.
-    if suffix == "bf16":
+    if wide:
+        query = lib.sshslie_conv9_wgrad_wide_splits(b, h, ci, k)
+    elif suffix == "bf16":
         query = lib.sshslie_conv9_wgrad_resident_bf16(k)
     elif suffix == TF32:
         query = lib.sshslie_conv9_wgrad_splits_tf32(b, h, k)
@@ -364,18 +446,38 @@ def conv9_wgrad(x: torch.Tensor, dy: torch.Tensor, k: int, tf32: bool = False) -
     if query < 0:
         _build.check(lib, -query, "conv9_wgrad occupancy query")
     splits = conv9_wgrad_bf16_splits(b * h, k, query) if suffix == "bf16" else query
-    part = torch.empty((splits, k, k, CHANNELS, CHANNELS), dtype=torch.float32, device=x.device)
-    dw = torch.empty((k, k, CHANNELS, CHANNELS), dtype=torch.float32, device=x.device)
-    code = getattr(lib, f"sshslie_conv9_wgrad_{suffix}")(
-        x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd, k, splits,
-        torch.cuda.current_stream(x.device).cuda_stream)
-    label = TF32 if tf32 else x.dtype
-    _count(conv9_wgrad, label, ("wgrad", label, tuple(x.shape)))
+    part = torch.empty((splits, k, k, ci, co), dtype=torch.float32, device=x.device)
+    dw = torch.empty((k, k, ci, co), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if wide:
+        code = lib.sshslie_conv9_wgrad_wide_f32(x.data_ptr(), dy.data_ptr(), part.data_ptr(),
+                                                dw.data_ptr(), b, h, wd, ci, k, splits, stream)
+    else:
+        code = getattr(lib, f"sshslie_conv9_wgrad_{suffix}")(
+            x.data_ptr(), dy.data_ptr(), part.data_ptr(), dw.data_ptr(), b, h, wd, k, splits,
+            stream)
+    _count(conv9_wgrad, label, ("wide_wgrad", label, (b, h, wd, ci, co)) if wide
+           else ("wgrad", label, tuple(x.shape)))
     _build.check(lib, code, "conv9_wgrad kernel launch")
     return dw
 
 
 reset_counts()
+
+
+def _library_dgrad(g: torch.Tensor, w: torch.Tensor, x_shape) -> torch.Tensor:
+    """The input gradient of a wide shallow conv on a card, from cuDNN
+    (``F.conv2d``'s own backward), counted in :data:`library_passes`: at the
+    224-band cell's (8, 128, 128, 64) -> 224, cuDNN's float32 call took
+    2.46 ms on an H100 and the forward's kernel design, run 64 -> 224, 6.38
+    (bound 4.54: cuDNN's FFT algorithm does fewer operations; PERF.md), so
+    this pass stays with cuDNN and the wide entries take Cout 64 only.
+    NHWC g, HWIO w -> NHWC dx."""
+    b, h, wd, ci = x_shape
+    dx = torch.nn.grad.conv2d_input((b, ci, h, wd), w.permute(3, 2, 0, 1), g.permute(0, 3, 1, 2),
+                                    padding=(w.shape[0] - 1) // 2)
+    count_library_pass(("dgrad", g.dtype, (b, h, wd, ci, w.shape[-1])))
+    return dx.permute(0, 2, 3, 1)
 
 
 class ShallowConv(torch.autograd.Function):
@@ -384,7 +486,11 @@ class ShallowConv(torch.autograd.Function):
     takes dw from XLA, the port from its own ``conv9_wgrad`` kernel).
 
     x NHWC (B, H, W, 64), w HWIO (k, k, 64, 64), b (64,), all of one dtype,
-    float32 or bfloat16. The gradients come back in that dtype, as in
+    float32 or bfloat16; or in float32 x (B, H, W, Cin) and w (k, k, Cin,
+    64), Cin in WIDE_CHANNELS: the forward Cin -> 64 and the weight gradient
+    (k, k, Cin, 64) on the wide entries, the input gradient 64 -> Cin from
+    cuDNN on a card (:func:`_library_dgrad`, faster there), from the plain
+    version on the CPU. The gradients come back in that dtype, as in
     ``_psc_bwd``: dx from the conv9 kernel, dw from the float32 weight
     gradient rounded to w's dtype, db a float32 sum cast to it. ``tf32``
     (float32 only) takes the TF32 entries in all three kernel passes. On CPU
@@ -406,7 +512,9 @@ class ShallowConv(torch.autograd.Function):
         # contiguous NHWC (a copy when it is not already).
         g = g.contiguous()
         dx = dw = db = None
-        if ctx.needs_input_grad[0]:
+        if ctx.needs_input_grad[0] and g.is_cuda and _wide(x.shape[-1], w.shape[-1]):
+            dx = _library_dgrad(g, w, x.shape)
+        elif ctx.needs_input_grad[0]:
             _PASS.name = "dgrad"
             try:
                 dx = conv9_fwd(g, conv9_dgrad_weights(w), ctx.tf32)

@@ -60,8 +60,20 @@ def test_gate():
     assert not conv9.conv9_supported((1, 8, 128, 64), 4, 64, 64)    # even k
     assert not conv9.conv9_supported((1, 8, 128, 64), 1, 64, 64)    # k < 3
     assert not conv9.conv9_supported((1, 8, 128, 64), 15, 64, 64)   # past the kernel's k
-    assert not conv9.conv9_supported((1, 8, 128, 224), 9, 224, 64)  # 224-band data
+    # 224-band data: the wide float32 entries take it; bfloat16 and TF32 have none.
+    assert conv9.conv9_supported((1, 8, 128, 224), 9, 224, 64)
+    assert conv9.conv9_supported((1, 8, 128, 224), 9, 224, 64, dtype=torch.float32)
+    assert not conv9.conv9_supported((1, 8, 128, 224), 9, 224, 64, dtype=torch.bfloat16)
+    assert not conv9.conv9_supported((1, 8, 128, 224), 9, 224, 64, dtype=conv9.TF32)
+    assert not conv9.conv9_supported((1, 8, 128, 12), 9, 12, 64)    # 12 bands: not a multiple of 32
+    assert not conv9.conv9_supported((1, 8, 128, 288), 9, 288, 64)  # past 256
+    assert not conv9.conv9_supported((1, 8, 128, 224), 9, 224, 64, stride=2)
+    assert not conv9.conv9_supported((1, 8, 128, 64), 9, 224, 64)   # x's channels are not Cin
+    # The 64 -> 64 answers take any dtype, as before.
+    assert conv9.conv9_supported((1, 8, 128, 64), 9, 64, 64, dtype=torch.bfloat16)
+    assert conv9.conv9_supported((1, 8, 128, 64), 9, 64, 64, dtype=conv9.TF32)
     assert not conv9.conv9_supported((1, 8, 128, 64), 9, 64, 32)
+    assert not conv9.conv9_supported((1, 8, 128, 64), 9, 64, 224)   # the wide weight gradient takes 64 out
     assert not conv9.conv9_supported((8, 128, 64), 9, 64, 64)       # rank 3
 
 

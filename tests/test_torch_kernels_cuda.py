@@ -221,6 +221,190 @@ def test_shallow_conv_grads_on_card_match_plain_autograd(cuda_device):
         _rel_close(a, c, 2e-5, name)
 
 
+# The wide float32 entries (Cin -> 64, Cin other than 64): the 224-band
+# cell's shapes and ragged ones, against the plain versions within 2e-5 of
+# the largest output (a sum holds up to 9*9*224 = 18,144 products in another
+# order), every split bit for bit equal to the others and to the selector's.
+WIDE_CASES = [((8, 128, 128, 224), 9), ((1, 37, 45, 224), 3), ((1, 37, 45, 224), 13),
+              ((2, 19, 70, 96), 9), ((1, 20, 33, 32), 5)]
+
+
+def _wide_inputs(seed, shape, co, k, device):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
+    w = (rng.standard_normal((k, k, shape[-1], co)) * 0.05).astype(np.float32)
+    dy = rng.standard_normal((*shape[:3], co)).astype(np.float32)
+    return x, torch.from_numpy(w).to(device), torch.from_numpy(dy).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", WIDE_CASES)
+def test_wide_f32_conv_matches_plain_in_every_split_on_card(cuda_device, shape, k):
+    x, w, _ = _wide_inputs(21, shape, 64, k, cuda_device)
+    key = ("wide_forward", torch.float32, (*shape, 64))
+    before = conv9.conv9_fwd.launches_by_shape.get(key, 0)
+    auto = conv9.conv9_fwd(x, w)
+    assert conv9.conv9_fwd.launches_by_shape[key] == before + 1
+    assert auto.shape == (*shape[:3], 64)
+    _rel_close(auto, conv9.conv9_plain(x, w), 2e-5, f"wide {shape} -> 64 k{k}")
+    for p in conv9.F32_PARTS:
+        assert torch.equal(conv9.conv9_fwd(x, w, parts=p), auto), f"{shape} -> 64: parts {p}"
+    assert torch.equal(conv9.conv9_fwd(x, w), auto)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,k", [((8, 128, 128, 224), 9), ((1, 37, 53, 224), 3),
+                                     ((2, 19, 70, 96), 13)])
+def test_wide_f32_wgrad_matches_plain_on_card(cuda_device, shape, k):
+    x, _, dy = _wide_inputs(22, shape, 64, k, cuda_device)
+    key = ("wide_wgrad", torch.float32, (*shape, 64))
+    before = conv9.conv9_wgrad.launches_by_shape.get(key, 0)
+    got = conv9.conv9_wgrad(x, dy, k)
+    assert conv9.conv9_wgrad.launches_by_shape[key] == before + 1
+    assert got.shape == (k, k, shape[-1], 64)
+    _rel_close(got, conv9.conv9_wgrad_plain(x, dy, k), 2e-5, f"wide wgrad {shape} k{k}")
+    assert torch.equal(got, conv9.conv9_wgrad(x, dy, k))
+
+
+@pytest.mark.cuda
+def test_wide_entries_refuse_what_they_do_not_take(cuda_device):
+    x = torch.zeros(1, 8, 8, 224, device=cuda_device)
+    w = torch.zeros(9, 9, 224, 64, device=cuda_device)
+    dy = torch.zeros(1, 8, 8, 64, device=cuda_device)
+    x200, w200 = x[..., :200].contiguous(), w[:, :, :200].contiguous()
+    w_to224 = torch.zeros(9, 9, 64, 224, device=cuda_device)
+    for what, bad in (("TF32", lambda: conv9.conv9_fwd(x, w, tf32=True)),
+                      ("bfloat16", lambda: conv9.conv9_fwd(x.bfloat16(), w.bfloat16())),
+                      ("a split of 64 into 3", lambda: conv9.conv9_fwd(x, w, parts=3)),
+                      ("200 channels", lambda: conv9.conv9_fwd(x200, w200)),
+                      ("64 -> 224", lambda: conv9.conv9_fwd(dy, w_to224)),
+                      ("TF32 wgrad", lambda: conv9.conv9_wgrad(x, dy, 9, tf32=True)),
+                      ("wgrad to 224", lambda: conv9.conv9_wgrad(x, x, 9)),
+                      ("wgrad pixels differ",
+                       lambda: conv9.conv9_wgrad(x, torch.zeros(1, 8, 9, 64, device=cuda_device), 9))):
+        with pytest.raises(ValueError):
+            bad()
+            pytest.fail(what)
+
+
+@pytest.mark.cuda
+def test_shallow_conv_wide_grads_on_card_match_plain_autograd(cuda_device):
+    rng = np.random.default_rng(15)
+    x, w, g = _wide_inputs(16, (2, 32, 40, 224), 64, 9, cuda_device)
+    b = torch.from_numpy(rng.standard_normal(64).astype(np.float32)).to(cuda_device)
+
+    def grads(fn):
+        xs, ws, bs = (t.clone().requires_grad_() for t in (x, w, b))
+        return torch.autograd.grad(fn(xs, ws, bs), (xs, ws, bs), g)
+
+    conv9.reset_counts()
+    got = grads(conv9.shallow_conv)
+    torch.cuda.synchronize()
+    f32 = torch.float32
+    # The forward and the weight gradient on the wide kernels, the input
+    # gradient on cuDNN (faster there), counted as a library pass.
+    assert conv9.conv9_fwd.launches_by_shape == {("wide_forward", f32, (2, 32, 40, 224, 64)): 1}
+    assert conv9.conv9_wgrad.launches_by_shape == {("wide_wgrad", f32, (2, 32, 40, 224, 64)): 1}
+    assert conv9.library_passes == {("dgrad", f32, (2, 32, 40, 224, 64)): 1}
+    want = grads(lambda xs, ws, bs: conv9.conv9_plain(xs, ws) + bs)
+    for name, a, c in zip(("dx", "dw", "db"), got, want):
+        _rel_close(a, c, 2e-5, name)
+
+
+# sha256 (first 16 hex digits) of the 64 -> 64 entries' outputs on seeded
+# inputs, recorded on an H100 (132 SMs: the weight gradients' slice counts
+# follow the card) from the kernels as they were before the wide entries
+# shared their code: float32 (every split), TF32 and bfloat16, forward, dgrad
+# and weight gradient.
+RECORDED_C64 = {
+    'bf16 fwd 1x37x45x64k13': '1497c483d2d1d7eb',
+    'bf16 fwd 1x37x45x64k3': '76ff2f85a54074ef',
+    'bf16 fwd 2x128x128x64k9': 'e4f939ee2122ae11',
+    'bf16 fwd 8x128x128x64k9': '360263685497e461',
+    'bf16 wgrad 1x37x45x64k13': 'b47164eb24a2fb93',
+    'bf16 wgrad 1x37x45x64k3': 'a34abd16587e77cb',
+    'bf16 wgrad 2x128x128x64k9': '8863f21b2ac68e08',
+    'bf16 wgrad 8x128x128x64k9': '8586aa0282eb74e2',
+    'f32 dgrad 1x37x45x64k13 p1': '2f85343428e89cb2',
+    'f32 dgrad 1x37x45x64k13 p2': '2f85343428e89cb2',
+    'f32 dgrad 1x37x45x64k13 p4': '2f85343428e89cb2',
+    'f32 dgrad 1x37x45x64k3 p1': 'bd3598289447b005',
+    'f32 dgrad 1x37x45x64k3 p2': 'bd3598289447b005',
+    'f32 dgrad 1x37x45x64k3 p4': 'bd3598289447b005',
+    'f32 dgrad 2x128x128x64k9 p1': 'c6ce7ad279bac067',
+    'f32 dgrad 2x128x128x64k9 p2': 'c6ce7ad279bac067',
+    'f32 dgrad 2x128x128x64k9 p4': 'c6ce7ad279bac067',
+    'f32 dgrad 8x128x128x64k9 p1': '4480ff0bf940f85f',
+    'f32 dgrad 8x128x128x64k9 p2': '4480ff0bf940f85f',
+    'f32 dgrad 8x128x128x64k9 p4': '4480ff0bf940f85f',
+    'f32 fwd 1x37x45x64k13 auto': '07cc4d3f2714f771',
+    'f32 fwd 1x37x45x64k13 p1': '07cc4d3f2714f771',
+    'f32 fwd 1x37x45x64k13 p2': '07cc4d3f2714f771',
+    'f32 fwd 1x37x45x64k13 p4': '07cc4d3f2714f771',
+    'f32 fwd 1x37x45x64k3 auto': 'a3cc40214e1b0230',
+    'f32 fwd 1x37x45x64k3 p1': 'a3cc40214e1b0230',
+    'f32 fwd 1x37x45x64k3 p2': 'a3cc40214e1b0230',
+    'f32 fwd 1x37x45x64k3 p4': 'a3cc40214e1b0230',
+    'f32 fwd 2x128x128x64k9 auto': 'bbebe1be99b25b36',
+    'f32 fwd 2x128x128x64k9 p1': 'bbebe1be99b25b36',
+    'f32 fwd 2x128x128x64k9 p2': 'bbebe1be99b25b36',
+    'f32 fwd 2x128x128x64k9 p4': 'bbebe1be99b25b36',
+    'f32 fwd 8x128x128x64k9 auto': 'e95f3d7be13a407b',
+    'f32 fwd 8x128x128x64k9 p1': 'e95f3d7be13a407b',
+    'f32 fwd 8x128x128x64k9 p2': 'e95f3d7be13a407b',
+    'f32 fwd 8x128x128x64k9 p4': 'e95f3d7be13a407b',
+    'f32 wgrad 1x37x45x64k13': '73afcdb46bc8aea9',
+    'f32 wgrad 1x37x45x64k3': '8fd2e02f1f6c04f8',
+    'f32 wgrad 2x128x128x64k9': '7470bad73394c03a',
+    'f32 wgrad 8x128x128x64k9': 'd691a860be4e2662',
+    'tf32 fwd 1x37x45x64k13': 'f8bc23e0b09b4714',
+    'tf32 fwd 1x37x45x64k3': 'f76fb89059240bd4',
+    'tf32 fwd 2x128x128x64k9': '13cc4b476d3649ee',
+    'tf32 fwd 8x128x128x64k9': 'a946624272aedc7c',
+    'tf32 wgrad 1x37x45x64k13': 'aaccf2100b27d738',
+    'tf32 wgrad 1x37x45x64k3': 'f3f0691f4f68777b',
+    'tf32 wgrad 2x128x128x64k9': '72b94b3b164caa36',
+    'tf32 wgrad 8x128x128x64k9': '4eaff5e476ef9fd7',
+}
+
+
+def c64_digests(device) -> dict:
+    import hashlib
+
+    def digest(t):
+        return hashlib.sha256(t.contiguous().cpu().view(torch.uint8).numpy().tobytes()).hexdigest()[:16]
+
+    def inputs(shape, k, dtype):
+        rng = np.random.default_rng(41)
+        x = rng.standard_normal(shape).astype(np.float32)
+        w = (rng.standard_normal((k, k, 64, 64)) * 0.05).astype(np.float32)
+        dy = rng.standard_normal(shape).astype(np.float32)
+        return (torch.from_numpy(a).to(device, dtype) for a in (x, w, dy))
+
+    out = {}
+    for shape, k in (((2, 128, 128, 64), 9), ((1, 37, 45, 64), 3), ((1, 37, 45, 64), 13),
+                     ((8, 128, 128, 64), 9)):
+        x, w, dy = inputs(shape, k, torch.float32)
+        tag = "x".join(map(str, shape)) + f"k{k}"
+        for p in conv9.F32_PARTS:
+            out[f"f32 fwd {tag} p{p}"] = digest(conv9.conv9_fwd(x, w, parts=p))
+            out[f"f32 dgrad {tag} p{p}"] = digest(conv9.conv9_fwd(x, conv9.conv9_dgrad_weights(w),
+                                                                  parts=p))
+        out[f"f32 fwd {tag} auto"] = digest(conv9.conv9_fwd(x, w))
+        out[f"f32 wgrad {tag}"] = digest(conv9.conv9_wgrad(x, dy, k))
+        out[f"tf32 fwd {tag}"] = digest(conv9.conv9_fwd(x, w, tf32=True))
+        out[f"tf32 wgrad {tag}"] = digest(conv9.conv9_wgrad(x, dy, k, tf32=True))
+        xb, wb, dyb = inputs(shape, k, torch.bfloat16)
+        out[f"bf16 fwd {tag}"] = digest(conv9.conv9_fwd(xb, wb))
+        out[f"bf16 wgrad {tag}"] = digest(conv9.conv9_wgrad(xb, dyb, k))
+    return out
+
+
+@pytest.mark.cuda
+def test_c64_entries_give_the_bits_recorded_before_the_wide_entries(cuda_device):
+    assert c64_digests(cuda_device) == RECORDED_C64
+
+
 @pytest.mark.cuda
 def test_flash_attention_grads_on_card_match_chunked_autograd(cuda_device):
     q, k, v = (torch.from_numpy(a).to(cuda_device) for a in _qkv(15, (1, 4, 600, 16)))

@@ -38,6 +38,7 @@ def _pair(c, use_attention=False, use_transformer=True):
     (6, 19, 13, False, True, "auto"),     # odd H/W: deconv crop, non-integer resizes
     (64, 16, 24, False, True, "kernel"),  # 64 bands: the shallow conv's plain kernel path
     (64, 17, 11, False, True, "kernel"),
+    (224, 16, 24, False, True, "kernel"),  # 224 bands: the wide shallow conv's plain kernel path
     (6, 20, 18, True, False, "auto"),     # SEBlock variant
     (6, 16, 16, False, False, "torch"),   # no attention block
     (6, 16, 16, False, True, "kernel"),   # 6 bands: the gate sends 'kernel' to F.conv2d

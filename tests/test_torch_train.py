@@ -5,6 +5,9 @@
   gradient and the parameters after Adam, against JAX ``make_train_step``
   from the same params and batch; and a frozen step, which leaves the
   DecompositionNet's weights exactly as they were.
+* The same step at 224 bands (the full-spectrum cubes of the ``li224-f32``
+  benchmark configuration, with its loss weights): terms, gradients and
+  the parameters after Adam against JAX, with the 64-band tolerances.
 * The whole ``Trainer.fit`` trajectory of tests/test_golden_trajectory.py's
   host-pipeline config (6 bands, patch 16, batch 2, four 24x24 cubes, 5
   epochs, ``fused_pipeline: off``, ``sampler: python``, seed 41) from the JAX
@@ -21,12 +24,14 @@
 
 Tolerances, stated relative to each quantity's scale:
 * terms of one step: rtol 1e-5 (float32 sums over 2*16*16*64 values in
-  another order; measured <= 1.8e-6);
+  another order; measured <= 1.8e-6; at 224 bands <= 1.3e-6);
 * gradients: 1e-4 of each gradient's largest magnitude (the backward of ~40
   float32 layers, with c_loss_i_smooth_delta 2000; measured <= 2.7e-5, on
   the attention's q_linear, whose gradients are ~1e-5 against a largest
   gradient of 44), with a floor of 1e-10 of the largest gradient for
-  k_linear's bias, whose exact gradient is zero (measured 5.6e-10 absolute);
+  k_linear's bias, whose exact gradient is zero (measured 5.6e-10 absolute;
+  at 224 bands 2.8e-5 of the scale, on q_linear's bias, and 3.5e-12
+  absolute);
 * parameters after one Adam step: 1e-4 * lr absolute, against the first-step
   formula p - lr * g / (|g| + eps) on the port's own gradients (measured
   7.5e-6 * lr), and against JAX where |g| > 1000 * eps (measured
@@ -72,6 +77,8 @@ COEFFS = {
     "c_loss_i_smooth_delta": 2000.0, "c_loss_fourier": 20.0, "c_loss_spectral_cons": 1.0,
     "alpha_i_smooth_low": 1.0, "alpha_i_smooth_delta": 10.0,
 }
+# The Li et al. indoor recipe's loss weights (config_indoor_li_et_al_cv1.yml).
+COEFFS_LI = {**COEFFS, "c_loss_i_smooth_delta": 20.0, "c_loss_fourier": 0.2}
 LR = 1e-3
 
 
@@ -79,26 +86,26 @@ def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
-def _jax_one_step():
+def _jax_one_step(bands=64, coeffs=COEFFS, freezes=(False, True)):
     """JAX: params, batch, loss terms, grads, params after a step and after a
-    frozen step, at 64 bands."""
-    jm = JaxNet(input_channels=64)
+    frozen step (``freezes``), at ``bands`` bands."""
+    jm = JaxNet(input_channels=bands)
     params = init_params(jm, 3, 16)
     rng = np.random.default_rng(4)
-    batch = (rng.random((2, 16, 16, 64), dtype=np.float32) * 0.4 + 0.05)
-    (_, terms), grads = jax.jit(jax.value_and_grad(_make_loss_fn(jm, COEFFS), has_aux=True))(
+    batch = (rng.random((2, 16, 16, bands), dtype=np.float32) * 0.4 + 0.05)
+    (_, terms), grads = jax.jit(jax.value_and_grad(_make_loss_fn(jm, coeffs), has_aux=True))(
         params, jnp.asarray(batch))
     host_params = _np_tree(params)
     tx = jax_make_optimizer()
     after = {}
-    for freeze in (False, True):
+    for freeze in freezes:
         state = TrainState(params=jax.tree_util.tree_map(jnp.asarray, host_params),
                            opt_state=tx.init(params), step=jnp.zeros((), jnp.int32))
-        new_state, _ = make_train_step(jm, tx, COEFFS, freeze_decom=freeze)(
+        new_state, _ = make_train_step(jm, tx, coeffs, freeze_decom=freeze)(
             state, jnp.asarray(batch), jnp.float32(LR))
         after[freeze] = jax_params_to_state_dict(_np_tree(new_state.params))
-    return dict(sd=jax_params_to_state_dict(host_params), batch=batch,
-                terms={k: float(v) for k, v in terms.items()},
+    return dict(sd=jax_params_to_state_dict(host_params), batch=batch, bands=bands,
+                coeffs=coeffs, terms={k: float(v) for k, v in terms.items()},
                 grads=jax_params_to_state_dict(_np_tree(grads)), after=after)
 
 
@@ -107,8 +114,14 @@ def one_step():
     return _jax_one_step()
 
 
-def _port_model(sd):
-    model = LowLightEnhanceNet(64, conv_impl="kernel")   # the shallow conv through ShallowConv
+@pytest.fixture(scope="module")
+def one_step_224():
+    return _jax_one_step(224, COEFFS_LI, freezes=(False,))
+
+
+def _port_model(sd, bands=64):
+    # The shallow conv through ShallowConv (its plain passes on the CPU).
+    model = LowLightEnhanceNet(bands, conv_impl="kernel")
     model.load_state_dict(sd, strict=True)
     return model.train()
 
@@ -130,10 +143,10 @@ def _assert_adam_step_matches(model, one_step, freeze):
                                    atol=1e-4 * LR, rtol=0, err_msg=f"{name}: against JAX")
 
 
-def test_one_step_at_64_bands_matches_jax(one_step):
-    model = _port_model(one_step["sd"])
+def _assert_one_step_matches_jax(one_step):
+    model = _port_model(one_step["sd"], one_step["bands"])
     opt = make_optimizer(model, LR)
-    terms = train_step(model, opt, torch.from_numpy(one_step["batch"]), COEFFS)
+    terms = train_step(model, opt, torch.from_numpy(one_step["batch"]), one_step["coeffs"])
     assert tuple(terms) == LOSS_KEYS == JAX_LOSS_KEYS
     for k in LOSS_KEYS:
         assert terms[k].requires_grad is False
@@ -148,6 +161,16 @@ def test_one_step_at_64_bands_matches_jax(one_step):
         atol = max(1e-4 * float(np.abs(want).max()), floor)
         np.testing.assert_allclose(p.grad.numpy(), want, atol=atol, rtol=0, err_msg=name)
     _assert_adam_step_matches(model, one_step, freeze=False)
+    return model
+
+
+def test_one_step_at_64_bands_matches_jax(one_step):
+    _assert_one_step_matches_jax(one_step)
+
+
+def test_one_step_at_224_bands_matches_jax(one_step_224):
+    model = _assert_one_step_matches_jax(one_step_224)
+    assert model.decomposition_net.shallow_conv[0].weight.shape == (64, 224, 9, 9)
 
 
 def test_frozen_step_keeps_the_decomposition_net(one_step):
